@@ -1,4 +1,5 @@
-"""Chip smoke for the PyTorch/CUDA port: the `segment` path on one GPU.
+"""Chip smoke for the PyTorch/CUDA port: the `segment` path and the stage
+probe on one GPU.
 
     python3 chip_smoke.py
 
@@ -6,9 +7,10 @@ Needs one CUDA card and ``nvcc``; exits non-zero, printing no result,
 without them (or when run outside a checkout of the repository).  Phases,
 each of which fails the script on its own:
 
-1. **Build** the fused segmentation kernel (``csrc/segment_fused.cu``)
-   from the checkout's source with nvcc; print the build seconds, the
-   ptxas register/spill report and the card's name and power limit.
+1. **Build** the kernels (``csrc/segment_fused.cu``: the fused
+   segmentation kernel and the family kernel) from the checkout's source
+   with nvcc; print the build seconds, the ptxas register/spill report and
+   the card's name and power limit.
 2. **Kernel against plain version** on 262,144 px x 40 years of a seeded
    mixed-regime population, default parameters: float32 decisions agree
    on >= 99.9% of pixels and floats within 1e-5 on the agreeing pixels;
@@ -18,15 +20,33 @@ each of which fails the script on its own:
    the plain PyTorch version with CUDA events after a warm-up, and
    computes the kernel's roofline bound from this run's inputs.
 3. **Chunked against unchunked**: chunk 65,536 gives identical decisions.
+3b. **Family kernel against its plain version** on phase 2's population:
+   vertex sets equal on every pixel in float64 and on >= 99.9% in
+   float32, the despiked series and SSEs within 1e-8 / 1e-5 on the
+   agreeing pixels (same NaN/infinity rule); the family kernel followed
+   by the plain tail on the card makes the fused kernel's decisions on
+   every pixel in float64 and >= 99.9% in float32.  Times the kernel and
+   its plain version and computes its bound.
 4. **Scene**: a 2048 x 2048 x 40-year synthetic stack through the port's
    ``run_stack`` + ``assemble_outputs`` at tile_size 512 (16 tiles of
    262,144 px); the kernel's launch count must be one per tile, the
    manifest must record impl "cuda", and fit_rate must lie in (0, 1].
    Two more runs into fresh workdirs give the spread of px/s; the host's
    core count and whether the native gather library loaded are printed.
+4b. **FTV + change scene**: phase 4's stack again, with
+   ``ftv_indices=("ndvi", "tcw")`` and ``ChangeFilter(max_dur=4)``: one
+   fused launch per tile, impl "cuda", the FTV and the seven change
+   rasters assembled, fit_rate in (0, 1]; px/s and stage_s printed.
 5. **CLI**: ``synth``, ``segment`` on the default device, then a second
-   ``segment`` that resumes every tile.
+   ``segment`` that resumes every tile; then ``segment --ftv ndvi
+   --change --change-mmu 4`` and ``change OUT --mmu 4``.
+6. **Stage probe** (``tools/probe.py stages``) at 262,144 px: the fused
+   kernel, the family kernel, family + plain tail and the plain version,
+   timed with CUDA events; its JSON line is printed.  This is the family
+   kernel's path: its launch count is read around this phase.
 
+Each kernel's launch count is set to 0 just before its path (phase 4 for
+the fused kernel, phase 6 for the family kernel) and read just after.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -59,6 +79,10 @@ F32_ATOL = 1e-5
 F64_ATOL = 1e-8
 #: extra timed scene runs after the counted one, for the spread of px/s
 SCENE_REPEATS = 2
+#: secondary indices of the FTV + change scene (TCW needs all six bands)
+FTV = ("ndvi", "tcw")
+#: calls per variant the stage probe times
+PROBE_REPS = 5
 #: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
@@ -114,9 +138,14 @@ def max_float_err(a, b, agree: torch.Tensor) -> float:
     A NaN or an infinity in one output must stand at the same place (and,
     for an infinity, with the same sign) in the other; the difference is
     then taken over the finite pairs."""
+    return max_pair_err(((n, getattr(a, n), getattr(b, n)) for n in a._fields), agree)
+
+
+def max_pair_err(pairs, agree: torch.Tensor) -> float:
+    """:func:`max_float_err` over ``(name, a, b)`` tensor pairs."""
     err = 0.0
-    for name in a._fields:
-        x, y = getattr(a, name)[agree], getattr(b, name)[agree]
+    for name, x, y in pairs:
+        x, y = x[agree], y[agree]
         if not x.dtype.is_floating_point:
             continue
         assert torch.equal(x.isnan(), y.isnan()), f"{name}: NaN pattern differs"
@@ -162,9 +191,15 @@ def main() -> int:
     from land_trendr_tpu_torch.io import native
     from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack
     from land_trendr_tpu_torch.ops import segment_cuda
-    from land_trendr_tpu_torch.ops.segment import torch_segment_pixels
+    from land_trendr_tpu_torch.ops.change import CHANGE_PRODUCTS, ChangeFilter
+    from land_trendr_tpu_torch.ops.segment import (
+        _select_and_assemble,
+        torch_family_stats,
+        torch_segment_pixels,
+    )
     from land_trendr_tpu_torch.runtime.driver import RunConfig, assemble_outputs, run_stack
     from land_trendr_tpu_torch.runtime.stack import stack_from_synthetic
+    from land_trendr_tpu_torch.tools import probe
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -246,7 +281,59 @@ def main() -> int:
     identical = all(torch.equal(getattr(ch, f), getattr(k32, f)) for f in ch._fields)
     log(f"[chunked] chunk {CHUNK}: decisions identical on all {POP_PX} px; "
         f"all fields bit-identical: {identical}")
-    del k32, p32, k64, p64, ch, job, v64
+
+    # ---- phase 3b: family kernel against its plain version --------------
+    def family_err(k, p, agree):
+        return max_pair_err((("despiked", k[0], p[0]), ("sses", k[2], p[2])), agree)
+
+    f32 = segment_cuda.cuda_family_stats(years, v32, mask, params)
+    pf32 = torch_family_stats(years, v32, mask, params)
+    torch.cuda.synchronize()
+    fagree32 = (f32[1] == pf32[1]).all(dim=(1, 2))
+    frate32 = float(fagree32.float().mean())
+    ferr32 = family_err(f32, pf32, fagree32)
+    log(f"[family] f32 vertex sets agree on {frate32:.6f} of pixels (floor {F32_FLOOR}), "
+        f"max |despiked/sse diff| there {ferr32:.3e} (limit {F32_ATOL}), "
+        f"bit-identical there: {bit_identical(f32, pf32, fagree32)}")
+    assert frate32 >= F32_FLOOR, f"f32 family vertex sets agree on {frate32}"
+    assert ferr32 <= F32_ATOL, f"f32 family float disagreement {ferr32}"
+    f64 = segment_cuda.cuda_family_stats(years, v64, mask, params)
+    pf64 = torch_family_stats(years, v64, mask, params)
+    torch.cuda.synchronize()
+    fagree64 = (f64[1] == pf64[1]).all(dim=(1, 2))
+    n_bad = int((~fagree64).sum())
+    assert n_bad == 0, f"f64 family vertex sets differ on {n_bad} pixels"
+    ferr64 = family_err(f64, pf64, fagree64)
+    log(f"[family] f64 vertex sets equal on all {POP_PX} px, max |despiked/sse diff| "
+        f"{ferr64:.3e} (limit {F64_ATOL}), bit-identical: {bit_identical(f64, pf64, fagree64)}")
+    assert ferr64 <= F64_ATOL, f"f64 family float disagreement {ferr64}"
+    # the family kernel + the plain tail on the card against the fused kernel
+    tail64 = _select_and_assemble(years, v64, mask, *f64, params)
+    n_bad = int((~decisions(tail64, k64)).sum())
+    assert n_bad == 0, f"f64 family + tail decisions differ from the fused kernel on {n_bad} px"
+    tail32 = _select_and_assemble(years, v32, mask, *f32, params)
+    trate32 = float(decisions(tail32, k32).float().mean())
+    log(f"[family] family kernel + plain tail vs fused kernel: f64 decisions identical on "
+        f"all {POP_PX} px, f32 on {trate32:.6f}")
+    assert trate32 >= F32_FLOOR, f"f32 family + tail decisions agree on {trate32}"
+    fjob = segment_cuda._FamilyLaunch(years, v32, mask, params)
+    fam_ms = cuda_ms(fjob.run, reps=20)
+    fam_wrapper_ms = cuda_ms(lambda: segment_cuda.cuda_family_stats(years, v32, mask, params), reps=20)
+    fam_plain_ms = cuda_ms(lambda: torch_family_stats(years, v32, mask, params), reps=2)
+    fops = segment_cuda.cuda_family_op_counts(years, v32, mask, params)
+    f_ops = int(fops.sum())
+    f_bytes = bytes_in + POP_PX * (4 * NY + nm * NY + 4 * nm)
+    f_bytes_ms = f_bytes / HBM_BYTES_S * 1e3
+    f_ops_ms = f_ops / FP32_OPS_S * 1e3
+    fam_bound_ms = max(f_bytes_ms, f_ops_ms)
+    fam_bound_by = "bytes" if f_bytes_ms >= f_ops_ms else "operations"
+    log(f"[family] {POP_PX} px x {NY} yr f32: kernel {fam_ms:.4f} ms, wrapper "
+        f"{fam_wrapper_ms:.4f} ms, plain {fam_plain_ms:.2f} ms")
+    log(f"[family] bound: {f_bytes} B -> {f_bytes_ms:.4f} ms at 3.35 TB/s; {f_ops} FP32 ops "
+        f"({f_ops / POP_PX:.0f}/px, p50 {int(fops.median())} max {int(fops.max())}) -> "
+        f"{f_ops_ms:.4f} ms at 67 TFLOP/s; bound {fam_bound_ms:.4f} ms by {fam_bound_by}; "
+        f"kernel at {100 * fam_bound_ms / fam_ms:.1f}% of it")
+    del k32, p32, k64, p64, ch, job, v64, f32, pf32, f64, pf64, tail32, tail64, fjob
 
     # ---- phase 4: scene through run_stack + assemble_outputs ------------
     t0 = time.perf_counter()
@@ -289,6 +376,36 @@ def main() -> int:
             log(f"[scene] repeat {rep + 1}: px_per_s {again['px_per_s']} "
                 f"wall_s {again['wall_s']} stage_s {json.dumps(again['stage_s'])}")
             shutil.rmtree(work)
+
+    # ---- phase 4b: the scene with FTV + change --------------------------
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_", dir=ROOT) as tmp:
+        cfg = RunConfig(
+            tile_size=TILE,
+            workdir=os.path.join(tmp, "work"),
+            out_dir=os.path.join(tmp, "out"),
+            ftv_indices=FTV,
+            change_filt=ChangeFilter(max_dur=4.0),
+        )
+        segment_cuda.LAUNCHES = 0
+        summary = run_stack(stack, cfg, device="cuda")
+        tail_launches = segment_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        paths = assemble_outputs(stack, cfg)
+        assemble_s = time.perf_counter() - t0
+        with open(os.path.join(cfg.workdir, "manifest.jsonl")) as f:
+            header = json.loads(f.readline())
+        log(f"[ftv+change] ftv {','.join(FTV)}, change max_dur 4: px_per_s "
+            f"{summary['px_per_s']} wall_s {summary['wall_s']} fit_rate "
+            f"{summary['fit_rate']:.4f} launches {tail_launches} assemble_s {assemble_s:.2f} "
+            f"outputs {len(paths)}")
+        log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
+        log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
+        assert summary["tiles_done"] == n_tiles, summary
+        assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
+        assert header.get("context", {}).get("impl") == "cuda", header
+        assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
+        want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
+        assert want <= set(paths), sorted(want - set(paths))
     del stack
 
     # ---- phase 5: the CLI ----------------------------------------------
@@ -312,6 +429,23 @@ def main() -> int:
         assert first["impl"] == "cuda" and first["device"].startswith("cuda"), first
         assert first["tiles_done"] == first["tiles"], first
         assert again["tiles_skipped_resume"] == again["tiles"] and again["tiles_done"] == 0, again
+        tail = json.loads(cli("segment", "D", "--ftv", "ndvi", "--change", "--change-mmu", "4",
+                              "--workdir", "w_tail", "--out-dir", "o_tail"))
+        maps = json.loads(cli("change", "o_tail", "--mmu", "4", "--dest", "c_tail"))["outputs"]
+        log(f"[cli] segment --ftv ndvi --change --change-mmu 4: impl {tail['summary']['impl']}, "
+            f"{len(tail['outputs'])} rasters; change --mmu 4: {len(maps)} rasters")
+        assert tail["summary"]["impl"] == "cuda", tail["summary"]
+        assert {"ftv_ndvi", "change_mask", "change_yod"} <= set(tail["outputs"]), tail["outputs"]
+        assert sorted(maps) == sorted(CHANGE_PRODUCTS), maps
+
+    # ---- phase 6: the stage probe (the family kernel's path) ------------
+    segment_cuda.LAUNCHES = 0
+    segment_cuda.FAMILY_LAUNCHES = 0
+    stages = probe.stages(POP_PX, "cuda", reps=PROBE_REPS)
+    family_launches = segment_cuda.FAMILY_LAUNCHES
+    log(f"[probe] family kernel launches {family_launches}, fused {segment_cuda.LAUNCHES}")
+    print(json.dumps(stages), flush=True)
+    assert family_launches > 0, "the stage probe never launched the family kernel"
 
     kernel = {
         "name": "segment_fused",
@@ -327,8 +461,22 @@ def main() -> int:
         "library_ms": None,
         "wrapper_ms": wrapper_ms,
     }
+    family = {
+        "name": "family_stats",
+        "route": "cuda",
+        "source": "land_trendr_tpu_torch/csrc/segment_fused.cu",
+        "replaces": "land_trendr_tpu/ops/segment_pallas.py:938",
+        "launches": family_launches,
+        "max_abs_err": ferr32,
+        "ms": fam_ms,
+        "plain_ms": fam_plain_ms,
+        "bound_ms": fam_bound_ms,
+        "bound_by": fam_bound_by,
+        "library_ms": None,
+        "wrapper_ms": fam_wrapper_ms,
+    }
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, family]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -39,6 +39,27 @@
 // per-thread arrays may spill to local memory (L1-cached); registers and
 // spills are reported by `-Xptxas -v`.
 //
+// A second kernel, `family_stats_kernel`, replaces the TPU kernel
+// `family_stats_pallas` (land_trendr_tpu/ops/segment_pallas.py:938; body
+// `_make_family_kernel`, :645, which runs `_run_stages`, :471): stages
+// 1-4a unfused — the despiked series (0 at invalid years), each model-
+// family member's vertex set on the year axis and the SSE of its fit.  Its
+// plain version is `torch_family_stats` in ops/segment.py; it shares every
+// device function with the fused kernel.  It differs from the fused
+// kernel's first half in one respect: it runs the family for EVERY pixel
+// (none, one or two valid years, below min_observations, a flat series),
+// as `_run_stages` does, where the fused kernel skips pixels the tail will
+// call flat.  What bounds it: a pixel reads NY values + NY mask bytes and
+// writes NY words, NM*NY vertex-set bytes and NM words — at NY = 40,
+// NM = 6 0.62 KB (f32), ~0.049 ms for 262,144 px at 3.35 TB/s — against
+// ~1.2 * 10^4 FP32 operations per pixel (no scoring), about the same time
+// at the FP32 peak.  The design keeps the fused kernel's answer for the
+// arithmetic (one thread per pixel, compacted per-thread series, vertex
+// sets as 64-bit words) and writes every output year-major, one row per
+// (member, year), so a warp's stores to a row are one contiguous run of
+// 32 bytes (vertex sets) or 128 bytes (words) instead of one store every
+// NM*NY bytes per thread.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
 // --fmad=false keeps every multiply and add rounded on its own, step for
@@ -714,6 +735,121 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
 }
 
 template <typename T>
+struct FamilyOuts {
+  T* despiked;       // (NY, ld)
+  uint8_t* vmasks;   // (NM * NY, ld): row m * NY + j is member m's year j
+  T* sses;           // (NM, ld)
+  long long ld;
+};
+
+// Stages 1-4a for every pixel: despiked series, family vertex sets, SSEs.
+template <typename T, class O>
+__global__ void __launch_bounds__(CUDA_BLOCK)
+family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
+                    const uint8_t* __restrict__ mask, long long px, long long in_ld, int ny,
+                    FamilyOuts<T> o, Params p, long long* __restrict__ op_count) {
+  __shared__ T ts[MAX_NY];
+  if (threadIdx.x < ny) ts[threadIdx.x] = years[threadIdx.x];
+  __syncthreads();
+  const long long pix = (long long)blockIdx.x * CUDA_BLOCK + threadIdx.x;
+  if (pix >= px) return;
+  const long long ld = o.ld;
+
+  O ops;
+  Series<T> s;
+  s.ts = ts;
+  int n = 0;
+  for (int j = 0; j < ny; ++j) {
+    if (mask[j * in_ld + pix]) {
+      s.idx[n] = (uint8_t)j;
+      s.y[n] = values[j * in_ld + pix];
+      ++n;
+    }
+  }
+  s.n = n;
+
+  // Stage 1 — despike (a no-op below three valid years)
+  despike(s, p, ops);
+  T y_range = 0, t_lo = 0, t_rng = 1, y_lo = 0, y_rng = 1;
+  uint64_t vm = 0;
+  if (n > 0) {
+    ops.add(2LL * n + 2);
+    T y_hi = s.y[0];
+    y_lo = s.y[0];
+    for (int i = 1; i < n; ++i) {
+      y_lo = t_min(y_lo, s.y[i]);
+      y_hi = t_max(y_hi, s.y[i]);
+    }
+    y_range = t_max(y_hi - y_lo, (T)0);
+    t_lo = s.t(0);
+    const T t_hi = s.t(n - 1);
+    t_rng = t_hi > t_lo ? t_hi - t_lo : (T)1;
+    y_rng = y_hi > y_lo ? y_hi - y_lo : (T)1;
+    vm = (1ull << 0) | (1ull << (n - 1));  // one bit when n == 1
+  }
+  // Stage 2 — candidates + angle cull (both no-ops on fewer than 3 vertices)
+  vm = find_candidates(s, vm, p, ops);
+  for (int r = 0; r < p.overshoot; ++r)
+    vm = remove_weakest(s, vm, p.nv, t_lo, t_rng, y_lo, y_rng, ops);
+  // Stage 4a — model family, written member by member
+  for (int m = 0; m < p.nm; ++m) {
+    uint64_t year_word = 0;  // the member's vertex set on the year axis
+    for (uint64_t w = vm; w; w &= w - 1) year_word |= 1ull << s.idx[__ffsll((long long)w) - 1];
+    uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
+    for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)((year_word >> j) & 1ull);
+    // below two vertices (fewer than two valid years) the fit is the
+    // series itself: SSE 0, as in the plain version
+    const T sse = __popcll((long long)vm) >= 2
+                      ? fit_model(s, vm, y_range, p, (T*)nullptr, ops)
+                      : (T)0;
+    o.sses[m * ld + pix] = sse;
+    if (m + 1 < p.nm) vm = remove_weakest(s, vm, 2, t_lo, t_rng, y_lo, y_rng, ops);
+  }
+  int c = 0;
+  for (int j = 0; j < ny; ++j) {
+    T v = 0;
+    if (c < n && s.idx[c] == j) {
+      v = s.y[c];
+      ++c;
+    }
+    o.despiked[j * ld + pix] = v;
+  }
+  if (op_count != nullptr) op_count[pix] = CountOf<O>::get(ops);
+}
+
+template <typename T>
+int launch_family(const void* years, const void* values, const void* mask, long long px,
+                  long long in_ld, int ny, void* despiked, void* vmasks, void* sses,
+                  long long out_ld, int max_segments, int overshoot, double spike, double rt,
+                  int prevent, void* stream, long long* op_count) {
+  Params p = {};
+  p.nm = max_segments;
+  p.nv = max_segments + 1;
+  p.nc = max_segments + 1 + overshoot;
+  p.overshoot = overshoot;
+  p.spike = spike;
+  p.rt = rt;
+  p.prevent = prevent;
+  if (ny < 1 || ny > MAX_NY || p.nc > MAX_NC || max_segments < 1 || overshoot < 0 || px < 0)
+    return (int)cudaErrorInvalidValue;
+  FamilyOuts<T> o;
+  o.despiked = (T*)despiked;
+  o.vmasks = (uint8_t*)vmasks;
+  o.sses = (T*)sses;
+  o.ld = out_ld;
+  if (px == 0) return 0;
+  const long long grid = (px + CUDA_BLOCK - 1) / CUDA_BLOCK;
+  if (std::is_same<T, float>::value && op_count != nullptr) {
+    family_stats_kernel<T, CountOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, op_count);
+  } else {
+    family_stats_kernel<T, NoOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(const void* years, const void* values, const void* mask, long long px,
            long long in_ld, int ny, void* despiked, void* fitted, void* n_vertices,
            void* vidx, void* vyear, void* vsrc, void* vfit, void* smag, void* sdur,
@@ -788,6 +924,22 @@ int lt_segment_fused_f64(LT_ARGS) { return launch<double>(LT_PASS, nullptr); }
 // `op_count` (PX int64) — the roofline bound's operation count.
 int lt_segment_fused_f32_opcount(LT_ARGS, void *op_count) {
   return launch<float>(LT_PASS, (long long *)op_count);
+}
+
+#define LT_FAMILY_ARGS                                                                    \
+  const void *years, const void *values, const void *mask, long long px, long long in_ld, \
+      int ny, void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments, \
+      int overshoot, double spike, double rt, int prevent, void *stream
+#define LT_FAMILY_PASS                                                                   \
+  years, values, mask, px, in_ld, ny, despiked, vmasks, sses, out_ld, max_segments,     \
+      overshoot, spike, rt, prevent, stream
+
+int lt_family_stats_f32(LT_FAMILY_ARGS) { return launch_family<float>(LT_FAMILY_PASS, nullptr); }
+int lt_family_stats_f64(LT_FAMILY_ARGS) { return launch_family<double>(LT_FAMILY_PASS, nullptr); }
+
+// The float32 family kernel with its per-pixel operation tally.
+int lt_family_stats_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
+  return launch_family<float>(LT_FAMILY_PASS, (long long *)op_count);
 }
 
 }  // extern "C"

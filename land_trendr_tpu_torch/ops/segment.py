@@ -30,6 +30,13 @@ kernel expression for expression:
 
 So on the card the kernel and this version make the same decisions; in
 float64 the decisions equal the oracle's, as the JAX kernel's do.
+
+The pipeline is split as the JAX package's is: :func:`torch_family_stats`
+(stages 1–4a — despike, candidates, angle cull, the model family; the
+plain version of the family kernel, with the JAX layout at its face) and
+:func:`_select_and_assemble` (scoring, selection, the chosen model's
+refit and the 13 outputs).  :func:`torch_segment_pixels` is the two in a
+row, bit for bit what one fused pass computes.
 Float32 follows the same tolerance contract as the JAX kernel: knife-edge
 decisions may flip on a rare pixel (gated at 99.9% exact-vertex agreement
 with float64).
@@ -52,6 +59,7 @@ __all__ = [
     "SegOutputs",
     "betainc",
     "lentz_iters",
+    "torch_family_stats",
     "torch_segment_pixels",
     "torch_segment_pixels_chunked",
 ]
@@ -644,61 +652,90 @@ def _f_stat_p_and_logp(ss0, sse, n, m, iters: int):
 
 
 # ---------------------------------------------------------------------------
-# the whole pipeline
+# the whole pipeline: stages 1–4a (the model family), then the tail
 # ---------------------------------------------------------------------------
 
 
-def torch_segment_pixels(
-    years: torch.Tensor,
-    values: torch.Tensor,
-    mask: torch.Tensor,
-    params: LTParams = LTParams(),
-) -> SegOutputs:
-    """Segment a ``(PX, NY)`` batch of series — the plain PyTorch version.
+class _Series(NamedTuple):
+    """One batch compacted per pixel: valid years first, in year order."""
 
-    ``years`` is the shared ``(NY,)`` year axis, ``values`` the
-    disturbance-positive index series, ``mask`` the boolean validity mask
-    (non-finite values are invalid regardless).  Runs on the tensors' own
-    device, in float64 for float64 values and float32 otherwise.  Returns
-    :class:`SegOutputs` with a leading PX axis on every field.
-    """
+    t_full: torch.Tensor  # (NY,) year axis in the working dtype
+    raw: torch.Tensor     # (P, NY) values in the working dtype, year axis
+    m: torch.Tensor       # (P, NY) cleaned validity mask, year axis
+    n: torch.Tensor       # (P,) valid years, int64
+    order: torch.Tensor   # (P, NY) compacted position -> year index
+    valid: torch.Tensor   # (P, NY) compacted position < n
+    t: torch.Tensor       # (P, NY) compacted years (0 past n)
+    raw_c: torch.Tensor   # (P, NY) compacted values (0 past n)
+
+
+def _compact(cx: _Ctx, years, values, mask) -> _Series:
+    """Clean the mask (non-finite values are invalid) and move each row's
+    valid years to the front of the row, in year order."""
+    ny, zero, iota = cx.ny, cx.zero, cx.iota
+    t_full = years.to(device=cx.device, dtype=cx.dtype)
+    raw = values.to(cx.dtype)
+    m = mask.to(device=cx.device, dtype=torch.bool) & torch.isfinite(raw)
+    n = m.sum(-1)
+    order = torch.sort(torch.where(m, iota, ny + iota), dim=-1).indices
+    valid = iota < n.unsqueeze(-1)
+    t = torch.where(valid, t_full[order], zero)
+    raw_c = torch.where(valid, raw.gather(-1, order), zero)
+    return _Series(t_full, raw, m, n, order, valid, t, raw_c)
+
+
+def _ranges(cx: _Ctx, s: _Series, y: torch.Tensor):
+    """``(y_lo, y_hi, y_range, t_lo, t_hi)`` of the (despiked) series."""
+    big = torch.tensor(torch.finfo(cx.dtype).max, dtype=cx.dtype, device=cx.device)
+    y_lo = torch.where(s.valid, y, big).min(-1).values
+    y_hi = torch.where(s.valid, y, -big).max(-1).values
+    y_range = torch.clamp(y_hi - y_lo, min=0.0)
+    t_lo = s.t[:, 0]
+    t_hi = _take(s.t, (s.n - 1).clamp(min=0))
+    return y_lo, y_hi, y_range, t_lo, t_hi
+
+
+def _check_batch(years, values, mask) -> None:
     if values.dim() != 2 or mask.shape != values.shape:
         raise ValueError(
             f"values/mask must be matching (PX, NY); got {tuple(values.shape)} "
             f"and {tuple(mask.shape)}"
         )
-    px, ny = values.shape
+    ny = values.shape[1]
     if years.shape != (ny,):
         raise ValueError(f"years must be ({ny},); got {tuple(years.shape)}")
-    dtype = result_dtype(values.dtype)
-    dev = values.device
-    cx = _Ctx(params, dtype, dev, ny)
-    nv, nm = params.max_vertices, params.max_segments
-    iota = cx.iota
-    zero, one = cx.zero, cx.one
 
-    t_full = years.to(device=dev, dtype=dtype)
-    raw = values.to(dtype)
-    m = mask.to(device=dev, dtype=torch.bool) & torch.isfinite(raw)
-    n = m.sum(-1)                                               # (P,) int64
-    # compaction: each row's valid years first, in year order
-    order = torch.sort(torch.where(m, iota, ny + iota), dim=-1).indices
-    valid = iota < n.unsqueeze(-1)
-    t = torch.where(valid, t_full[order], zero)
-    raw_c = torch.where(valid, raw.gather(-1, order), zero)
+
+def torch_family_stats(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stages 1–4a of the pipeline — the plain version of the family kernel.
+
+    Counterpart of the JAX package's ``family_stats_pallas``, with its
+    layout: returns ``(despiked (PX, NY), vmasks (PX, NM, NY) bool,
+    sses (PX, NM))`` — the despiked series on the year axis (0 at invalid
+    years), each model-family member's vertex set on the year axis, and
+    the SSE of its fit, in pruning order (most vertices first).  Every
+    pixel is computed, whatever its valid-year count or range: the family
+    of a pixel the tail will call flat is still returned.
+    """
+    _check_batch(years, values, mask)
+    px, ny = values.shape
+    cx = _Ctx(params, result_dtype(values.dtype), values.device, ny)
+    nv, nm = params.max_vertices, params.max_segments
+    iota, one = cx.iota, cx.one
+    s = _compact(cx, years, values, mask)
+    t, valid = s.t, s.valid
 
     # Stage 1 — despike
-    y = _despike(cx, t, raw_c, n)
-    big = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=dev)
-    y_lo = torch.where(valid, y, big).min(-1).values
-    y_hi = torch.where(valid, y, -big).max(-1).values
-    y_range = torch.clamp(y_hi - y_lo, min=0.0)
-    last = (n - 1).clamp(min=0)
-    t_lo = t[:, 0]
-    t_hi = _take(t, last)
+    y = _despike(cx, t, s.raw_c, s.n)
+    y_lo, y_hi, y_range, t_lo, t_hi = _ranges(cx, s, y)
 
     # Stage 2 — candidates + angle cull
-    ends = (iota == 0) | (iota == last.unsqueeze(-1))
+    ends = (iota == 0) | (iota == (s.n - 1).clamp(min=0).unsqueeze(-1))
     vmask = valid & ends
     vmask = _find_candidates(cx, t, y, valid, vmask)
     t_rng = torch.where(t_hi > t_lo, t_hi - t_lo, one)
@@ -708,7 +745,7 @@ def torch_segment_pixels(
     for _ in range(params.vertex_count_overshoot):
         vmask = _remove_weakest(cx, xs, ys, vmask, params.max_candidates, nv)
 
-    # Stage 4 — model family: vertex set + SSE per member
+    # Stage 4a — model family: vertex set + SSE per member
     vmasks, sses = [], []
     for k in range(nm):
         vmasks.append(vmask)
@@ -716,8 +753,85 @@ def torch_segment_pixels(
         sses.append(sse)
         if k + 1 < nm:
             vmask = _remove_weakest(cx, xs, ys, vmask, nv, 2)
-    vmasks_t = torch.stack(vmasks, dim=1)                       # (P, NM, NY)
-    sses_t = torch.stack(sses, dim=1)                           # (P, NM)
+
+    # back to the year axis: compacted position j is year order[j]; past
+    # n both y and the vertex sets are 0 / False, so invalid years are too
+    despiked = torch.empty_like(y).scatter_(-1, s.order, y)
+    vm_c = torch.stack(vmasks, dim=1)                           # (P, NM, NY)
+    vmasks_y = torch.empty_like(vm_c).scatter_(
+        -1, s.order.unsqueeze(1).expand(px, nm, ny), vm_c
+    )
+    return despiked, vmasks_y, torch.stack(sses, dim=1)
+
+
+def _interp_through_vertices(cx: _Ctx, t_full, tv, fv, k_live, pad_t):
+    """Full-year trajectory through each row's ``k_live`` vertices
+    (years ``tv``, fits ``fv``, both ``(P, NV)``) — the ``np.interp``
+    replica of the JAX package: dead slots repeat ``(pad_t, last fit)``."""
+    nv = tv.shape[-1]
+    one = cx.one
+    slot = torch.arange(nv, device=cx.device)
+    live_v = slot < k_live.unsqueeze(-1)
+    last_fit = _take(fv, (k_live - 1).clamp(min=0))
+    xp = torch.where(live_v, tv, pad_t.unsqueeze(-1))
+    fp = torch.where(live_v, fv, last_fit.unsqueeze(-1))
+    tt = t_full.expand(tv.shape[0], cx.ny)
+    cnt = (xp.unsqueeze(1) <= tt.unsqueeze(-1)).sum(-1)         # (P, NY)
+    i = cnt.clamp(1, nv - 1)
+    fp_i, fp_im1 = _take(fp, i), _take(fp, i - 1)
+    xp_i, xp_im1 = _take(xp, i), _take(xp, i - 1)
+    df = fp_i - fp_im1
+    dx = xp_i - xp_im1
+    delta = tt - xp_im1
+    eps = torch.finfo(cx.dtype).eps
+    eps_g = cx.c(math.ulp(eps) if cx.dtype == torch.float64 else _ulp32(eps))
+    dx0 = torch.abs(dx) <= eps_g
+    f = torch.where(dx0, fp_im1, fp_im1 + (delta / torch.where(dx0, one, dx)) * df)
+    f = torch.where(tt < xp[:, :1], fp[:, :1], f)
+    return torch.where(tt > xp[:, -1:], fp[:, -1:], f)
+
+
+def _select_and_assemble(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    despiked: torch.Tensor,
+    vmasks: torch.Tensor,
+    sses: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> SegOutputs:
+    """Scoring, model selection, the chosen model's refit and output
+    assembly over a model family — the counterpart of the JAX package's
+    ``segment._select_and_assemble``.
+
+    ``despiked``/``vmasks``/``sses`` are :func:`torch_family_stats`'s
+    outputs (or the family kernel's); ``years``/``values``/``mask`` the
+    inputs they came from (the raw series feeds the flat no-fit model).
+    """
+    _check_batch(years, values, mask)
+    px, ny = values.shape
+    nv, nm = params.max_vertices, params.max_segments
+    if (
+        despiked.shape != (px, ny)
+        or vmasks.shape != (px, nm, ny)
+        or vmasks.dtype != torch.bool
+        or sses.shape != (px, nm)
+    ):
+        raise ValueError(
+            f"family must be despiked ({px}, {ny}), vmasks ({px}, {nm}, {ny}) bool "
+            f"and sses ({px}, {nm}); got {tuple(despiked.shape)}, "
+            f"{tuple(vmasks.shape)} {vmasks.dtype} and {tuple(sses.shape)}"
+        )
+    dtype = result_dtype(values.dtype)
+    dev = values.device
+    cx = _Ctx(params, dtype, dev, ny)
+    zero, one = cx.zero, cx.one
+    s = _compact(cx, years, values, mask)
+    n, order, valid, t, raw_c = s.n, s.order, s.valid, s.t, s.raw_c
+    y = torch.where(valid, despiked.to(dtype).gather(-1, order), zero)
+    vmasks_t = vmasks.gather(-1, order.unsqueeze(1).expand(px, nm, ny)) & valid.unsqueeze(1)
+    sses_t = sses.to(dtype)
+    _, _, y_range, _, t_hi = _ranges(cx, s, y)
 
     # scoring + selection
     n_f = n.to(dtype)
@@ -772,26 +886,8 @@ def torch_segment_pixels(
     pos_dur = dur > 0.0
     rate = torch.where(seg_live & pos_dur, mag / torch.where(pos_dur, dur, one), zero)
 
-    # fitted trajectory over every year: the np.interp replica of the JAX
-    # package (dead vertex slots repeat (t_hi, last fit))
-    live_v = slot < k_live.unsqueeze(-1)
-    last_fit = _take(vfit, (k_live - 1).clamp(min=0))
-    xp = torch.where(live_v, tvc, t_hi.unsqueeze(-1))
-    fp = torch.where(live_v, vfit, last_fit.unsqueeze(-1))
-    tt = t_full.expand(px, ny)
-    cnt = (xp.unsqueeze(1) <= tt.unsqueeze(-1)).sum(-1)         # (P, NY)
-    i = cnt.clamp(1, nv - 1)
-    fp_i, fp_im1 = _take(fp, i), _take(fp, i - 1)
-    xp_i, xp_im1 = _take(xp, i), _take(xp, i - 1)
-    df = fp_i - fp_im1
-    dx = xp_i - xp_im1
-    delta = tt - xp_im1
-    eps = torch.finfo(dtype).eps
-    eps_g = cx.c(math.ulp(eps) if dtype == torch.float64 else _ulp32(eps))
-    dx0 = torch.abs(dx) <= eps_g
-    f = torch.where(dx0, fp_im1, fp_im1 + (delta / torch.where(dx0, one, dx)) * df)
-    f = torch.where(tt < xp[:, :1], fp[:, :1], f)
-    f = torch.where(tt > xp[:, -1:], fp[:, -1:], f)
+    # fitted trajectory over every year
+    f = _interp_through_vertices(cx, s.t_full, tvc, vfit, k_live, t_hi)
     fitted_full = torch.where(mv.unsqueeze(-1), f, mean.unsqueeze(-1))
 
     rmse_fit = torch.sqrt(sse_c / n_safe)
@@ -803,11 +899,12 @@ def torch_segment_pixels(
     # despiked output on the year axis: valid years get the despiked
     # series; invalid years keep the raw input when a model fit, the flat
     # mean otherwise
+    raw, m = s.raw, s.m
     y_full = torch.empty_like(raw).scatter_(-1, order, y)
     despiked_fit = torch.where(m, y_full, raw)
     flat_full = torch.where(enough.unsqueeze(-1), y_full, raw)
     despiked_flat = torch.where(m, flat_full, mean.unsqueeze(-1))
-    despiked = torch.where(mv.unsqueeze(-1), despiked_fit, despiked_flat)
+    despiked_out = torch.where(mv.unsqueeze(-1), despiked_fit, despiked_flat)
 
     return SegOutputs(
         n_vertices=torch.where(mv, k_live, 0).to(torch.int32),
@@ -822,7 +919,7 @@ def torch_segment_pixels(
         p_of_f=torch.where(mv, p_c, one),
         model_valid=mv,
         fitted=fitted_full,
-        despiked=despiked,
+        despiked=despiked_out,
     )
 
 
@@ -830,6 +927,25 @@ def _ulp32(x: float) -> float:
     """Spacing of float32 at ``x`` (``np.spacing`` in float32)."""
     m, e = math.frexp(x)
     return math.ldexp(1.0, e - 24)
+
+
+def torch_segment_pixels(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> SegOutputs:
+    """Segment a ``(PX, NY)`` batch of series — the plain PyTorch version.
+
+    ``years`` is the shared ``(NY,)`` year axis, ``values`` the
+    disturbance-positive index series, ``mask`` the boolean validity mask
+    (non-finite values are invalid regardless).  Runs on the tensors' own
+    device, in float64 for float64 values and float32 otherwise.  Returns
+    :class:`SegOutputs` with a leading PX axis on every field.  It is
+    :func:`torch_family_stats` followed by :func:`_select_and_assemble`.
+    """
+    family = torch_family_stats(years, values, mask, params)
+    return _select_and_assemble(years, values, mask, *family, params)
 
 
 def torch_segment_pixels_chunked(

@@ -1,10 +1,12 @@
-"""Wrapper of the fused LandTrendr CUDA kernel (``csrc/segment_fused.cu``).
+"""Wrappers of the LandTrendr CUDA kernels (``csrc/segment_fused.cu``).
 
 Counterpart of ``land_trendr_tpu/ops/segment_pallas.py``:
 :func:`cuda_segment_pixels` replaces ``jax_segment_pixels_pallas`` and
 :func:`cuda_segment_pixels_chunked` replaces
 ``jax_segment_pixels_pallas_chunked``, with the same output contract
-(:class:`~land_trendr_tpu_torch.ops.segment.SegOutputs`).
+(:class:`~land_trendr_tpu_torch.ops.segment.SegOutputs`);
+:func:`cuda_family_stats` replaces ``family_stats_pallas`` (stages 1–4a:
+despiked series, family vertex sets, SSEs).
 
 * **Build.**  The kernel is compiled at first use with ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface
@@ -13,11 +15,13 @@ Counterpart of ``land_trendr_tpu/ops/segment_pallas.py``:
   built or imported when this module is imported.
 * **Launch.**  The kernel runs on PyTorch's current stream of the input's
   device, one thread per pixel; the C entry returns ``cudaGetLastError()``
-  and the wrapper raises on a non-zero code.  Every launch adds one to
-  :data:`LAUNCHES`, and nothing else does.
+  and the wrapper raises on a non-zero code.  Every launch of the fused
+  kernel adds one to :data:`LAUNCHES`, every launch of the family kernel
+  one to :data:`FAMILY_LAUNCHES`, and nothing else does.
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
-  (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`).  A
+  (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`,
+  :func:`~land_trendr_tpu_torch.ops.segment.torch_family_stats`).  A
   CUDA tensor is launched or rejected; there is no fallback.
 """
 
@@ -38,16 +42,20 @@ from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.ops.segment import (
     SegOutputs,
     lentz_iters,
+    torch_family_stats,
     torch_segment_pixels,
     torch_segment_pixels_chunked,
 )
 
 __all__ = [
     "CUDA_BLOCK",
+    "FAMILY_LAUNCHES",
     "LAUNCHES",
     "MAX_NC",
     "MAX_NY",
     "build_info",
+    "cuda_family_op_counts",
+    "cuda_family_stats",
     "cuda_segment_op_counts",
     "cuda_segment_pixels",
     "cuda_segment_pixels_chunked",
@@ -61,9 +69,11 @@ CUDA_BLOCK = 128
 MAX_NY = 64
 MAX_NC = 16
 
-#: kernel launches made by this process — one per launch, counted where
-#: the kernel is launched and nowhere else
+#: fused-kernel launches made by this process — one per launch, counted
+#: where the kernel is launched and nowhere else
 LAUNCHES = 0
+#: family-kernel launches made by this process, counted the same way
+FAMILY_LAUNCHES = 0
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "segment_fused.cu"
@@ -84,6 +94,12 @@ _ARGTYPES = [
     _P, _P, _P, _P, _P, _P, _P,               # despiked .. vertex_fit_vals
     _P, _P, _P, _P, _P, _P, _LL,              # seg_* , rmse, p_of_f, model_valid, out_ld
     _I, _I, _D, _D, _I, _D, _D, _I, _I,       # params
+    _P,                                       # stream
+]
+_FAMILY_ARGTYPES = [
+    _P, _P, _P, _LL, _LL, _I,                 # years, values, mask, px, in_ld, ny
+    _P, _P, _P, _LL,                          # despiked, vmasks, sses, out_ld
+    _I, _I, _D, _D, _I,                       # params
     _P,                                       # stream
 ]
 
@@ -145,6 +161,12 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.lt_segment_fused_f32_opcount.argtypes = [*_ARGTYPES, _P]
     lib.lt_segment_fused_f32_opcount.restype = ctypes.c_int
+    for name in ("lt_family_stats_f32", "lt_family_stats_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = _FAMILY_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.lt_family_stats_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P]
+    lib.lt_family_stats_f32_opcount.restype = ctypes.c_int
     for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_block"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
@@ -197,6 +219,17 @@ def _check(years: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"values on {values.device}, mask on {mask.device}")
 
 
+def _year_major(years, values, mask):
+    """The kernels' inputs: the year axis in the values' dtype, and the
+    values and cleaned mask year-major (NY, PX), so neighbouring threads
+    read neighbouring words."""
+    return (
+        years.to(device=values.device, dtype=values.dtype).contiguous(),
+        values.t().contiguous(),
+        (mask & torch.isfinite(values)).t().contiguous(),
+    )
+
+
 class _Launch:
     """Year-major inputs and outputs of one (possibly chunked) kernel call."""
 
@@ -206,10 +239,7 @@ class _Launch:
         self.params = params
         px, ny = values.shape
         self.px, self.ny = px, ny
-        self.years = years.to(device=dev, dtype=self.dtype).contiguous()
-        # year-major (NY, PX): neighbouring threads read neighbouring words
-        self.values_t = values.t().contiguous()
-        self.mask_t = (mask & torch.isfinite(values)).t().contiguous()
+        self.years, self.values_t, self.mask_t = _year_major(years, values, mask)
         nv, nm = params.max_vertices, params.max_segments
 
         def out(rows, dt):
@@ -347,4 +377,95 @@ def cuda_segment_op_counts(
         job = _Launch(years, values, mask, params)
         counts = torch.zeros(values.shape[0], dtype=torch.int64, device=values.device)
         job.run(0, values.shape[0], op_count=counts)
+        return counts
+
+
+class _FamilyLaunch:
+    """Year-major inputs and outputs of one family-kernel call."""
+
+    def __init__(self, years, values, mask, params: LTParams):
+        dev = values.device
+        self.dtype = values.dtype
+        self.params = params
+        px, ny = values.shape
+        self.px, self.ny = px, ny
+        self.years, self.values_t, self.mask_t = _year_major(years, values, mask)
+        nm = params.max_segments
+        # one row per (year) / (member, year) / (member): a warp's stores
+        # to a row are contiguous
+        self.despiked = torch.empty((ny, px), dtype=self.dtype, device=dev)
+        self.vmasks = torch.empty((nm, ny, px), dtype=torch.bool, device=dev)
+        self.sses = torch.empty((nm, px), dtype=self.dtype, device=dev)
+
+    def run(self, op_count: "torch.Tensor | None" = None) -> None:
+        """Launch the family kernel on every pixel; with ``op_count``
+        (int64, PX) the float32 kernel also writes each pixel's
+        floating-point operation tally there."""
+        global FAMILY_LAUNCHES
+        lib = load_library()
+        fn = lib.lt_family_stats_f64 if self.dtype == torch.float64 else lib.lt_family_stats_f32
+        extra = ()
+        if op_count is not None:
+            fn = lib.lt_family_stats_f32_opcount
+            extra = (op_count.data_ptr(),)
+        p = self.params
+        stream = torch.cuda.current_stream(self.values_t.device).cuda_stream
+        rc = fn(
+            self.years.data_ptr(), self.values_t.data_ptr(), self.mask_t.data_ptr(),
+            self.px, self.px, self.ny,
+            self.despiked.data_ptr(), self.vmasks.data_ptr(), self.sses.data_ptr(), self.px,
+            p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
+            float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
+            stream, *extra,
+        )
+        if rc != 0:
+            raise RuntimeError(f"family_stats launch failed: CUDA error {rc}")
+        FAMILY_LAUNCHES += 1
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(despiked (PX, NY), vmasks (PX, NM, NY) bool, sses (PX, NM))``
+        as permuted views of the year-major outputs."""
+        return self.despiked.t(), self.vmasks.permute(2, 0, 1), self.sses.t()
+
+
+def cuda_family_stats(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stages 1–4a with the family kernel — one launch.
+
+    Returns ``(despiked, vmasks, sses)`` in the layout of
+    :func:`~land_trendr_tpu_torch.ops.segment.torch_family_stats` (the
+    device outputs are year-major; these are permuted views of them).
+    Inputs as for :func:`cuda_segment_pixels`.  CUDA tensors launch the
+    kernel; CPU tensors run the plain PyTorch version.
+    """
+    _check(years, values, mask, params)
+    if values.device.type != "cuda":
+        return torch_family_stats(years, values, mask, params)
+    with torch.cuda.device(values.device):
+        job = _FamilyLaunch(years, values, mask, params)
+        job.run()
+        return job.result()
+
+
+def cuda_family_op_counts(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> torch.Tensor:
+    """Per-pixel floating-point operation counts of the float32 family
+    kernel on these inputs (int64, PX) — the operation side of its
+    roofline bound.  CUDA tensors only.
+    """
+    _check(years, values, mask, params)
+    if values.dtype != torch.float32 or values.device.type != "cuda":
+        raise ValueError("op counts come from the float32 kernel on CUDA tensors")
+    with torch.cuda.device(values.device):
+        job = _FamilyLaunch(years, values, mask, params)
+        counts = torch.zeros(values.shape[0], dtype=torch.int64, device=values.device)
+        job.run(op_count=counts)
         return counts

@@ -6,8 +6,10 @@ DNs plus the uint16 QA bitfield — and this program does DN→reflectance
 scaling, QA + range masking, the spectral index and the segmentation on
 the device the tensors live on.  On a CUDA device the segmentation is the
 hand-written kernel (:mod:`land_trendr_tpu_torch.ops.segment_cuda`); on
-the CPU it is the plain PyTorch version.  FTV fits and change selection
-(the JAX program's optional tail) are not ported yet.
+the CPU it is the plain PyTorch version.  The optional tail — FTV fits of
+secondary indices (:mod:`~land_trendr_tpu_torch.ops.ftv`) and the fused
+change-map selection (:func:`~land_trendr_tpu_torch.ops.change.select_change`)
+— is plain PyTorch on the same device, as it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 
 from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.ops import indices as idx
+from land_trendr_tpu_torch.ops.change import ChangeFilter, select_change
+from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
 from land_trendr_tpu_torch.ops.segment import (
     SegOutputs,
     torch_segment_pixels,
@@ -37,9 +41,16 @@ IMPLS = ("cuda", "torch")
 
 
 class TileOutputs(NamedTuple):
-    """Segmentation of the primary index (FTV and change: not ported yet)."""
+    """Segmentation of the primary index plus FTV fits of secondary indices."""
 
     seg: SegOutputs
+    #: index name → (PX, NY) fitted-trajectory values (disturbance-positive
+    #: convention, matching the segmentation input sign)
+    ftv: dict[str, torch.Tensor]
+    #: fused change-map products (``ops/change.CHANGE_PRODUCTS`` → (PX,)
+    #: tensors, natural orientation) when the run asked for them; the
+    #: spatial mmu sieve needs the whole raster and applies post-assembly
+    change: "dict[str, torch.Tensor] | None" = None
 
 
 def resolve_impl(impl: str, device: "torch.device | str") -> str:
@@ -74,12 +85,17 @@ def process_tile_dn(
     reject_bits: int = idx.DEFAULT_QA_REJECT,
     chunk: "int | None" = None,
     impl: str = "auto",
+    ftv_indices: tuple[str, ...] = (),
+    change_filt: "ChangeFilter | None" = None,
 ) -> TileOutputs:
     """Segment one tile straight from Collection-2 style DNs.
 
     ``years`` is the ``(NY,)`` year axis; ``dn_bands`` maps band name →
-    ``(PX, NY)`` int16/uint16 DNs and must hold the bands ``index`` needs;
-    ``qa`` is the ``(PX, NY)`` uint16 QA_PIXEL bitfield, all on one device.
+    ``(PX, NY)`` int16/uint16 DNs and must hold the bands ``index`` and
+    ``ftv_indices`` need (all six for TCW); ``qa`` is the ``(PX, NY)``
+    uint16 QA_PIXEL bitfield, all on one device.  ``ftv_indices`` are
+    secondary indices fitted to the chosen vertices; ``change_filt``
+    selects each pixel's change segment (natural orientation).
     With ``chunk`` set and PX > ``chunk``, the segmentation runs chunked:
     PX is padded to a chunk multiple with fully-masked rows and cropped
     back, so results equal the unchunked path.  With the kernel, a chunk
@@ -104,4 +120,28 @@ def process_tile_dn(
             seg = SegOutputs(*(o[:px] for o in seg))
     else:
         seg = whole(years, primary, mask, params)
-    return TileOutputs(seg=seg)
+    ftv = {
+        name: torch_fit_to_vertices(
+            years, idx.compute_index(name, sr), mask, seg.vertex_indices, seg.n_vertices,
+            params,
+        )
+        for name in ftv_indices
+    }
+    change = None
+    if change_filt is not None:
+        # the kernel fits in the disturbance-positive orientation; the
+        # selector's contract is the natural one, so flip first
+        sign = idx.DISTURBANCE_SIGN[index.lower()]
+        change = select_change(
+            seg.vertex_years,
+            sign * seg.vertex_fit_vals,
+            sign * seg.seg_magnitude,
+            seg.seg_duration,
+            sign * seg.seg_rate,
+            seg.model_valid,
+            seg.p_of_f,
+            seg.rmse,
+            sign=sign,
+            filt=change_filt,
+        )
+    return TileOutputs(seg=seg, ftv=ftv, change=change)

@@ -22,9 +22,9 @@ pipeline over the host, the link and the device:
 * a pool of ``write_workers`` threads persists tile artifacts to the
   manifest (write) — the manifest *is* the checkpoint.
 
-Not ported yet (each waits for a later slice): FTV and change products,
-telemetry / flight / spans, retries, quarantine and the stall watchdog,
-leases and multihost, the ingest store, ``"auto"`` tuning, mesh sharding.
+Not ported yet (each waits for a later slice): telemetry / flight /
+spans, retries, quarantine and the stall watchdog, leases and multihost,
+the ingest store, ``"auto"`` tuning, mesh sharding.
 A failed tile aborts the run; the tiles already recorded stay durable and
 a rerun resumes after them.
 """
@@ -46,6 +46,7 @@ from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.io import native
 from land_trendr_tpu_torch.io.geotiff import GeoTiffStreamWriter
 from land_trendr_tpu_torch.ops import indices as idx
+from land_trendr_tpu_torch.ops.change import ChangeFilter
 from land_trendr_tpu_torch.ops.segment_cuda import CUDA_BLOCK
 from land_trendr_tpu_torch.ops.tile import process_tile_dn, resolve_impl
 from land_trendr_tpu_torch.runtime import feed as feedmod
@@ -81,6 +82,9 @@ class RunConfig:
     """
 
     index: str = "nbr"
+    #: secondary indices fitted to the chosen vertices (``ftv_<index>``
+    #: products); fingerprinted
+    ftv_indices: tuple[str, ...] = ()
     params: LTParams = LTParams()
     #: scene tiling granularity (pixels per side); fingerprinted
     tile_size: int = 256
@@ -89,7 +93,14 @@ class RunConfig:
     resume: bool = True
     write_fitted: bool = False  # include the (NY,) fitted trajectory raster
     #: segmentation products to checkpoint + assemble; ``None`` = all
+    #: (change products follow ``change_filt``, FTV products
+    #: ``ftv_indices``)
     products: "tuple[str, ...] | None" = None
+    #: fetch float products from the device as float16 (cast on the
+    #: device, restored to float32 on the host): halves device→host bytes
+    #: of every float product, lossy (~5e-4 relative), so opt-in.  It
+    #: changes written values, so it is fingerprinted
+    fetch_f16: bool = False
     #: device→host strategy: "auto" (packed on a CUDA device), True, False;
     #: a pure execution strategy — never fingerprinted
     fetch_packed: "bool | str" = "auto"
@@ -110,6 +121,12 @@ class RunConfig:
     write_workers: int = 1
     #: background feed threads
     feed_workers: int = 1
+    #: fuse change-map selection into every tile's program; the per-tile
+    #: change products ride the manifest and assemble into change_*.tif.
+    #: The mmu sieve needs the whole raster: apply
+    #: ``ops.change.sieve_change_rasters`` to the assembled out_dir (the
+    #: CLI's ``--change-mmu`` does).  Fingerprinted
+    change_filt: "ChangeFilter | None" = None
     #: tiles with more pixels than this run the segmentation chunked;
     #: ``None`` disables chunking.  Fingerprinted.
     chunk_px: "int | None" = 262_144
@@ -138,6 +155,13 @@ class RunConfig:
                 raise ValueError(f"unknown products {bad}; choose from {_SEG_PRODUCTS}")
             if not self.products:
                 raise ValueError("products subset must not be empty (use None)")
+        if not isinstance(self.ftv_indices, tuple):
+            raise ValueError(f"ftv_indices={self.ftv_indices!r} must be a tuple of index names")
+        bad = [i for i in self.ftv_indices if str(i).lower() not in idx.INDEX_NAMES]
+        if bad:
+            raise ValueError(f"unknown ftv_indices {bad}; expected some of {idx.INDEX_NAMES}")
+        if self.change_filt is not None and not isinstance(self.change_filt, ChangeFilter):
+            raise ValueError(f"change_filt={self.change_filt!r} is not a ChangeFilter")
         if self.impl not in ("auto", "cuda", "torch"):
             raise ValueError(f"impl={self.impl!r} not one of 'auto', 'cuda', 'torch'")
         if self.chunk_px is not None:
@@ -168,7 +192,7 @@ class RunConfig:
         return run_fingerprint(
             {
                 "index": self.index,
-                "ftv": [],
+                "ftv": list(self.ftv_indices),
                 "params": self.params.to_dict(),
                 "tile": self.tile_size,
                 "years": stack.years.tolist(),
@@ -178,8 +202,11 @@ class RunConfig:
                 "reject_bits": self.reject_bits,
                 "write_fitted": self.write_fitted,
                 "products": list(self.products) if self.products is not None else None,
-                "fetch_f16": False,
-                "change": None,
+                "fetch_f16": self.fetch_f16,
+                "change": (
+                    dataclasses.asdict(self.change_filt)
+                    if self.change_filt is not None else None
+                ),
                 "chunk_px": self.chunk_px,
             }
         )
@@ -221,9 +248,10 @@ def _feed_tile(
 ) -> tuple[dict[str, np.ndarray], np.ndarray]:
     """Slice one tile into ``(tile_px, NY)`` arrays, padding with QA=fill.
 
-    Only ``bands`` (what the index needs) are cut and shipped.  The
-    transpose puts the year axis innermost; padded rows carry the QA fill
-    bit so the device mask logic (not host special cases) voids them.
+    Only ``bands`` (what the index and the FTV indices need) are cut and
+    shipped.  The transpose puts the year axis innermost; padded rows
+    carry the QA fill bit so the device mask logic (not host special
+    cases) voids them.
     """
     ny = stack.n_years
     px = t.h * t.w
@@ -306,7 +334,7 @@ def run_stack(
     done = manifest.open(cfg.resume)
     todo = [t for t in tiles if t.tile_id not in done]
     years = torch.from_numpy(stack.years.astype(np.int32)).to(dev)
-    bands = idx.required_bands(cfg.index)
+    bands = idx.required_bands(cfg.index, cfg.ftv_indices)
     timer = StageTimer()
     fetcher = fetchmod.TileFetcher(cfg, dev, packed=fetch_packed)
     uploader = feedmod.TileUploader(dev, packed=upload_packed)
@@ -338,7 +366,8 @@ def run_stack(
                 years, dn, qa,
                 index=cfg.index, params=cfg.params, scale=cfg.scale,
                 offset=cfg.offset, reject_bits=cfg.reject_bits,
-                chunk=cfg.chunk_px, impl=impl,
+                chunk=cfg.chunk_px, impl=impl, ftv_indices=cfg.ftv_indices,
+                change_filt=cfg.change_filt,
             )
             done_ev = None
             if dev.type == "cuda":

@@ -3,17 +3,18 @@
 Counterpart of ``land_trendr_tpu/runtime/fetch.py``.  Three pieces:
 
 * **Device-side pack** (:func:`pack_tile`): every selected product —
-  seg products, fitted, and the always-needed ``model_valid`` byte — is
-  reinterpreted as bytes and concatenated into ONE word-aligned device
-  buffer.
+  seg products, fitted, fused-change and FTV products, and the
+  always-needed ``model_valid`` byte — is reinterpreted as bytes and
+  concatenated into ONE word-aligned device buffer (``fetch_f16`` casts
+  float products to float16 on the device first).
 * **Async overlap**: the buffer leaves with one ``non_blocking``
   device→host copy into **pinned** memory on a side stream, ordered after
   the tile's compute; a CUDA event marks when it has landed, and
   :meth:`PackedHandle.wait` blocks only on that event, while later tiles
   compute.
 * **Host-side unpack** (:func:`unpack_tile`): crop to the tile's real
-  pixels first, then sign flip / dtype conversion — byte for byte the
-  per-product path's output.
+  pixels first, then float16 upcast, sign flip and dtype conversion —
+  byte for byte the per-product path's output.
 
 Packed and per-product runs produce byte-identical artifacts: both follow
 one :class:`FetchPlan`.  ``fetch_packed="auto"`` packs only on a CUDA
@@ -53,7 +54,8 @@ __all__ = [
 ]
 
 #: the full per-pixel segmentation product set (``RunConfig.products``
-#: domain); "fitted" is governed by ``write_fitted``
+#: domain); "fitted" is governed by ``write_fitted``, change_*/ftv_* by
+#: their own knobs
 SEG_PRODUCTS = (
     "n_vertices", "vertex_indices", "vertex_years", "vertex_src_vals",
     "vertex_fit_vals", "seg_magnitude", "seg_duration", "seg_rate",
@@ -66,6 +68,7 @@ SIGNED_PRODUCTS = frozenset(
 )
 
 _NP_OF = {
+    torch.float16: "float16",
     torch.float32: "float32",
     torch.float64: "float64",
     torch.int32: "int32",
@@ -77,14 +80,17 @@ class PlanEntry(NamedTuple):
     """One product's place in the packed wire format.
 
     ``key`` is the artifact name (``""`` for the ``model_valid`` rider that
-    travels only for the fit-rate metadata); ``field`` the ``SegOutputs``
-    field; ``suffix`` the per-pixel shape; ``dtype`` the device dtype and
-    ``wire`` the dtype that crosses the link (uint8 for bool); ``signed``
-    /``sign`` apply the disturbance-orientation flip on host; ``conv`` is
-    ``"bool"`` for the byte → bool view.
+    travels only for the fit-rate metadata); ``src``/``field`` resolve the
+    device tensor inside a :class:`TileOutputs`; ``suffix`` is the
+    per-pixel shape; ``dtype`` the device dtype and ``wire`` the dtype
+    that crosses the link (float16 under ``fetch_f16``, uint8 for bool);
+    ``signed``/``sign`` apply the disturbance-orientation flip on host;
+    ``conv`` is the host conversion of the JAX package's plan (change
+    yod → int32, change floats → float32, the byte → bool view).
     """
 
     key: str
+    src: str            # "seg" | "change" | "ftv"
     field: str
     suffix: tuple[int, ...]
     dtype: str
@@ -101,32 +107,55 @@ class FetchPlan(NamedTuple):
     px: int  # PADDED device pixel count every tile shares
 
 
+def _resolve(out: "TileOutputs", e: PlanEntry) -> torch.Tensor:
+    if e.src == "seg":
+        return getattr(out.seg, e.field)
+    if e.src == "change":
+        return out.change[e.field]
+    return out.ftv[e.field]
+
+
 def build_plan(out: "TileOutputs", cfg: "RunConfig") -> FetchPlan:
-    """The run's fetch plan, from the first tile's (shared) output shapes:
-    seg products in :data:`SEG_PRODUCTS` order filtered by
-    ``cfg.products``, fitted, then the ``model_valid`` rider when the
-    subset excludes it."""
+    """The run's fetch plan, from the first tile's (shared) output shapes.
+
+    The JAX package's entry order: seg products in :data:`SEG_PRODUCTS`
+    order filtered by ``cfg.products``, fitted, change products, FTV
+    products, then the ``model_valid`` rider when the subset excludes it.
+    """
     sign = idx.DISTURBANCE_SIGN[cfg.index.lower()]
     want = SEG_PRODUCTS if cfg.products is None else cfg.products
     entries: list[PlanEntry] = []
 
-    def add(key, field, arr, signed=False):
+    def add(key, src, field, arr, signed=False, sgn=1.0, conv=""):
         dt = _NP_OF[arr.dtype]
-        wire, conv = ("uint8", "bool") if dt == "bool" else (dt, "")
+        if dt == "bool":
+            wire, conv = "uint8", conv or "bool"
+        elif cfg.fetch_f16 and dt.startswith("float"):
+            wire = "float16"
+        else:
+            wire = dt
         entries.append(
             PlanEntry(
-                key, field, tuple(int(s) for s in arr.shape[1:]), dt, wire,
-                bool(signed), float(sign), conv,
+                key, src, field, tuple(int(s) for s in arr.shape[1:]), dt, wire,
+                bool(signed), float(sgn), conv,
             )
         )
 
     for name in SEG_PRODUCTS:
         if name in want:
-            add(name, name, getattr(out.seg, name), signed=name in SIGNED_PRODUCTS)
+            add(name, "seg", name, getattr(out.seg, name),
+                signed=name in SIGNED_PRODUCTS, sgn=sign)
     if cfg.write_fitted:
-        add("fitted", "fitted", out.seg.fitted, signed=True)
+        add("fitted", "seg", "fitted", out.seg.fitted, signed=True, sgn=sign)
+    if out.change is not None:
+        for name, arr in out.change.items():
+            conv = "int32" if name == "yod" else ("" if name == "mask" else "float32")
+            add(f"change_{name}", "change", name, arr, conv=conv)
+    for name, arr in out.ftv.items():
+        add(f"ftv_{name}", "ftv", name, arr, signed=True,
+            sgn=idx.DISTURBANCE_SIGN[name.lower()])
     if "model_valid" not in want:
-        add("", "model_valid", out.seg.model_valid)
+        add("", "seg", "model_valid", out.seg.model_valid)
     return FetchPlan(entries=tuple(entries), px=int(out.seg.model_valid.shape[0]))
 
 
@@ -149,22 +178,37 @@ def plan_wire_bytes(plan: FetchPlan) -> int:
 
 
 def pack_tile(out: "TileOutputs", plan: FetchPlan) -> torch.Tensor:
-    """Every planned product → one word-aligned ``uint8`` device buffer."""
+    """Every planned product → one word-aligned ``uint8`` device buffer
+    (``fetch_f16`` casts happen here, on the device)."""
     offs, total = _layout(plan)
     dev = out.seg.model_valid.device
     buf = torch.zeros(total, dtype=torch.uint8, device=dev)
     for e, (off, n) in zip(plan.entries, offs):
-        a = getattr(out.seg, e.field).contiguous()
+        a = _wire(_resolve(out, e), e)
         if a.dtype == torch.bool:
             a = a.view(torch.uint8)
         buf[off : off + n] = a.reshape(-1).view(torch.uint8)
     return buf
 
 
+def _wire(a: torch.Tensor, e: PlanEntry) -> torch.Tensor:
+    """The device tensor in its wire dtype (float16 under ``fetch_f16``)."""
+    if e.wire == "float16" and e.dtype != "float16":
+        a = a.to(torch.float16)
+    return a.contiguous()
+
+
 def _post(e: PlanEntry, a: np.ndarray) -> np.ndarray:
-    """Shared host-side restore: sign flip (the orientation contract)."""
+    """Shared host-side restore: float16 upcast → sign flip (the
+    orientation contract) → the plan's conversion."""
+    if a.dtype == np.float16:
+        a = a.astype(np.float32)
     if e.signed:
         a = e.sign * a
+    if e.conv == "int32":
+        a = a.astype(np.int32)
+    elif e.conv == "float32":
+        a = a.astype(np.float32)
     return a
 
 
@@ -184,7 +228,7 @@ def unpack_tile(
         a = _post(e, a)
         if e.key:
             arrays[e.key] = a
-        if e.field == "model_valid":
+        if e.src == "seg" and e.field == "model_valid":
             model_valid = a
     if model_valid is None:
         raise ValueError("fetch plan carries no model_valid entry")
@@ -302,12 +346,12 @@ class UnpackedHandle:
         model_valid: np.ndarray | None = None
         for e in self._fetcher.plan.entries:
             t0 = time.perf_counter()
-            host = _to_host(getattr(self._out.seg, e.field))
+            host = _to_host(_wire(_resolve(self._out, e), e))
             stats.add(wait_s=time.perf_counter() - t0, transfers=1, bytes=host.nbytes)
             a = _post(e, host[:px])
             if e.key:
                 arrays[e.key] = a
-            if e.field == "model_valid":
+            if e.src == "seg" and e.field == "model_valid":
                 model_valid = a
         if model_valid is None:
             raise ValueError("fetch plan carries no model_valid entry")

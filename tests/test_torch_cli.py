@@ -1,5 +1,6 @@
 """The port's CLI: ``synth`` then ``segment --device cpu`` on a 64x64 stack,
-``params``, resume, and the rejections (absent flags, no card)."""
+``params``, resume, FTV and change maps (``segment --ftv --change``, the
+``change`` command), and the rejections (absent flags, no card)."""
 
 import json
 import os
@@ -7,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +52,7 @@ def test_params_json(tmp_path):
 
 
 def test_absent_flags_are_rejected(tmp_path):
-    r = _cli("--device", "cpu", "segment", "D", "--ftv", "ndvi", cwd=tmp_path)
+    r = _cli("--device", "cpu", "segment", "D", "--telemetry", cwd=tmp_path)
     assert r.returncode == 2 and "unrecognized arguments" in r.stderr
 
 
@@ -79,6 +81,15 @@ def test_cuda_without_card_fails_clearly(tmp_path):
         (["segment", "S", "--chunk-px", "65536"], "chunk_px", 65536),
         (["segment", "S", "--fetch-depth", "3"], "fetch_depth", 3),
         (["segment", "S", "--reject-bits", "0x18"], "reject_bits", 0x18),
+        (["segment", "S"], "ftv", ""),
+        (["segment", "S"], "fetch_f16", False),
+        (["segment", "S"], "change", False),
+        (["segment", "S"], "change_mmu", 1),
+        (["segment", "S", "--change-max-dur", "4"], "change_max_dur", 4.0),
+        (["change", "O"], "dest", "lt_change"),
+        (["change", "O"], "mmu", 1),
+        (["change", "O"], "max_dur", float("inf")),
+        (["change", "O", "--kind", "recovery"], "kind", "recovery"),
     ],
 )
 
@@ -90,3 +101,42 @@ def test_conflicting_packed_flags(tmp_path):
     r = _cli("--device", "cpu", "segment", "D", "--packed-fetch", "--no-packed-fetch",
              cwd=tmp_path)
     assert r.returncode == 2 and "conflicts" in r.stderr
+
+
+def test_segment_ftv_change_then_change_command(tmp_path):
+    from land_trendr_tpu_torch.io.geotiff import read_geotiff
+
+    r = _cli("--device", "cpu", "synth", "D", "--size", "64", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    r = _cli("--device", "cpu", "segment", "D", "--tile-size", "48", "--ftv", "ndvi",
+             "--change", "--change-max-dur", "4", "--change-mmu", "4", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout)
+    assert out["summary"]["tiles_done"] == 4
+    names = set(out["outputs"])
+    assert "ftv_ndvi" in names and len(names) == 11 + 1 + 7
+    r = _cli("--device", "cpu", "change", "lt_out", "--max-dur", "4", "--mmu", "4",
+             "--dest", "C", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    maps = json.loads(r.stdout)["outputs"]
+    assert sorted(maps) == sorted(("mask", "yod", "mag", "dur", "rate", "preval", "dsnr"))
+    # the fused selection on the device and the change command over the
+    # written rasters pick the same segments
+    for k in ("mask", "yod", "mag", "dur"):
+        fused = read_geotiff(str(tmp_path / "lt_out" / f"change_{k}.tif"))[0]
+        post = read_geotiff(str(tmp_path / maps[k]))[0]
+        np.testing.assert_array_equal(fused, post, err_msg=k)
+
+
+def test_change_flags_need_change(tmp_path):
+    r = _cli("--device", "cpu", "segment", "D", "--change-min-mag", "0.1", cwd=tmp_path)
+    assert r.returncode == 2 and "require --change" in r.stderr
+    r = _cli("--device", "cpu", "segment", "D", "--ftv", "evi", cwd=tmp_path)
+    assert r.returncode == 2
+
+
+def test_change_without_card_fails_clearly(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = _cli("change", "O", cwd=tmp_path)
+    assert r.returncode == 2 and "is_available() is False" in r.stderr

@@ -1,4 +1,4 @@
-"""The fused kernel's wrapper (``ops/segment_cuda.py``).
+"""The kernels' wrappers (``ops/segment_cuda.py``): fused and family.
 
 On the CPU the wrapper validates its inputs exactly as it does before a
 launch, and runs the plain version for CPU tensors.  The tests marked
@@ -17,6 +17,8 @@ import torch
 from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.ops import segment_cuda as sc
 from land_trendr_tpu_torch.ops.segment import (
+    _select_and_assemble,
+    torch_family_stats,
     torch_segment_pixels,
     torch_segment_pixels_chunked,
 )
@@ -182,4 +184,48 @@ def test_kernel_chunked_equals_unchunked_on_card(rng, card):
 def test_kernel_op_counts_on_card(rng, card):
     years, vals, mask = (x.to(card) for x in _inputs(rng, px=512))
     ops = sc.cuda_segment_op_counts(years, vals, mask)
+    assert ops.shape == (512,) and int(ops.min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_family_kernel_matches_plain_on_card(rng, card, dtype):
+    years, vals, mask = _inputs(rng, px=4096, dtype=dtype)
+    mask[0] = False                 # no valid year
+    mask[1] = False
+    mask[1, 7] = True               # one
+    vals[2] = 0.25                  # flat
+    mask[3, 6:] = False             # below min_observations_needed
+    years, vals, mask = years.to(card), vals.to(card), mask.to(card)
+    before = sc.FAMILY_LAUNCHES
+    desp, vm, sse = sc.cuda_family_stats(years, vals, mask)
+    torch.cuda.synchronize()
+    assert sc.FAMILY_LAUNCHES == before + 1
+    rdesp, rvm, rsse = torch_family_stats(years, vals, mask)
+    assert vm.shape == rvm.shape and vm.dtype == torch.bool
+    agree = (vm == rvm).all(dim=(1, 2))
+    if dtype == torch.float64:
+        assert bool(agree.all())
+    else:
+        assert float(agree.float().mean()) >= 0.999
+    atol = 1e-8 if dtype == torch.float64 else 1e-5
+    for x, y in ((desp, rdesp), (sse, rsse)):
+        x, y = x[agree], y[agree]
+        assert torch.equal(x.isfinite(), y.isfinite())
+        fin = x.isfinite()
+        assert float((x[fin] - y[fin]).abs().max()) <= atol
+    # the family kernel + the plain tail make the fused kernel's decisions
+    tail = _select_and_assemble(years, vals, mask, desp, vm, sse)
+    fused = sc.cuda_segment_pixels(years, vals, mask)
+    same = _decisions(tail, fused)
+    if dtype == torch.float64:
+        assert bool(same.all())
+    else:
+        assert float(same.float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_family_kernel_op_counts_on_card(rng, card):
+    years, vals, mask = (x.to(card) for x in _inputs(rng, px=512))
+    ops = sc.cuda_family_op_counts(years, vals, mask)
     assert ops.shape == (512,) and int(ops.min()) > 0

@@ -59,6 +59,10 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.ops.segment",
     "land_trendr_tpu_torch.ops.segment_cuda",
     "land_trendr_tpu_torch.ops.tile",
+    "land_trendr_tpu_torch.ops.ftv",
+    "land_trendr_tpu_torch.ops.change",
+    "land_trendr_tpu_torch.tools.probe",
+    "land_trendr_tpu_torch.tools.population",
     "land_trendr_tpu_torch.runtime.driver",
     "land_trendr_tpu_torch.runtime.stack",
     "land_trendr_tpu_torch.io",

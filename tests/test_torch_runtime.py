@@ -1,6 +1,7 @@
 """The port's runtime: upload/fetch wire formats, the tile driver against
 the JAX driver on one synthetic stack, resume, and the run config."""
 
+import dataclasses
 import json
 import os
 
@@ -322,6 +323,9 @@ def test_fingerprint_matches_jax_and_ignores_impl(stack):
         ({"out_compress": "zstd"}, "out_compress"),
         ({"index": "evi"}, "unknown index"),
         ({"upload_packed": "yes"}, "upload_packed"),
+        ({"ftv_indices": ("evi",)}, "unknown ftv_indices"),
+        ({"ftv_indices": "ndvi"}, "must be a tuple"),
+        ({"change_filt": {"max_dur": 4}}, "not a ChangeFilter"),
     ],
 )
 
@@ -339,3 +343,137 @@ def test_cuda_device_required_without_fallback():
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# FTV + change on the segment path
+# ---------------------------------------------------------------------------
+
+TAIL_FTV = ("ndvi", "tcw")
+
+
+def _tail_out(stack, tile_px, change_filt):
+    t = TileSpec(0, 0, 0, 7, 9)
+    from land_trendr_tpu_torch.runtime.driver import _feed_tile
+
+    dn, qa = _feed_tile(stack, t, tile_px, ("blue", "green", "red", "nir", "swir1", "swir2"))
+    out = process_tile_dn(
+        torch.from_numpy(stack.years.astype(np.int32)),
+        {k: torch.from_numpy(v) for k, v in dn.items()},
+        torch.from_numpy(qa),
+        impl="torch", ftv_indices=TAIL_FTV, change_filt=change_filt,
+    )
+    return t, out
+
+
+@pytest.mark.parametrize("fetch_f16", [False, True])
+@pytest.mark.parametrize("products", [None, ("rmse",)])
+def test_packed_fetch_with_ftv_change_byte_identical(stack, fetch_f16, products):
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+
+    cfg = RunConfig(ftv_indices=TAIL_FTV, change_filt=ChangeFilter(), fetch_f16=fetch_f16,
+                    products=products)
+    t, out = _tail_out(stack, 64, cfg.change_filt)
+    fetcher = fetch.TileFetcher(cfg, torch.device("cpu"), packed=False)
+    per_product, fit = fetcher.start(out).tile_arrays(t)
+    plan = fetcher.plan
+    words = fetch.pack_tile(out, plan).numpy()
+    assert words.nbytes == fetch.plan_wire_bytes(plan)
+    packed, mv = fetch.unpack_tile(plan, words, t.h * t.w)
+    assert sorted(packed) == sorted(per_product)
+    assert {"ftv_ndvi", "ftv_tcw", "change_yod", "change_mask"} <= set(packed)
+    for k in packed:
+        assert packed[k].dtype == per_product[k].dtype, k
+        assert packed[k].tobytes() == per_product[k].tobytes(), k
+    assert int(mv.sum()) == fit
+    assert packed["change_yod"].dtype == np.int32 and packed["change_mask"].dtype == np.bool_
+    assert packed["ftv_ndvi"].dtype == np.float32
+    wires = {e.key: e.wire for e in plan.entries}
+    assert (wires["ftv_ndvi"] == "float16") == fetch_f16
+    assert wires["change_mask"] == "uint8"
+    if fetch_f16:  # float16 on the wire, float32 on the host, within its rounding
+        exact_cfg = dataclasses.replace(cfg, fetch_f16=False)
+        exact = fetch.TileFetcher(exact_cfg, torch.device("cpu"), packed=False)
+        full, _ = exact.start(out).tile_arrays(t)
+        for k in ("ftv_ndvi", "ftv_tcw", "change_mag", "rmse"):
+            np.testing.assert_allclose(packed[k], full[k], rtol=1e-3, atol=1e-4, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def tail_runs(synth, stack, tmp_path_factory):
+    """The port's and the JAX driver's run of one stack with FTV + change."""
+    from land_trendr_tpu.ops.change import ChangeFilter as JChangeFilter
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+
+    root = tmp_path_factory.mktemp("tail")
+    cfg = RunConfig(tile_size=64, workdir=str(root / "w"), out_dir=str(root / "o"),
+                    ftv_indices=TAIL_FTV, change_filt=ChangeFilter(max_dur=4.0))
+    summary = run_stack(stack, cfg, device="cpu")
+    paths = assemble_outputs(stack, cfg)
+    jcfg = jdriver.RunConfig(
+        tile_size=64, workdir=str(root / "jw"), out_dir=str(root / "jo"), impl="xla",
+        ftv_indices=TAIL_FTV, change_filt=JChangeFilter(max_dur=4.0),
+    )
+    jstack = jax_stack_from_synthetic(synth)
+    jdriver.run_stack(jstack, jcfg)
+    jdriver.assemble_outputs(jstack, jcfg)
+    return cfg, summary, paths, jcfg
+
+
+def test_tail_run_writes_ftv_and_change(tail_runs):
+    cfg, summary, paths, _ = tail_runs
+    assert summary["tiles_done"] == 4 and 0.0 < summary["fit_rate"] <= 1.0
+    assert {"ftv_ndvi", "ftv_tcw"} <= set(paths)
+    assert {f"change_{k}" for k in ("mask", "yod", "mag", "dur", "rate", "preval", "dsnr")} <= set(paths)
+
+
+def test_tail_rasters_match_jax_driver(tail_runs):
+    cfg, _, _, jcfg = tail_runs
+    ours = _read_outputs(cfg.out_dir)
+    theirs = _read_outputs(jcfg.out_dir)
+    assert sorted(ours) == sorted(theirs)
+    agree = (
+        (ours["model_valid"] == theirs["model_valid"]).all(axis=0)
+        & (ours["vertex_indices"] == theirs["vertex_indices"]).all(axis=0)
+    )
+    assert agree.mean() >= 0.999, agree.mean()
+    for name in sorted(ours):
+        a, b = ours[name], theirs[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind != "f":
+            assert np.array_equal(a[:, agree], b[:, agree]), name
+            continue
+        d = np.abs(a[:, agree].astype(np.float64) - b[:, agree])
+        if name == "change_dsnr":
+            # |mag| / rmse: the float32 tail of rmse, relative (see
+            # tests/test_torch_tile.py)
+            d = d / np.maximum(np.abs(b[:, agree]), 1e-12)
+            assert np.quantile(d, 0.999) <= 1e-3 and d.max() <= 5e-3, name
+            continue
+        d = d[np.isfinite(d)]
+        assert np.quantile(d, 0.999) <= 1e-5, name
+        assert d.max() <= 5e-5, name
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"ftv_indices": ("ndvi", "tcw")},
+        {"fetch_f16": True},
+        {"change": {"max_dur": 4.0, "sort": "newest"}},
+        {"ftv_indices": ("tcw",), "fetch_f16": True, "change": {"kind": "recovery"}},
+    ],
+    ids=["ftv", "fetch_f16", "change", "all"],
+)
+def test_fingerprint_with_tail_matches_jax(stack, kwargs):
+    from land_trendr_tpu.ops.change import ChangeFilter as JChangeFilter
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+
+    kw = dict(kwargs)
+    filt = kw.pop("change", None)
+    ours = RunConfig(tile_size=64, change_filt=ChangeFilter(**filt) if filt else None, **kw)
+    theirs = jdriver.RunConfig(
+        tile_size=64, change_filt=JChangeFilter(**filt) if filt else None, **kw
+    )
+    assert ours.fingerprint(stack) == theirs.fingerprint(stack)
+    assert ours.fingerprint(stack) != RunConfig(tile_size=64).fingerprint(stack)

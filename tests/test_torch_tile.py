@@ -116,3 +116,62 @@ def test_resolve_impl():
 def test_cuda_impl_rejected_on_cpu_tensors(tile):
     with pytest.raises(ValueError, match="does not run on cpu"):
         process_tile_dn(*_torch_inputs(tile), impl="cuda")
+
+
+@pytest.fixture(scope="module")
+def tile6():
+    """All six bands (TCW needs them), for the FTV + change tail."""
+    from land_trendr_tpu_torch.ops.indices import BANDS as ALL_BANDS
+
+    st = make_stack(SceneSpec(height=20, width=24, seed=13))
+    ny = len(st.years)
+    px = 20 * 24
+    dn = {b: np.ascontiguousarray(st.dn(b).reshape(ny, px).T) for b in ALL_BANDS}
+    qa = np.ascontiguousarray(st.qa.reshape(ny, px).T.astype(np.uint16))
+    return st.years.astype(np.int32), dn, qa
+
+
+@pytest.mark.parametrize("index,ftv", [("nbr", ("ndvi", "tcw")), ("ndvi", ("nbr",))])
+def test_tile_ftv_and_change_match_jax(tile6, index, ftv):
+    from land_trendr_tpu.ops.change import ChangeFilter as JChangeFilter
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+
+    years, dn, qa = tile6
+    out = process_tile_dn(
+        *_torch_inputs(tile6), index=index, impl="torch", ftv_indices=ftv,
+        change_filt=ChangeFilter(max_dur=4.0),
+    )
+    ref = jax_tile(years, dn, qa, index=index, impl="xla", ftv_indices=ftv,
+                   change_filt=JChangeFilter(max_dur=4.0))
+    _compare(out.seg, ref.seg)
+    seg = {k: v.numpy() for k, v in out.seg._asdict().items()}
+    jseg = {k: np.asarray(v) for k, v in ref.seg._asdict().items()}
+    agree = (
+        (seg["model_valid"] == jseg["model_valid"])
+        & (seg["vertex_indices"] == jseg["vertex_indices"]).all(axis=1)
+    )
+    assert sorted(out.ftv) == sorted(ref.ftv) == sorted(ftv)
+    ftv_got = {k: v.numpy() for k, v in out.ftv.items()}
+    ftv_ref = {k: np.asarray(v) for k, v in ref.ftv.items()}
+    assert_floats_close(ftv_got, ftv_ref, agree)
+    got = {k: v.numpy() for k, v in out.change.items()}
+    want = {k: np.asarray(v) for k, v in ref.change.items()}
+    assert sorted(got) == sorted(want)
+    for k, a in got.items():
+        assert a.dtype == want[k].dtype, k
+        if a.dtype.kind != "f":
+            np.testing.assert_array_equal(a[agree], want[k][agree], err_msg=k)
+    assert_floats_close(
+        {k: a for k, a in got.items() if a.dtype.kind == "f" and k != "dsnr"}, want, agree
+    )
+    # dsnr = |mag| / rmse divides by an rmse of ~0.01-0.05, so the float32
+    # tail of 1e-5 in rmse becomes a relative one of up to ~1e-3 in dsnr
+    a, b = got["dsnr"][agree].astype(np.float64), want["dsnr"][agree]
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-12)
+    assert np.quantile(rel, 0.999) <= 1e-3 and rel.max() <= 5e-3, rel.max()
+    assert got["mask"].any()
+
+
+def test_tile_without_tail_has_no_ftv_or_change(tile):
+    out = process_tile_dn(*_torch_inputs(tile), impl="torch")
+    assert out.ftv == {} and out.change is None
