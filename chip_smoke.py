@@ -9,16 +9,19 @@ each of which fails the script on its own:
 
 1. **Build** the kernels (``csrc/segment_fused.cu``: the fused
    segmentation kernel and the family kernel) from the checkout's source
-   with nvcc; print the build seconds, the ptxas register/spill report and
-   the card's name and power limit.
+   with nvcc; print the build seconds, the ptxas register/stack/spill
+   report, each kernel's occupancy (blocks and warps per SM) and shared
+   bytes per block, and the card's name and power limit.
 2. **Kernel against plain version** on 262,144 px x 40 years of a seeded
    mixed-regime population, default parameters: float32 decisions agree
    on >= 99.9% of pixels and floats within 1e-5 on the agreeing pixels;
    float64 decisions are identical on every pixel and floats within 1e-8.
    On the agreeing pixels a NaN or infinity in either output must stand
-   at the same place in the other.  Times the kernel and
-   the plain PyTorch version with CUDA events after a warm-up, and
-   computes the kernel's roofline bound from this run's inputs.
+   at the same place in the other.  Prints each fused-kernel stage's
+   share of the per-thread cycles and the block-size sweep, then times
+   the kernel and the plain PyTorch version with CUDA events after a
+   warm-up, and computes the kernel's roofline bound from this run's
+   inputs.
 3. **Chunked against unchunked**: chunk 65,536 gives identical decisions.
 3b. **Family kernel against its plain version** on phase 2's population:
    vertex sets equal on every pixel in float64 and on >= 99.9% in
@@ -216,6 +219,12 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    for kind in ("fused", "family"):
+        for dt in (torch.float32, torch.float64):
+            occ = segment_cuda.occupancy(kind, dt, NY)
+            log(f"[build] occupancy {kind} {occ['dtype']} at NY={NY}: block {occ['block']}, "
+                f"{occ['smem_bytes']} B shared per block, {occ['blocks_per_sm']} blocks = "
+                f"{occ['warps_per_sm']} warps per SM")
 
     # ---- phase 2: kernel against plain version --------------------------
     years_np, vals_np, mask_np = population(np.random.default_rng(20261016), POP_PX)
@@ -248,6 +257,13 @@ def main() -> int:
     assert err64 <= F64_ATOL, f"f64 float disagreement {err64} above {F64_ATOL}"
     fit_rate_pop = float(k32.model_valid.float().mean())
 
+    report = probe.kernel_report(years, v32, mask, reps=20)
+    log("[kernel] stage shares of the f32 kernel's per-thread cycles: " + ", ".join(
+        f"{k} {100 * v:.1f}%" for k, v in report["stage_share"].items())
+        + f" ({sum(report['cycles_per_px'].values()):.0f} cycles per pixel's thread)")
+    log("[kernel] block-size sweep (f32 fused, ms): " + ", ".join(
+        f"block {r['block']} {r['ms']:.4f} "
+        f"({r['warps_per_sm']} warps/SM)" for r in report["block_sweep"]))
     job = segment_cuda._Launch(years, v32, mask, params)
     kernel_ms = cuda_ms(lambda: job.run(0, POP_PX), reps=20)
     wrapper_ms = cuda_ms(lambda: segment_cuda.cuda_segment_pixels(years, v32, mask, params), reps=20)

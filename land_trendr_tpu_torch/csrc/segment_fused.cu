@@ -11,54 +11,76 @@
 // expression for expression (every sum in year order, ties to the
 // smallest position).
 //
-// Design.  One thread per pixel, blocks of CUDA_BLOCK threads, the ragged
-// edge masked.  The year axis t is loaded once per block into shared
-// memory.  Each thread compacts its pixel's valid years into per-thread
-// arrays of compile-time length MAX_NY (positions 0..n-1), so every stage
-// is a short scalar loop over the valid years.  Vertex sets (the candidate
-// set and each model-family member) are one 64-bit word each; the family
-// keeps only each member's word and SSE, and the tail refits the chosen
-// member with the same code (a deterministic refit gives the same bits).
-// Inputs arrive year-major (NY, PX) and outputs leave year-major
-// (rows, PX), so neighbouring threads touch neighbouring addresses.
+// Design, redesigned for Hopper.  One thread per pixel; blocks of 256
+// threads in float32 (the fastest block that holds NY = 64 in shared
+// memory: 1.31 ms against 1.66 at 128; 512 runs in 1.15 ms but fits only
+// NY <= 56) and 128 in float64 (so that NY = 64 fits).
+//
+// * Pixel-major I/O through shared memory.  A block's pixels are
+//   contiguous rows of the caller's (PX, NY) values and bool mask, so one
+//   thread issues two bulk asynchronous copies (cp.async.bulk, completion
+//   counted on an mbarrier) that bring the block's slab into shared memory
+//   with no transpose.  The ragged last block, or a view off 16-byte
+//   alignment, loads the slab per thread instead.  `isfinite` is tested
+//   here, so the wrapper hands over the caller's tensors as they are.  The
+//   fused kernel writes every output pixel-major through a staging tile
+//   (odd row stride, so a warp's row writes fall in 32 banks), copied out
+//   in coalesced runs; the family kernel writes year-major rows, one
+//   contiguous run per warp and row.
+// * The series in shared memory.  Each thread compacts its row into its
+//   own columns laid out [position][thread]: y (the valid years at
+//   positions 0..n-1, then the raw values of the other years) and t.
+//   Whatever position a lane reads, it reads its own bank; the year is
+//   read directly, not through an index.  The lanes read their slab rows
+//   from staggered starting years, so rows NY words apart do not collide
+//   in a bank.  The slab lands in the same bytes (the mask in the y
+//   columns, the values in the t columns) and the t columns become the
+//   staging tile, so a block needs B * (NY + max(NY, 16) | 1) values plus
+//   the year axis: 83,120 B at NY = 40, B = 256, float32 — two blocks,
+//   16 warps, per SM.  What stays in local memory are the small per-pixel
+//   arrays (vertex positions, segment arctangents and best points, the
+//   family's words, SSEs and scores): 864 B of stack in float32.
+// * The same bits with less work.  The candidate search keeps each
+//   segment's farthest point and, on an insertion, recomputes only the
+//   two halves of the split segment; the angle cull keeps each segment's
+//   arctangent and, on a removal, recomputes only the merged segment's
+//   (the TPU kernel's incremental angle table, `_remove_weakest_ys`); the
+//   despike window slides in registers; the family's fits keep no
+//   per-segment arrays.  Every expression and its order are unchanged
+//   (ties still go to the smallest position), so float32 stays
+//   bit-identical to the plain version.
 //
 // What bounds it on this card.  A pixel reads NY values + NY mask bytes
 // and writes 2*NY + 4*NV + 3*NM + 3 words and one byte: at NY = 40,
 // NV = 7, NM = 6 about 0.7 KB of device-memory traffic (f32), ~0.056 ms
-// for 262,144 px at 3.35 TB/s.  Its arithmetic is ~1.5 * 10^4 FP32
-// operations per pixel (seven anchored fits, ~10 candidate-search OLS
-// passes, despike trips, ~100 atan, the Lentz scorer), ~0.06 ms at the
-// FP32 peak: the two bounds sit close together.  What holds the kernel
-// back in practice is neither: each thread's work is a long serial chain
-// of dependent operations whose trip counts follow its own pixel's data,
-// so warps diverge.  The design answers that by keeping every
-// intermediate on chip (nothing but the inputs and the 13 outputs touch
-// device memory) and by doing only the work a pixel's own data needs
-// (early exits in despike, candidate search and the float64 continued
-// fraction; no work at all for pixels below min_observations).  The
-// per-thread arrays may spill to local memory (L1-cached); registers and
-// spills are reported by `-Xptxas -v`.
+// for 262,144 px at 3.35 TB/s.  Its arithmetic is ~1.3 * 10^4 FP32
+// operations per pixel (seven anchored fits, the candidate-search OLS
+// passes, despike trips, the Lentz scorer), about the same time at the
+// FP32 peak.  The kernel runs at ~4% of that bound.  Where a thread's
+// cycles go (clock64() per stage, float32, 262,144 px x 40 yr, H100 80GB
+// HBM3 at 700 W): load+compact 4%, despike 10%, candidates+cull 22%,
+// family fits 25%, scoring 13%, refit+output 26% — the last includes
+// the wait at the output barriers for the block's slowest pixel.  What
+// holds it back is the shape of the work: each thread runs a long serial
+// chain whose trip counts follow its own pixel's data, so warps diverge
+// and a block's output waits for its slowest pixel.  The summation order
+// is part of the contract, so a warp per pixel, which would reduce in a
+// tree, is not an option.
 //
 // A second kernel, `family_stats_kernel`, replaces the TPU kernel
 // `family_stats_pallas` (land_trendr_tpu/ops/segment_pallas.py:938; body
 // `_make_family_kernel`, :645, which runs `_run_stages`, :471): stages
 // 1-4a unfused — the despiked series (0 at invalid years), each model-
 // family member's vertex set on the year axis and the SSE of its fit.  Its
-// plain version is `torch_family_stats` in ops/segment.py; it shares every
-// device function with the fused kernel.  It differs from the fused
-// kernel's first half in one respect: it runs the family for EVERY pixel
-// (none, one or two valid years, below min_observations, a flat series),
-// as `_run_stages` does, where the fused kernel skips pixels the tail will
-// call flat.  What bounds it: a pixel reads NY values + NY mask bytes and
-// writes NY words, NM*NY vertex-set bytes and NM words — at NY = 40,
-// NM = 6 0.62 KB (f32), ~0.049 ms for 262,144 px at 3.35 TB/s — against
-// ~1.2 * 10^4 FP32 operations per pixel (no scoring), about the same time
-// at the FP32 peak.  The design keeps the fused kernel's answer for the
-// arithmetic (one thread per pixel, compacted per-thread series, vertex
-// sets as 64-bit words) and writes every output year-major, one row per
-// (member, year), so a warp's stores to a row are one contiguous run of
-// 32 bytes (vertex sets) or 128 bytes (words) instead of one store every
-// NM*NY bytes per thread.
+// plain version is `torch_family_stats` in ops/segment.py; it shares the
+// slab load, the shared-memory series and every device function with the
+// fused kernel.  It differs from the fused kernel's first half in one
+// respect: it runs the family for EVERY pixel (none, one or two valid
+// years, below min_observations, a flat series), as `_run_stages` does,
+// where the fused kernel skips pixels the tail will call flat.  What
+// bounds it: a pixel reads NY values + NY mask bytes and writes NY words,
+// NM*NY vertex-set bytes and NM words — at NY = 40, NM = 6 0.62 KB (f32),
+// ~0.049 ms for 262,144 px at 3.35 TB/s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -73,10 +95,17 @@
 
 namespace {
 
+// Threads per block.  CUDA_BLOCK is the chunk granule (every block size
+// is a multiple of it) and the float64 block; float32, the timed path,
+// runs blocks of 256 (the fastest block of the sweep that holds NY = 64),
+// float64 keeps 128 so that NY = 64 fits in a block's shared memory.
 constexpr int CUDA_BLOCK = 128;
+template <typename T>
+constexpr int block_of() { return std::is_same<T, float>::value ? 2 * CUDA_BLOCK : CUDA_BLOCK; }
 constexpr int MAX_NY = 64;   // years: one 64-bit word per vertex set
 constexpr int MAX_NC = 16;   // candidate capacity (max_segments + 1 + overshoot)
 constexpr int MAX_NM = MAX_NC - 1;
+constexpr long long SMEM_LIMIT = 232448;  // shared bytes one block may use on sm_90
 
 constexpr double CF_EPS = 1e-15;
 constexpr int CF_MAXIT = 300;
@@ -99,22 +128,23 @@ struct Params {
   int lentz_iters;
 };
 
+// Outputs of the fused kernel, pixel-major, each pointer at the launch's
+// first pixel: row r of a (PX, w) field starts at r * w.
 template <typename T>
 struct Outs {
-  T* despiked;         // (NY, ld)
-  T* fitted;           // (NY, ld)
-  int32_t* n_vertices; // (1, ld)
-  int32_t* vidx;       // (NV, ld)
-  T* vyear;            // (NV, ld)
-  T* vsrc;             // (NV, ld)
-  T* vfit;             // (NV, ld)
-  T* smag;             // (NM, ld)
-  T* sdur;             // (NM, ld)
-  T* srate;            // (NM, ld)
-  T* rmse;             // (1, ld)
-  T* pof;              // (1, ld)
-  uint8_t* mv;         // (1, ld)
-  long long ld;
+  T* despiked;         // (PX, NY)
+  T* fitted;           // (PX, NY)
+  int32_t* n_vertices; // (PX,)
+  int32_t* vidx;       // (PX, NV)
+  T* vyear;            // (PX, NV)
+  T* vsrc;             // (PX, NV)
+  T* vfit;             // (PX, NV)
+  T* smag;             // (PX, NM)
+  T* sdur;             // (PX, NM)
+  T* srate;            // (PX, NM)
+  T* rmse;             // (PX,)
+  T* pof;              // (PX,)
+  uint8_t* mv;         // (PX,)
 };
 
 // ---- elementary functions, one overload per type --------------------------
@@ -137,25 +167,187 @@ __device__ __forceinline__ float ulp_of_eps<float>() { return 1.4210855e-14f; } 
 template <>
 __device__ __forceinline__ double ulp_of_eps<double>() { return 4.930380657631324e-32; }  // 2^-104
 
-// Floating-point operation tally of one thread, for the roofline bound:
-// CountOps adds the arithmetic each loop performs on this pixel's data
-// (an add, multiply, divide, compare, min/max, abs or elementary function
-// each count one); NoOps compiles to nothing on the production path.
+// Per-thread instrumentation policy.  NoOps compiles to nothing on the
+// production path.  CountOps is the floating-point operation tally for the
+// roofline bound: it adds the arithmetic each loop performs on this pixel's
+// data (an add, multiply, divide, compare, min/max, abs or elementary
+// function each count one).  StageCycles reads clock64() at the stage
+// boundaries of the fused kernel and writes each stage's cycles and their
+// total (kernel entry to the last mark).
+constexpr int NSTAGE = 6;  // load+compact, despike, candidates+cull, family, scoring, refit+output
+enum Stage { LOAD = 0, DESPIKE, CULL, FAMILY, SCORE, OUTPUT };
+
 struct NoOps {
   __device__ __forceinline__ void add(long long) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long*, long long) {}
 };
 struct CountOps {
   long long n = 0;
   __device__ __forceinline__ void add(long long k) { n += k; }
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long* out, long long pix) { out[pix] = n; }
 };
-template <class O>
-struct CountOf {
-  __device__ static long long get(const O&) { return 0; }
+struct StageCycles {
+  long long cyc[NSTAGE];
+  long long start, last;
+  __device__ StageCycles() {
+    for (int s = 0; s < NSTAGE; ++s) cyc[s] = 0;
+    start = clock64();
+    last = start;
+  }
+  __device__ __forceinline__ void add(long long) {}
+  __device__ __forceinline__ void mark(int s) {
+    const long long now = clock64();
+    cyc[s] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void write(long long* out, long long pix) {
+    for (int s = 0; s < NSTAGE; ++s) out[pix * (NSTAGE + 1) + s] = cyc[s];
+    out[pix * (NSTAGE + 1) + NSTAGE] = last - start;
+  }
 };
-template <>
-struct CountOf<CountOps> {
-  __device__ static long long get(const CountOps& o) { return o.n; }
+
+// ---- shared memory of one block -------------------------------------------
+// Dynamic shared memory of a block of B threads at NY years, element size E:
+//   [mbarrier, 16 B][year axis, NY * E rounded up to 16 B]
+//   [y columns, NY * B * E]: the mask slab lands here first;
+//   [t columns, W * B * E]: the value slab lands here first, and the
+//    output staging tile reuses it at the end (W = max(NY, MAX_NC) | 1,
+//    an odd row stride, so a warp's row writes fall in 32 banks).
+// A thread's column holds position i at [i * B + threadIdx.x]: whatever
+// position each lane reads, it reads its own bank.
+__host__ __device__ constexpr int stage_width(int ny) { return (ny > MAX_NC ? ny : MAX_NC) | 1; }
+__host__ __device__ constexpr long long smem_bytes(int ny, int elem, int block) {
+  return 16 + ((long long)ny * elem + 15) / 16 * 16 +
+         (long long)block * (ny + stage_width(ny)) * elem;
+}
+
+template <typename T, int B>
+struct Block {
+  uint64_t* bar;
+  T* ts;      // year axis (uncompacted)
+  T* ycol;    // y columns; the mask slab on arrival
+  T* region;  // t columns; the value slab on arrival; the staging tile at the end
+  __device__ Block(unsigned char* smem, int ny) {
+    bar = reinterpret_cast<uint64_t*>(smem);
+    ts = reinterpret_cast<T*>(smem + 16);
+    ycol = reinterpret_cast<T*>(smem + 16 + (ny * (int)sizeof(T) + 15) / 16 * 16);
+    region = ycol + ny * B;
+  }
 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Bulk asynchronous copy (the Tensor Memory Accelerator's 1-D form) of
+// `bytes` contiguous bytes, completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Bring the block's slab — `npx` contiguous pixel rows of NY values and NY
+// mask bytes — into shared memory and compact each live thread's row into
+// its columns: the valid years (mask set, value finite) at positions
+// 0..n-1 in year order, then the raw values of the other years in year
+// order.  Fills the year axis and the t columns; returns the thread's
+// valid-year word.  Every thread of the block must call it.
+template <typename T, int B>
+__device__ uint64_t load_compact(const Block<T, B>& blk, const T* __restrict__ years,
+                                 const T* __restrict__ vals, const uint8_t* __restrict__ mask,
+                                 int npx, int ny) {
+  const int r = threadIdx.x;
+  T* vland = blk.region;
+  uint8_t* mland = reinterpret_cast<uint8_t*>(blk.ycol);
+  const uint32_t vbytes = (uint32_t)npx * (uint32_t)ny * (uint32_t)sizeof(T);
+  const uint32_t mbytes = (uint32_t)npx * (uint32_t)ny;
+  // one bulk copy each when both slabs are whole 16-byte runs; the ragged
+  // last block of an odd-sized call, or an unaligned view, loads per thread
+  const bool bulk =
+      ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(mask) | vbytes | mbytes) &
+       15u) == 0;
+  for (int j = r; j < ny; j += B) blk.ts[j] = years[j];
+  if (bulk) {
+    if (r == 0) mbar_init(blk.bar);
+  } else {
+    for (int e = r; e < npx * ny; e += B) vland[e] = vals[e];
+    for (int e = r; e < npx * ny; e += B) mland[e] = mask[e];
+  }
+  __syncthreads();
+  if (bulk) {
+    if (r == 0) {
+      mbar_expect_tx(blk.bar, vbytes + mbytes);
+      bulk_load(vland, vals, vbytes, blk.bar);
+      bulk_load(mland, mask, mbytes, blk.bar);
+    }
+    mbar_wait(blk.bar, 0);
+  }
+  const bool live = r < npx;
+  // each lane reads its row from its own starting year, so that the lanes
+  // of a warp (rows NY apart) fall in different banks
+  const int j0 = live ? r % ny : 0;
+  const T* vrow = vland + r * ny;
+  uint64_t valid = 0;
+  if (live) {
+    const uint8_t* mrow = mland + r * ny;
+    for (int c = 0, j = j0; c < ny; ++c) {
+      if (mrow[j] && isfinite(vrow[j])) valid |= 1ull << j;
+      if (++j == ny) j = 0;
+    }
+  }
+  __syncthreads();  // the mask slab is read: its bytes become the y columns
+  const int n = __popcll((long long)valid);
+  if (live) {
+    for (int c = 0, j = j0; c < ny; ++c) {
+      const int below = __popcll((long long)(valid & ((1ull << j) - 1ull)));
+      const int pos = ((valid >> j) & 1ull) ? below : n + (j - below);
+      blk.ycol[pos * B + r] = vrow[j];
+      if (++j == ny) j = 0;
+    }
+  }
+  __syncthreads();  // the value slab is read: its bytes become the t columns
+  if (live) {
+    int i = 0;
+    for (uint64_t w = valid; w; w &= w - 1) blk.region[(i++) * B + r] = blk.ts[__ffsll((long long)w) - 1];
+  }
+  return valid;
+}
+
+// Year index of the i-th (from 0) set bit of `w`.
+__device__ __forceinline__ int nth_bit(uint64_t w, int i) {
+  const uint32_t lo = (uint32_t)w;
+  const int c = __popc(lo);
+  return i < c ? (int)__fns(lo, 0, i + 1) : 32 + (int)__fns((uint32_t)(w >> 32), 0, i - c + 1);
+}
 
 // Positions of the set bits of `vm`, ascending; returns the count.
 __device__ __forceinline__ int bit_positions(uint64_t vm, int* vp) {
@@ -168,14 +360,15 @@ __device__ __forceinline__ int bit_positions(uint64_t vm, int* vp) {
   return k;
 }
 
-// Per-thread view of one pixel's compacted series.
-template <typename T>
+// One thread's view of its pixel's compacted series in its columns.
+template <typename T, int B>
 struct Series {
-  const T* ts;           // shared year axis (uncompacted)
-  uint8_t idx[MAX_NY];   // compacted position -> year index
-  T y[MAX_NY];           // series at valid years (despiked in place)
-  int n;                 // valid years
-  __device__ __forceinline__ T t(int i) const { return ts[idx[i]]; }
+  T* yc;        // y at position i: yc[i * B] (despiked in place)
+  const T* tc;  // t at position i: tc[i * B]
+  int n;        // valid years
+  __device__ __forceinline__ T& y(int i) { return yc[i * B]; }
+  __device__ __forceinline__ T y(int i) const { return yc[i * B]; }
+  __device__ __forceinline__ T t(int i) const { return tc[i * B]; }
 };
 
 template <typename T>
@@ -188,14 +381,14 @@ __device__ __forceinline__ T clamp_slope(T slope, T duration, T y_range, const P
 }
 
 // OLS over compacted positions [a, b]: intercept, slope, tm, ym.
-template <typename T, class O>
-__device__ void ols(const Series<T>& s, int a, int b, T& c0, T& c1, T& tm, T& ym, O& ops) {
+template <typename T, int B, class O>
+__device__ void ols(const Series<T, B>& s, int a, int b, T& c0, T& c1, T& tm, T& ym, O& ops) {
   ops.add(9LL * (b - a + 1) + 7);
   T n = 0, st = 0, sy = 0;
   for (int i = a; i <= b; ++i) {
     n = n + (T)1;
     st = st + s.t(i);
-    sy = sy + s.y[i];
+    sy = sy + s.y(i);
   }
   T n_safe = n < (T)1 ? (T)1 : n;
   tm = st / n_safe;
@@ -204,7 +397,7 @@ __device__ void ols(const Series<T>& s, int a, int b, T& c0, T& c1, T& tm, T& ym
   for (int i = a; i <= b; ++i) {
     T d = s.t(i) - tm;
     stt = stt + d * d;
-    sty = sty + d * (s.y[i] - ym);
+    sty = sty + d * (s.y(i) - ym);
   }
   bool ok = (n >= (T)2) && (stt > (T)0);
   c1 = ok ? sty / stt : (T)0;
@@ -212,93 +405,157 @@ __device__ void ols(const Series<T>& s, int a, int b, T& c0, T& c1, T& tm, T& ym
 }
 
 // Stage 1: iteratively damp the largest interior spike (oracle despike).
-template <typename T, class O>
-__device__ void despike(Series<T>& s, const Params& p, O& ops) {
+// The three-point window slides along the series in registers.
+template <typename T, int B, class O>
+__device__ void despike(Series<T, B>& s, const Params& p, O& ops) {
   const int n = s.n;
   const T thr = (T)p.spike;
   for (int it = 0; it < n; ++it) {
     ops.add(15LL * (n > 2 ? n - 2 : 0) + 4);
     T best = (T)-1, best_itp = 0;
     int bi = -1;
-    for (int i = 1; i <= n - 2; ++i) {
-      T tp = s.t(i - 1), tq = s.t(i + 1), ti = s.t(i);
-      T yp = s.y[i - 1], yq = s.y[i + 1];
-      T itp = yp + (yq - yp) * (ti - tp) / (tq - tp);
-      T dev = f_abs(s.y[i] - itp);
-      T crossing = f_abs(yq - yp);
-      T prop = dev > (T)0 ? t_max((T)0, (T)1 - crossing / dev) : (T)0;
-      if (prop > best) {
-        best = prop;
-        bi = i;
-        best_itp = itp;
+    if (n > 2) {
+      T tp = s.t(0), ti = s.t(1), yp = s.y(0), yi = s.y(1);
+      for (int i = 1; i <= n - 2; ++i) {
+        const T tq = s.t(i + 1), yq = s.y(i + 1);
+        T itp = yp + (yq - yp) * (ti - tp) / (tq - tp);
+        T dev = f_abs(yi - itp);
+        T crossing = f_abs(yq - yp);
+        T prop = dev > (T)0 ? t_max((T)0, (T)1 - crossing / dev) : (T)0;
+        if (prop > best) {
+          best = prop;
+          bi = i;
+          best_itp = itp;
+        }
+        tp = ti;
+        ti = tq;
+        yp = yi;
+        yi = yq;
       }
     }
     if (!(best > thr)) break;
-    s.y[bi] = s.y[bi] + (best_itp - s.y[bi]) * best;
+    s.y(bi) = s.y(bi) + (best_itp - s.y(bi)) * best;
   }
 }
 
-// Stage 2: grow the vertex word by max-deviation insertion.
-template <typename T, class O>
-__device__ uint64_t find_candidates(const Series<T>& s, uint64_t vm, const Params& p, O& ops) {
+// Candidate and cull state of one pixel: the live vertices (compacted
+// positions, ascending) and, once the cull starts, the arctangent of each
+// segment's slope in the frame normalised by (t_lo, t_rng, y_lo, y_rng).
+template <typename T>
+struct Verts {
+  int k;
+  int vp[MAX_NC];
+  int si[MAX_NC];    // candidate search: where segment g's largest deviation lies
+  union {
+    T sdev[MAX_NC];  // candidate search: segment g's largest deviation
+    T sa[MAX_NC];    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
+  };
+  T t_lo, t_rng, y_lo, y_rng;
+  __device__ __forceinline__ uint64_t word() const {
+    uint64_t w = 0;
+    for (int j = 0; j < k; ++j) w |= 1ull << vp[j];
+    return w;
+  }
+};
+
+// The interior point of segment (a, b) farthest from its OLS line: the
+// first of the largest, -1 when the segment has no interior point.
+template <typename T, int B, class O>
+__device__ void seg_best(const Series<T, B>& s, int a, int b, T& dev_best, int& i_best, O& ops) {
+  dev_best = (T)-1;
+  i_best = -1;
+  if (b - a < 2) return;
+  T c0, c1, tm, ym;
+  ols(s, a, b, c0, c1, tm, ym, ops);
+  ops.add(5LL * (b - a - 1));
+  for (int i = a + 1; i < b; ++i) {
+    T dev = f_abs(s.y(i) - (c0 + c1 * s.t(i)));
+    if (dev > dev_best) {
+      dev_best = dev;
+      i_best = i;
+    }
+  }
+}
+
+// Stage 2: grow the vertex set by max-deviation insertion.  Each
+// segment's best point is kept; an insertion recomputes only the two
+// segments it splits.  The pick is the first of the largest over segments
+// in order, which is the first of the largest over all positions — the
+// full rescan's answer.
+template <typename T, int B, class O>
+__device__ void find_candidates(const Series<T, B>& s, Verts<T>& v, const Params& p, O& ops) {
+  for (int g = 0; g + 1 < v.k; ++g) seg_best(s, v.vp[g], v.vp[g + 1], v.sdev[g], v.si[g], ops);
   for (int trip = 0; trip < p.nc - 2; ++trip) {
     T best = (T)-1;
-    int bi = -1;
-    int vp[MAX_NC];
-    int k = bit_positions(vm, vp);
-    for (int j = 0; j + 1 < k; ++j) {
-      int a = vp[j], b = vp[j + 1];
-      if (b - a < 2) continue;
-      T c0, c1, tm, ym;
-      ols(s, a, b, c0, c1, tm, ym, ops);
-      ops.add(5LL * (b - a - 1));
-      for (int i = a + 1; i < b; ++i) {
-        T dev = f_abs(s.y[i] - (c0 + c1 * s.t(i)));
-        if (dev > best) {
-          best = dev;
-          bi = i;
-        }
+    int gb = -1;
+    for (int g = 0; g + 1 < v.k; ++g) {
+      if (v.sdev[g] > best) {
+        best = v.sdev[g];
+        gb = g;
       }
     }
-    if (bi < 0) break;  // no interior year left anywhere: later trips are no-ops
-    vm |= 1ull << bi;
+    if (gb < 0) break;  // no interior year left anywhere: later trips are no-ops
+    const int bi = v.si[gb];
+    for (int g = v.k - 1; g > gb + 1; --g) {
+      v.sdev[g] = v.sdev[g - 1];
+      v.si[g] = v.si[g - 1];
+    }
+    for (int j = v.k; j > gb + 1; --j) v.vp[j] = v.vp[j - 1];
+    v.vp[gb + 1] = bi;
+    ++v.k;
+    seg_best(s, v.vp[gb], v.vp[gb + 1], v.sdev[gb], v.si[gb], ops);
+    seg_best(s, v.vp[gb + 1], v.vp[gb + 2], v.sdev[gb + 1], v.si[gb + 1], ops);
   }
-  return vm;
 }
 
-// Drop the min-angle interior vertex while the count exceeds keep_above.
-template <typename T, class O>
-__device__ uint64_t remove_weakest(const Series<T>& s, uint64_t vm, int keep_above,
-                                   T t_lo, T t_rng, T y_lo, T y_rng, O& ops) {
-  int vp[MAX_NC];
-  int k = bit_positions(vm, vp);
-  if (k <= keep_above) return vm;
-  ops.add(23LL * (k - 2));
+// Arctangent of the slope of segment (a, b) in the normalised frame.  The
+// angle at vertex j is |sa[j] - sa[j - 1]|: the same expression as a full
+// rebuild computes, so an incremental update gives the same bits.
+template <typename T, int B, class O>
+__device__ __forceinline__ T seg_atan(const Series<T, B>& s, const Verts<T>& v, int a, int b,
+                                      O& ops) {
+  ops.add(12);
+  const T xa = (s.t(a) - v.t_lo) / v.t_rng, ya = (s.y(a) - v.y_lo) / v.y_rng;
+  const T xb = (s.t(b) - v.t_lo) / v.t_rng, yb = (s.y(b) - v.y_lo) / v.y_rng;
+  return f_atan((yb - ya) / (xb - xa));
+}
+
+template <typename T, int B, class O>
+__device__ void cull_init(const Series<T, B>& s, Verts<T>& v, O& ops) {
+  if (v.k < 3) return;  // no interior vertex: nothing is ever removed
+  for (int g = 0; g + 1 < v.k; ++g) v.sa[g] = seg_atan(s, v, v.vp[g], v.vp[g + 1], ops);
+}
+
+// Drop the min-angle interior vertex (the first of the smallest) while the
+// count exceeds keep_above (>= 2); only the merged segment's arctangent is
+// recomputed.
+template <typename T, int B, class O>
+__device__ void remove_weakest(const Series<T, B>& s, Verts<T>& v, int keep_above, O& ops) {
+  const int k = v.k;
+  if (k <= keep_above) return;
+  ops.add(3LL * (k - 2));
   T best = 0;
   int jmin = -1;
   for (int j = 1; j <= k - 2; ++j) {
-    T xs0 = (s.t(vp[j - 1]) - t_lo) / t_rng, ys0 = (s.y[vp[j - 1]] - y_lo) / y_rng;
-    T xs1 = (s.t(vp[j]) - t_lo) / t_rng, ys1 = (s.y[vp[j]] - y_lo) / y_rng;
-    T xs2 = (s.t(vp[j + 1]) - t_lo) / t_rng, ys2 = (s.y[vp[j + 1]] - y_lo) / y_rng;
-    T s1 = (ys1 - ys0) / (xs1 - xs0);
-    T s2 = (ys2 - ys1) / (xs2 - xs1);
-    T ang = f_abs(f_atan(s2) - f_atan(s1));
+    const T ang = f_abs(v.sa[j] - v.sa[j - 1]);
     if (jmin < 0 || ang < best) {
       best = ang;
       jmin = j;
     }
   }
-  return vm & ~(1ull << vp[jmin]);
+  for (int j = jmin; j + 1 < k; ++j) v.vp[j] = v.vp[j + 1];
+  for (int g = jmin; g + 2 < k; ++g) v.sa[g] = v.sa[g + 1];
+  v.k = k - 1;
+  v.sa[jmin - 1] = seg_atan(s, v, v.vp[jmin - 1], v.vp[jmin], ops);
 }
 
-// Anchored fit + point-to-point fallback for one vertex word.  Returns the
-// SSE over the vertex span; with `vf` non-null also the fitted value at
-// each vertex (the chosen model's refit).
-template <typename T, class O>
-__device__ T fit_model(const Series<T>& s, uint64_t vm, T y_range, const Params& p, T* vf,
-                       O& ops) {
-  int vp[MAX_NC];
-  const int k = bit_positions(vm, vp);
+// Anchored fit + point-to-point fallback for the vertices vp[0..k-1].
+// Returns the SSE over the vertex span; the REFIT instantiation also
+// writes the fitted value at each vertex to `vf` (the chosen model's
+// refit), and only it keeps the per-segment anchors and rates.
+template <bool REFIT, typename T, int B, class O>
+__device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_range,
+                       const Params& p, T* vf, O& ops) {
   // regression: 6 per year per pass (two passes after segment 0's OLS);
   // p2p: 6 per year; ~24 per vertex for slopes, clamps, rates and anchors
   ops.add(12LL * (vp[k - 1] - vp[1]) + 6LL * (vp[1] - vp[0] + 1) +
@@ -310,14 +567,14 @@ __device__ T fit_model(const Series<T>& s, uint64_t vm, T y_range, const Params&
   c0 = ym - c1c * tm;
   T sse_reg = 0;
   for (int i = vp[0]; i <= vp[1]; ++i) {
-    T r = s.y[i] - (c0 + c1c * s.t(i));
+    T r = s.y(i) - (c0 + c1c * s.t(i));
     sse_reg = sse_reg + r * r;
   }
-  T vreg[MAX_NC];
-  vreg[0] = c0 + c1c * s.t(vp[0]);
+  T vreg[REFIT ? MAX_NC : 1];
+  if constexpr (REFIT) vreg[0] = c0 + c1c * s.t(vp[0]);
   T anchor_t = s.t(vp[1]);
   T anchor_y = c0 + c1c * anchor_t;
-  vreg[1] = anchor_y;
+  if constexpr (REFIT) vreg[1] = anchor_y;
   // --- segments 1..: slope-only regression through the anchor ---
   for (int g = 1; g + 1 < k; ++g) {
     const int a = vp[g], b = vp[g + 1];
@@ -325,50 +582,49 @@ __device__ T fit_model(const Series<T>& s, uint64_t vm, T y_range, const Params&
     for (int i = a + 1; i <= b; ++i) {
       T dt = s.t(i) - anchor_t;
       denom = denom + dt * dt;
-      num = num + dt * (s.y[i] - anchor_y);
+      num = num + dt * (s.y(i) - anchor_y);
     }
     T slope = denom > (T)0 ? num / denom : (T)0;
     T tb = s.t(b);
     slope = clamp_slope(slope, tb - anchor_t, y_range, p);
     for (int i = a + 1; i <= b; ++i) {
-      T r = s.y[i] - (anchor_y + slope * (s.t(i) - anchor_t));
+      T r = s.y(i) - (anchor_y + slope * (s.t(i) - anchor_t));
       sse_reg = sse_reg + r * r;
     }
     T new_anchor_y = anchor_y + slope * (tb - anchor_t);
     anchor_t = tb;
     anchor_y = new_anchor_y;
-    vreg[g + 1] = anchor_y;
+    if constexpr (REFIT) vreg[g + 1] = anchor_y;
   }
-  // --- point-to-point fallback ---
+  // --- point-to-point fallback: segment by segment, in year order ---
   bool p2p_ok = true;
-  T rate[MAX_NC];
+  T rate[REFIT ? MAX_NC : 1];
   const T rt = (T)p.rt, eps = (T)EPS_RATE;
+  T sse_p2p = 0;
   for (int g = 0; g + 1 < k; ++g) {
-    T dur = s.t(vp[g + 1]) - s.t(vp[g]);
-    T dy = s.y[vp[g + 1]] - s.y[vp[g]];
+    const int a = vp[g];
+    const T ya = s.y(a), ta = s.t(a);
+    T dur = s.t(vp[g + 1]) - ta;
+    T dy = s.y(vp[g + 1]) - ya;
     bool pos = dur > (T)0;
     bool viol = (dy < (T)0) && (y_range > (T)0) && pos;
     bool fast = (-dy) / (pos ? dur : (T)1) > rt * y_range + eps;
     if (p.prevent) fast = fast || (dur <= (T)1);
     if (viol && fast) p2p_ok = false;
-    rate[g] = pos ? dy / dur : (T)0;
-  }
-  T sse_p2p = 0;
-  for (int g = 0; g + 1 < k; ++g) {
-    const int a = vp[g];
+    const T rate_g = pos ? dy / dur : (T)0;
+    if constexpr (REFIT) rate[g] = rate_g;
     const int end = (g + 2 == k) ? vp[g + 1] : vp[g + 1] - 1;
-    const T ya = s.y[a], ta = s.t(a);
     for (int i = a; i <= end; ++i) {
-      T r = s.y[i] - (ya + rate[g] * (s.t(i) - ta));
+      T r = s.y(i) - (ya + rate_g * (s.t(i) - ta));
       sse_p2p = sse_p2p + r * r;
     }
   }
   const bool use_p2p = p2p_ok && (sse_p2p < sse_reg);
-  if (vf != nullptr) {
+  if constexpr (REFIT) {
     for (int j = 0; j < k; ++j) {
       if (use_p2p) {
         const int g = j + 1 < k ? j : k - 2;  // the last vertex ends the last segment
-        vf[j] = s.y[vp[g]] + rate[g] * (s.t(vp[j]) - s.t(vp[g]));
+        vf[j] = s.y(vp[g]) + rate[g] * (s.t(vp[j]) - s.t(vp[g]));
       } else {
         vf[j] = vreg[j];
       }
@@ -537,71 +793,69 @@ __device__ __forceinline__ double select_thresh<double>(double best, const Param
   return best / p.bmp;
 }
 
-template <typename T, class O>
-__global__ void __launch_bounds__(CUDA_BLOCK)
-segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
-                     const uint8_t* __restrict__ mask, long long px, long long in_ld, int ny,
-                     Outs<T> o, Params p, long long* __restrict__ op_count) {
-  __shared__ T ts[MAX_NY];
-  if (threadIdx.x < ny) ts[threadIdx.x] = years[threadIdx.x];
-  __syncthreads();
-  const long long pix = (long long)blockIdx.x * CUDA_BLOCK + threadIdx.x;
-  if (pix >= px) return;
-  const long long ld = o.ld;
+// What one pixel's thread carries from its compute into the output phase.
+template <typename T>
+struct PixelResult {
+  bool mv;
+  int k;            // vertices of the chosen model (0 for the flat model)
+  int vp[MAX_NC];   // their compacted positions
+  T vf[MAX_NC];     // their fitted values
+  T mean, rmse, pof;
+};
 
-  O ops;
-  Series<T> s;
-  s.ts = ts;
-  int n = 0;
-  for (int j = 0; j < ny; ++j) {
-    if (mask[j * in_ld + pix]) {
-      s.idx[n] = (uint8_t)j;
-      s.y[n] = values[j * in_ld + pix];
-      ++n;
-    }
-  }
-  s.n = n;
+// Stages 1-5 of one pixel: despike, candidates + cull, the model family,
+// scoring + selection, and the chosen member's refit (or the flat model).
+template <typename T, int B, class O>
+__device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelResult<T>& res,
+                              O& ops) {
+  const int n = s.n;
   const bool enough = n >= p.min_obs;
   const T n_f = (T)n;
   const T n_safe = n_f < (T)1 ? (T)1 : n_f;
-
-  bool mv = false;
-  T y_range = 0;
+  res.mv = false;
   if (enough) {
     despike(s, p, ops);
+    ops.mark(DESPIKE);
     ops.add(2LL * n + 2);
-    T y_lo = s.y[0], y_hi = s.y[0];
+    T y_lo = s.y(0), y_hi = s.y(0);
     for (int i = 1; i < n; ++i) {
-      y_lo = t_min(y_lo, s.y[i]);
-      y_hi = t_max(y_hi, s.y[i]);
+      y_lo = t_min(y_lo, s.y(i));
+      y_hi = t_max(y_hi, s.y(i));
     }
-    y_range = t_max(y_hi - y_lo, (T)0);
+    const T y_range = t_max(y_hi - y_lo, (T)0);
     if (y_range > (T)0) {
-      const T t_lo = s.t(0), t_hi = s.t(n - 1);
-      const T t_rng = t_hi > t_lo ? t_hi - t_lo : (T)1;
-      const T y_rng = y_hi > y_lo ? y_hi - y_lo : (T)1;
       // Stage 2 — candidates + angle cull
-      uint64_t vm = (1ull << 0) | (1ull << (n - 1));
+      Verts<T> v;
+      v.t_lo = s.t(0);
+      const T t_hi = s.t(n - 1);
+      v.t_rng = t_hi > v.t_lo ? t_hi - v.t_lo : (T)1;
+      v.y_lo = y_lo;
+      v.y_rng = y_hi > y_lo ? y_hi - y_lo : (T)1;
+      v.vp[0] = 0;
+      v.vp[1] = n - 1;
+      v.k = n > 1 ? 2 : 1;
       ops.add(4);
-      vm = find_candidates(s, vm, p, ops);
-      for (int r = 0; r < p.overshoot; ++r)
-        vm = remove_weakest(s, vm, p.nv, t_lo, t_rng, y_lo, y_rng, ops);
+      find_candidates(s, v, p, ops);
+      cull_init(s, v, ops);
+      for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
+      ops.mark(CULL);
       // Stage 4 — model family: vertex word + SSE per member
       uint64_t fam_vm[MAX_NM];
       T fam_sse[MAX_NM];
       for (int m = 0; m < p.nm; ++m) {
-        fam_vm[m] = vm;
-        fam_sse[m] = fit_model(s, vm, y_range, p, (T*)nullptr, ops);
-        if (m + 1 < p.nm) vm = remove_weakest(s, vm, 2, t_lo, t_rng, y_lo, y_rng, ops);
+        fam_vm[m] = v.word();
+        fam_sse[m] = fit_model<false>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops);
+        if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
       }
+      ops.mark(FAMILY);
       // scoring + selection
       ops.add(4LL * n + 1 + 2LL * p.nm);
       T sum_y = 0;
-      for (int i = 0; i < n; ++i) sum_y = sum_y + s.y[i];
+      for (int i = 0; i < n; ++i) sum_y = sum_y + s.y(i);
       const T mean0 = sum_y / n_safe;
       T ss0 = 0;
       for (int i = 0; i < n; ++i) {
-        T d = s.y[i] - mean0;
+        T d = s.y(i) - mean0;
         ss0 = ss0 + d * d;
       }
       T fam_p[MAX_NM], fam_score[MAX_NM];
@@ -620,118 +874,181 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
         }
       }
       const T p_c = fam_p[chosen];
-      mv = p_c <= (T)p.pval;
-      if (mv) {
+      ops.mark(SCORE);
+      if (p_c <= (T)p.pval) {
         // refit the chosen member: its vertex fits and SSE.  The refit
         // trades arithmetic for registers; the function needs none of it
         // (the family loop computed the same values), so the tally for the
         // bound leaves it out.
-        T vf[MAX_NC];
-        const uint64_t vmc = fam_vm[chosen];
+        res.k = bit_positions(fam_vm[chosen], res.vp);
         NoOps refit_ops;
-        const T sse_c = fit_model(s, vmc, y_range, p, vf, refit_ops);
+        const T sse_c = fit_model<true>(s, res.vp, res.k, y_range, p, res.vf, refit_ops);
         ops.add(10LL * ny + 4LL * p.nm + 2);
-        int vp[MAX_NC];
-        const int k = bit_positions(vmc, vp);
-        for (int j = 0; j < p.nv; ++j) {
-          const bool live = j < k;
-          o.vidx[j * ld + pix] = live ? (int32_t)s.idx[vp[j]] : -1;
-          o.vyear[j * ld + pix] = live ? s.t(vp[j]) : (T)0;
-          o.vsrc[j * ld + pix] = live ? s.y[vp[j]] : (T)0;
-          o.vfit[j * ld + pix] = live ? vf[j] : (T)0;
-        }
-        for (int j = 0; j < p.nm; ++j) {
-          T mag = 0, dur = 0, rate = 0;
-          if (j < k - 1) {
-            mag = vf[j + 1] - vf[j];
-            dur = s.t(vp[j + 1]) - s.t(vp[j]);
-            rate = dur > (T)0 ? mag / dur : (T)0;
-          }
-          o.smag[j * ld + pix] = mag;
-          o.sdur[j * ld + pix] = dur;
-          o.srate[j * ld + pix] = rate;
-        }
-        // fitted trajectory over every year: np.interp through the
-        // vertices, dead slots repeating (t_hi, last fit)
-        const T eps_g = ulp_of_eps<T>();
-        const T x0 = s.t(vp[0]), f0 = vf[0];
-        const T xlast = k == p.nv ? s.t(vp[k - 1]) : t_hi;
-        const T flast = vf[k - 1];
-        int ci = 0;  // vertex slots with xp <= year, walked forward
-        for (int j = 0; j < ny; ++j) {
-          const T tj = ts[j];
-          while (ci < p.nv && (ci < k ? s.t(vp[ci]) : t_hi) <= tj) ++ci;
-          const int i = ci < 1 ? 1 : (ci > p.nv - 1 ? p.nv - 1 : ci);
-          const T xp_i = i < k ? s.t(vp[i]) : t_hi;
-          const T xp_im1 = i - 1 < k ? s.t(vp[i - 1]) : t_hi;
-          const T fp_i = i < k ? vf[i] : flast;
-          const T fp_im1 = i - 1 < k ? vf[i - 1] : flast;
-          const T df = fp_i - fp_im1;
-          const T dx = xp_i - xp_im1;
-          const T delta = tj - xp_im1;
-          T f = f_abs(dx) <= eps_g ? fp_im1 : fp_im1 + (delta / dx) * df;
-          if (tj < x0) f = f0;
-          if (tj > xlast) f = flast;
-          o.fitted[j * ld + pix] = f;
-        }
-        // despiked output: despiked series at valid years, raw elsewhere
-        int c = 0;
-        for (int j = 0; j < ny; ++j) {
-          T v;
-          if (c < n && s.idx[c] == j) {
-            v = s.y[c];
-            ++c;
-          } else {
-            v = values[j * in_ld + pix];
-          }
-          o.despiked[j * ld + pix] = v;
-        }
-        o.rmse[pix] = f_sqrt(sse_c / n_safe);
-        o.pof[pix] = p_c;
-        o.n_vertices[pix] = k;
-        o.mv[pix] = 1;
-        if (op_count != nullptr) op_count[pix] = CountOf<O>::get(ops);
+        res.mv = true;
+        res.rmse = f_sqrt(sse_c / n_safe);
+        res.pof = p_c;
         return;
       }
     }
   }
   // flat no-fit model: the mean of the (despiked when enough) valid series
   T sum_y = 0;
-  for (int i = 0; i < n; ++i) sum_y = sum_y + s.y[i];
+  for (int i = 0; i < n; ++i) sum_y = sum_y + s.y(i);
   const bool has_any = n > 0;
   const T mean = has_any ? sum_y / n_safe : (T)0;
   T ssr = 0;
   for (int i = 0; i < n; ++i) {
-    T r = s.y[i] - mean;
+    T r = s.y(i) - mean;
     ssr = ssr + r * r;
   }
-  for (int j = 0; j < p.nv; ++j) {
-    o.vidx[j * ld + pix] = -1;
-    o.vyear[j * ld + pix] = 0;
-    o.vsrc[j * ld + pix] = 0;
-    o.vfit[j * ld + pix] = 0;
-  }
-  for (int j = 0; j < p.nm; ++j) {
-    o.smag[j * ld + pix] = 0;
-    o.sdur[j * ld + pix] = 0;
-    o.srate[j * ld + pix] = 0;
-  }
-  int c = 0;
-  for (int j = 0; j < ny; ++j) {
-    T v = mean;
-    if (c < n && s.idx[c] == j) {
-      v = s.y[c];
-      ++c;
-    }
-    o.fitted[j * ld + pix] = mean;
-    o.despiked[j * ld + pix] = v;
-  }
-  o.rmse[pix] = has_any ? f_sqrt(ssr / n_safe) : (T)0;
-  o.pof[pix] = 1;
-  o.n_vertices[pix] = 0;
-  o.mv[pix] = 0;
+  res.k = 0;
+  res.mean = mean;
+  res.rmse = has_any ? f_sqrt(ssr / n_safe) : (T)0;
+  res.pof = 1;
   ops.add(5LL * n + 2);
-  if (op_count != nullptr) op_count[pix] = CountOf<O>::get(ops);
+}
+
+// Store one pixel-major field of the block's rows: each live thread fills
+// its row of `w` values in the staging tile (row stride w | 1, odd, so the
+// lanes of a warp write 32 different banks), then the block copies the
+// tile to `dst` (the block's first row) in coalesced runs.  Every thread of
+// the block must call it.
+template <typename U, int B, class F>
+__device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* stage, bool live,
+                                     const F& fill) {
+  U* st = reinterpret_cast<U*>(stage);
+  const int W = w | 1;
+  if (live) fill(st + threadIdx.x * W);
+  __syncthreads();
+  const int total = npx * w;
+  int row = threadIdx.x / w, col = threadIdx.x - row * w;
+  const int dr = B / w, dc = B - dr * w;
+  for (int e = threadIdx.x; e < total; e += B) {
+    dst[e] = st[row * W + col];
+    row += dr;
+    col += dc;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, class O, int B>
+__global__ void __launch_bounds__(B)
+segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
+                     const uint8_t* __restrict__ mask, long long px, int ny, Outs<T> o,
+                     Params p, long long* __restrict__ stats) {
+  O ops;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Block<T, B> blk(smem, ny);
+  const long long base = (long long)blockIdx.x * B;
+  const int npx = (int)(px - base < B ? px - base : B);
+  const int r = threadIdx.x;
+  const bool live = r < npx;
+  const uint64_t valid =
+      load_compact<T, B>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  const int n = __popcll((long long)valid);
+  Series<T, B> s{blk.ycol + r, blk.region + r, n};
+  ops.mark(LOAD);
+
+  PixelResult<T> res;
+  res.mv = false;
+  res.k = 0;
+  if (live) segment_pixel(s, ny, p, res, ops);
+
+  // ---- output: every thread, one staged field at a time ----------------
+  __syncthreads();  // every t column is read: the region becomes the staging tile
+  void* stage = blk.region;
+  const T* ts = blk.ts;
+  const int k = res.k;
+  int vyi[MAX_NC];  // year index of each vertex
+  for (int j = 0; j < k; ++j) vyi[j] = nth_bit(valid, res.vp[j]);
+  const T t_hi = n > 0 ? ts[63 - __clzll((long long)valid)] : (T)0;
+  // vertex slot i's year; dead slots repeat t_hi
+  auto xv = [&](int i) { return i < k ? ts[vyi[i]] : t_hi; };
+
+  // despiked: the despiked series at valid years; elsewhere the raw value
+  // (a fitted model) or the mean (the flat model)
+  emit<T, B>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
+    for (int j = 0, c = 0, d = 0; j < ny; ++j) {
+      if ((valid >> j) & 1ull) {
+        row[j] = s.y(c++);
+      } else {
+        row[j] = res.mv ? s.y(n + d) : res.mean;
+        ++d;
+      }
+    }
+  });
+  // fitted trajectory over every year: np.interp through the vertices,
+  // dead slots repeating (t_hi, last fit); the mean for the flat model
+  emit<T, B>(o.fitted + base * ny, ny, npx, stage, live, [&](T* row) {
+    if (!res.mv) {
+      for (int j = 0; j < ny; ++j) row[j] = res.mean;
+      return;
+    }
+    const T eps_g = ulp_of_eps<T>();
+    const T x0 = xv(0), f0 = res.vf[0];
+    const T xlast = k == p.nv ? xv(k - 1) : t_hi;
+    const T flast = res.vf[k - 1];
+    int ci = 0;  // vertex slots with xp <= year, walked forward
+    for (int j = 0; j < ny; ++j) {
+      const T tj = ts[j];
+      while (ci < p.nv && xv(ci) <= tj) ++ci;
+      const int i = ci < 1 ? 1 : (ci > p.nv - 1 ? p.nv - 1 : ci);
+      const T xp_i = xv(i);
+      const T xp_im1 = xv(i - 1);
+      const T fp_i = i < k ? res.vf[i] : flast;
+      const T fp_im1 = i - 1 < k ? res.vf[i - 1] : flast;
+      const T df = fp_i - fp_im1;
+      const T dx = xp_i - xp_im1;
+      const T delta = tj - xp_im1;
+      T f = f_abs(dx) <= eps_g ? fp_im1 : fp_im1 + (delta / dx) * df;
+      if (tj < x0) f = f0;
+      if (tj > xlast) f = flast;
+      row[j] = f;
+    }
+  });
+  const int nv = p.nv, nm = p.nm;
+  emit<int32_t, B>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
+    for (int j = 0; j < nv; ++j) row[j] = j < k ? (int32_t)vyi[j] : -1;
+  });
+  emit<T, B>(o.vyear + base * nv, nv, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nv; ++j) row[j] = j < k ? ts[vyi[j]] : (T)0;
+  });
+  emit<T, B>(o.vsrc + base * nv, nv, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nv; ++j) row[j] = j < k ? s.y(res.vp[j]) : (T)0;
+  });
+  emit<T, B>(o.vfit + base * nv, nv, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nv; ++j) row[j] = j < k ? res.vf[j] : (T)0;
+  });
+  emit<T, B>(o.smag + base * nm, nm, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? res.vf[j + 1] - res.vf[j] : (T)0;
+  });
+  emit<T, B>(o.sdur + base * nm, nm, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? xv(j + 1) - xv(j) : (T)0;
+  });
+  emit<T, B>(o.srate + base * nm, nm, npx, stage, live, [&](T* row) {
+    for (int j = 0; j < nm; ++j) {
+      T rate = 0;
+      if (j < k - 1) {
+        const T mag = res.vf[j + 1] - res.vf[j];
+        const T dur = xv(j + 1) - xv(j);
+        rate = dur > (T)0 ? mag / dur : (T)0;
+      }
+      row[j] = rate;
+    }
+  });
+  if (live) {
+    const long long pix = base + r;
+    o.n_vertices[pix] = k;
+    o.rmse[pix] = res.rmse;
+    o.pof[pix] = res.pof;
+    o.mv[pix] = res.mv ? 1 : 0;
+    ops.mark(OUTPUT);
+    if (stats != nullptr) ops.write(stats, pix);
+  }
 }
 
 template <typename T>
@@ -743,119 +1060,74 @@ struct FamilyOuts {
 };
 
 // Stages 1-4a for every pixel: despiked series, family vertex sets, SSEs.
-template <typename T, class O>
-__global__ void __launch_bounds__(CUDA_BLOCK)
+template <typename T, class O, int B>
+__global__ void __launch_bounds__(B)
 family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
-                    const uint8_t* __restrict__ mask, long long px, long long in_ld, int ny,
-                    FamilyOuts<T> o, Params p, long long* __restrict__ op_count) {
-  __shared__ T ts[MAX_NY];
-  if (threadIdx.x < ny) ts[threadIdx.x] = years[threadIdx.x];
-  __syncthreads();
-  const long long pix = (long long)blockIdx.x * CUDA_BLOCK + threadIdx.x;
-  if (pix >= px) return;
-  const long long ld = o.ld;
-
+                    const uint8_t* __restrict__ mask, long long px, int ny, FamilyOuts<T> o,
+                    Params p, long long* __restrict__ stats) {
   O ops;
-  Series<T> s;
-  s.ts = ts;
-  int n = 0;
-  for (int j = 0; j < ny; ++j) {
-    if (mask[j * in_ld + pix]) {
-      s.idx[n] = (uint8_t)j;
-      s.y[n] = values[j * in_ld + pix];
-      ++n;
-    }
-  }
-  s.n = n;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Block<T, B> blk(smem, ny);
+  const long long base = (long long)blockIdx.x * B;
+  const int npx = (int)(px - base < B ? px - base : B);
+  const uint64_t valid =
+      load_compact<T, B>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  if ((int)threadIdx.x >= npx) return;
+  const long long pix = base + threadIdx.x;
+  const long long ld = o.ld;
+  Series<T, B> s{blk.ycol + threadIdx.x, blk.region + threadIdx.x, __popcll((long long)valid)};
+  const int n = s.n;
 
   // Stage 1 — despike (a no-op below three valid years)
   despike(s, p, ops);
-  T y_range = 0, t_lo = 0, t_rng = 1, y_lo = 0, y_rng = 1;
-  uint64_t vm = 0;
+  T y_range = 0;
+  Verts<T> v;
+  v.k = 0;
+  v.t_lo = 0;
+  v.t_rng = 1;
+  v.y_lo = 0;
+  v.y_rng = 1;
   if (n > 0) {
     ops.add(2LL * n + 2);
-    T y_hi = s.y[0];
-    y_lo = s.y[0];
+    T y_hi = s.y(0);
+    v.y_lo = s.y(0);
     for (int i = 1; i < n; ++i) {
-      y_lo = t_min(y_lo, s.y[i]);
-      y_hi = t_max(y_hi, s.y[i]);
+      v.y_lo = t_min(v.y_lo, s.y(i));
+      y_hi = t_max(y_hi, s.y(i));
     }
-    y_range = t_max(y_hi - y_lo, (T)0);
-    t_lo = s.t(0);
+    y_range = t_max(y_hi - v.y_lo, (T)0);
+    v.t_lo = s.t(0);
     const T t_hi = s.t(n - 1);
-    t_rng = t_hi > t_lo ? t_hi - t_lo : (T)1;
-    y_rng = y_hi > y_lo ? y_hi - y_lo : (T)1;
-    vm = (1ull << 0) | (1ull << (n - 1));  // one bit when n == 1
+    v.t_rng = t_hi > v.t_lo ? t_hi - v.t_lo : (T)1;
+    v.y_rng = y_hi > v.y_lo ? y_hi - v.y_lo : (T)1;
+    v.vp[0] = 0;
+    v.vp[1] = n - 1;
+    v.k = n > 1 ? 2 : 1;  // one vertex when n == 1
   }
   // Stage 2 — candidates + angle cull (both no-ops on fewer than 3 vertices)
-  vm = find_candidates(s, vm, p, ops);
-  for (int r = 0; r < p.overshoot; ++r)
-    vm = remove_weakest(s, vm, p.nv, t_lo, t_rng, y_lo, y_rng, ops);
+  find_candidates(s, v, p, ops);
+  cull_init(s, v, ops);
+  for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
   // Stage 4a — model family, written member by member
   for (int m = 0; m < p.nm; ++m) {
     uint64_t year_word = 0;  // the member's vertex set on the year axis
-    for (uint64_t w = vm; w; w &= w - 1) year_word |= 1ull << s.idx[__ffsll((long long)w) - 1];
+    for (int j = 0; j < v.k; ++j) year_word |= 1ull << nth_bit(valid, v.vp[j]);
     uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
     for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)((year_word >> j) & 1ull);
     // below two vertices (fewer than two valid years) the fit is the
     // series itself: SSE 0, as in the plain version
-    const T sse = __popcll((long long)vm) >= 2
-                      ? fit_model(s, vm, y_range, p, (T*)nullptr, ops)
-                      : (T)0;
+    const T sse = v.k >= 2 ? fit_model<false>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops) : (T)0;
     o.sses[m * ld + pix] = sse;
-    if (m + 1 < p.nm) vm = remove_weakest(s, vm, 2, t_lo, t_rng, y_lo, y_rng, ops);
+    if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
   }
-  int c = 0;
-  for (int j = 0; j < ny; ++j) {
-    T v = 0;
-    if (c < n && s.idx[c] == j) {
-      v = s.y[c];
-      ++c;
-    }
-    o.despiked[j * ld + pix] = v;
+  for (int j = 0, c = 0; j < ny; ++j) {
+    o.despiked[j * ld + pix] = ((valid >> j) & 1ull) ? s.y(c++) : (T)0;
   }
-  if (op_count != nullptr) op_count[pix] = CountOf<O>::get(ops);
+  if (stats != nullptr) ops.write(stats, pix);
 }
 
-template <typename T>
-int launch_family(const void* years, const void* values, const void* mask, long long px,
-                  long long in_ld, int ny, void* despiked, void* vmasks, void* sses,
-                  long long out_ld, int max_segments, int overshoot, double spike, double rt,
-                  int prevent, void* stream, long long* op_count) {
-  Params p = {};
-  p.nm = max_segments;
-  p.nv = max_segments + 1;
-  p.nc = max_segments + 1 + overshoot;
-  p.overshoot = overshoot;
-  p.spike = spike;
-  p.rt = rt;
-  p.prevent = prevent;
-  if (ny < 1 || ny > MAX_NY || p.nc > MAX_NC || max_segments < 1 || overshoot < 0 || px < 0)
-    return (int)cudaErrorInvalidValue;
-  FamilyOuts<T> o;
-  o.despiked = (T*)despiked;
-  o.vmasks = (uint8_t*)vmasks;
-  o.sses = (T*)sses;
-  o.ld = out_ld;
-  if (px == 0) return 0;
-  const long long grid = (px + CUDA_BLOCK - 1) / CUDA_BLOCK;
-  if (std::is_same<T, float>::value && op_count != nullptr) {
-    family_stats_kernel<T, CountOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, op_count);
-  } else {
-    family_stats_kernel<T, NoOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, nullptr);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* years, const void* values, const void* mask, long long px,
-           long long in_ld, int ny, void* despiked, void* fitted, void* n_vertices,
-           void* vidx, void* vyear, void* vsrc, void* vfit, void* smag, void* sdur,
-           void* srate, void* rmse, void* pof, void* mv, long long out_ld, int max_segments,
-           int overshoot, double spike, double rt, int prevent, double pval, double bmp,
-           int min_obs, int lentz_iters, void* stream, long long* op_count) {
+Params make_params(int max_segments, int overshoot, double spike, double rt, int prevent,
+                   double pval, double bmp, int min_obs, int lentz_iters) {
   Params p;
   p.nm = max_segments;
   p.nv = max_segments + 1;
@@ -868,8 +1140,77 @@ int launch(const void* years, const void* values, const void* mask, long long px
   p.bmp = bmp;
   p.min_obs = min_obs;
   p.lentz_iters = lentz_iters;
-  if (ny < 1 || ny > MAX_NY || p.nc > MAX_NC || max_segments < 1 || px < 0)
-    return (int)cudaErrorInvalidValue;
+  return p;
+}
+
+bool bad_shape(int ny, const Params& p, long long px) {
+  return ny < 1 || ny > MAX_NY || p.nc > MAX_NC || p.nm < 1 || p.overshoot < 0 || px < 0;
+}
+
+// Raise the kernel's dynamic shared-memory ceiling to `bytes`.
+template <class K>
+cudaError_t allow_smem(K kernel, long long bytes) {
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <class K, class... A>
+int start(K kernel, long long px, int block, long long bytes, cudaStream_t st, A... args) {
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (px == 0) return 0;
+  const long long grid = (px + block - 1) / block;
+  kernel<<<(unsigned)grid, block, (size_t)bytes, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the fused kernel with policy O at block size B (O's
+// per-pixel record, if any, goes to `stats`).
+template <typename T, class O, int B = block_of<T>()>
+int launch_fused(const void* years, const void* values, const void* mask, long long px, int ny,
+                 const Outs<T>& o, const Params& p, void* stream, long long* stats) {
+  if (bad_shape(ny, p, px)) return (int)cudaErrorInvalidValue;
+  return start(segment_fused_kernel<T, O, B>, px, B, smem_bytes(ny, (int)sizeof(T), B),
+               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
+               ny, o, p, stats);
+}
+
+template <typename T, class O>
+int launch_family(const void* years, const void* values, const void* mask, long long px, int ny,
+                  const FamilyOuts<T>& o, const Params& p, void* stream, long long* stats) {
+  constexpr int B = block_of<T>();
+  if (bad_shape(ny, p, px)) return (int)cudaErrorInvalidValue;
+  return start(family_stats_kernel<T, O, B>, px, B, smem_bytes(ny, (int)sizeof(T), B),
+               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
+               ny, o, p, stats);
+}
+
+// Resident blocks per SM of `kernel` as the production launch sets it up
+// (its dynamic shared memory).
+template <class K>
+int occupancy(K kernel, int block, long long bytes, int* blocks) {
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, block, (size_t)bytes);
+}
+
+// The block sizes of the float32 fused kernel's block-size sweep: calls
+// f(std::integral_constant<int, block>) for one of them.
+template <class F>
+int with_sweep_block(int block, F f) {
+  switch (block) {
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    case 512: return f(std::integral_constant<int, 512>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+Outs<T> make_outs(void* despiked, void* fitted, void* n_vertices, void* vidx, void* vyear,
+                  void* vsrc, void* vfit, void* smag, void* sdur, void* srate, void* rmse,
+                  void* pof, void* mv) {
   Outs<T> o;
   o.despiked = (T*)despiked;
   o.fitted = (T*)fitted;
@@ -884,62 +1225,108 @@ int launch(const void* years, const void* values, const void* mask, long long px
   o.rmse = (T*)rmse;
   o.pof = (T*)pof;
   o.mv = (uint8_t*)mv;
+  return o;
+}
+
+template <typename T>
+FamilyOuts<T> make_family_outs(void* despiked, void* vmasks, void* sses, long long out_ld) {
+  FamilyOuts<T> o;
+  o.despiked = (T*)despiked;
+  o.vmasks = (uint8_t*)vmasks;
+  o.sses = (T*)sses;
   o.ld = out_ld;
-  if (px == 0) return 0;
-  const long long grid = (px + CUDA_BLOCK - 1) / CUDA_BLOCK;
-  if (std::is_same<T, float>::value && op_count != nullptr) {
-    segment_fused_kernel<T, CountOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, op_count);
-  } else {
-    segment_fused_kernel<T, NoOps><<<(unsigned)grid, CUDA_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const T*)years, (const T*)values, (const uint8_t*)mask, px, in_ld, ny, o, p, nullptr);
-  }
-  return (int)cudaGetLastError();
+  return o;
 }
 
 }  // namespace
 
-#define LT_ARGS                                                                              \
-  const void *years, const void *values, const void *mask, long long px, long long in_ld,   \
-      int ny, void *despiked, void *fitted, void *n_vertices, void *vidx, void *vyear,       \
-      void *vsrc, void *vfit, void *smag, void *sdur, void *srate, void *rmse, void *pof,   \
-      void *mv, long long out_ld, int max_segments, int overshoot, double spike, double rt, \
-      int prevent, double pval, double bmp, int min_obs, int lentz_iters, void *stream
-#define LT_PASS                                                                             \
-  years, values, mask, px, in_ld, ny, despiked, fitted, n_vertices, vidx, vyear, vsrc,     \
-      vfit, smag, sdur, srate, rmse, pof, mv, out_ld, max_segments, overshoot, spike, rt,   \
-      prevent, pval, bmp, min_obs, lentz_iters, stream
+#define LT_ARGS                                                                               \
+  const void *years, const void *values, const void *mask, long long px, int ny,             \
+      void *despiked, void *fitted, void *n_vertices, void *vidx, void *vyear, void *vsrc,   \
+      void *vfit, void *smag, void *sdur, void *srate, void *rmse, void *pof, void *mv,      \
+      int max_segments, int overshoot, double spike, double rt, int prevent, double pval,    \
+      double bmp, int min_obs, int lentz_iters, void *stream
+#define LT_PARAMS \
+  make_params(max_segments, overshoot, spike, rt, prevent, pval, bmp, min_obs, lentz_iters)
+#define LT_OUTS \
+  despiked, fitted, n_vertices, vidx, vyear, vsrc, vfit, smag, sdur, srate, rmse, pof, mv
+#define LT_CALL(T) \
+  years, values, mask, px, ny, make_outs<T>(LT_OUTS), LT_PARAMS, stream
 
 extern "C" {
 
 // Capacity bounds the Python wrapper checks before a launch.
 int lt_segment_max_ny() { return MAX_NY; }
 int lt_segment_max_nc() { return MAX_NC; }
-int lt_segment_block() { return CUDA_BLOCK; }
+int lt_segment_block(int elem_bytes) {
+  return elem_bytes == 4 ? block_of<float>() : block_of<double>();
+}
+int lt_segment_nstage() { return NSTAGE; }
 
-int lt_segment_fused_f32(LT_ARGS) { return launch<float>(LT_PASS, nullptr); }
-int lt_segment_fused_f64(LT_ARGS) { return launch<double>(LT_PASS, nullptr); }
+// Dynamic shared-memory bytes of one block of `block` threads at `ny`
+// years and `elem_bytes`-byte values (both kernels use the same plan).
+long long lt_segment_smem_bytes(int ny, int elem_bytes, int block) {
+  return smem_bytes(ny, elem_bytes, block);
+}
+
+int lt_segment_fused_f32(LT_ARGS) { return launch_fused<float, NoOps>(LT_CALL(float), nullptr); }
+int lt_segment_fused_f64(LT_ARGS) { return launch_fused<double, NoOps>(LT_CALL(double), nullptr); }
 
 // The float32 kernel with its per-pixel operation tally written to
 // `op_count` (PX int64) — the roofline bound's operation count.
 int lt_segment_fused_f32_opcount(LT_ARGS, void *op_count) {
-  return launch<float>(LT_PASS, (long long *)op_count);
+  return launch_fused<float, CountOps>(LT_CALL(float), (long long *)op_count);
 }
 
-#define LT_FAMILY_ARGS                                                                    \
-  const void *years, const void *values, const void *mask, long long px, long long in_ld, \
-      int ny, void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments, \
-      int overshoot, double spike, double rt, int prevent, void *stream
-#define LT_FAMILY_PASS                                                                   \
-  years, values, mask, px, in_ld, ny, despiked, vmasks, sses, out_ld, max_segments,     \
-      overshoot, spike, rt, prevent, stream
+// The float32 kernel with each pixel's clock64() cycles per stage and
+// their total written to `cycles` (PX x (NSTAGE + 1) int64, row-major).
+int lt_segment_fused_f32_stagecycles(LT_ARGS, void *cycles) {
+  return launch_fused<float, StageCycles>(LT_CALL(float), (long long *)cycles);
+}
 
-int lt_family_stats_f32(LT_FAMILY_ARGS) { return launch_family<float>(LT_FAMILY_PASS, nullptr); }
-int lt_family_stats_f64(LT_FAMILY_ARGS) { return launch_family<double>(LT_FAMILY_PASS, nullptr); }
+// The float32 kernel at a block size of the sweep (128, 256 or 512
+// threads).
+int lt_segment_fused_f32_block(LT_ARGS, int block) {
+  return with_sweep_block(block, [&](auto b) {
+    return launch_fused<float, NoOps, decltype(b)::value>(LT_CALL(float), nullptr);
+  });
+}
+
+// Resident blocks per SM (CUDA occupancy calculator) of a production
+// kernel at `ny` years and its own block size: which = 0 fused, 1 family;
+// the float32 fused kernel also at the sweep's block sizes.  Returns a
+// CUDA error code.
+int lt_segment_occupancy(int which, int f64, int ny, int block, int *blocks) {
+  if (which == 0 && !f64) {
+    return with_sweep_block(block, [&](auto b) {
+      constexpr int B = decltype(b)::value;
+      return occupancy(segment_fused_kernel<float, NoOps, B>, B, smem_bytes(ny, 4, B), blocks);
+    });
+  }
+  constexpr int B4 = block_of<float>(), B8 = block_of<double>();
+  if (block != (f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
+  const long long b4 = smem_bytes(ny, 4, B4), b8 = smem_bytes(ny, 8, B8);
+  if (which == 0) return occupancy(segment_fused_kernel<double, NoOps, B8>, B8, b8, blocks);
+  return f64 ? occupancy(family_stats_kernel<double, NoOps, B8>, B8, b8, blocks)
+             : occupancy(family_stats_kernel<float, NoOps, B4>, B4, b4, blocks);
+}
+
+#define LT_FAMILY_ARGS                                                                       \
+  const void *years, const void *values, const void *mask, long long px, int ny,            \
+      void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments,          \
+      int overshoot, double spike, double rt, int prevent, void *stream
+#define LT_FAMILY(T, O, stats)                                                                \
+  launch_family<T, O>(years, values, mask, px, ny,                                           \
+                      make_family_outs<T>(despiked, vmasks, sses, out_ld),                   \
+                      make_params(max_segments, overshoot, spike, rt, prevent, 0.0, 1.0, 0, 0), \
+                      stream, stats)
+
+int lt_family_stats_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, nullptr); }
+int lt_family_stats_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, nullptr); }
 
 // The float32 family kernel with its per-pixel operation tally.
 int lt_family_stats_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return launch_family<float>(LT_FAMILY_PASS, (long long *)op_count);
+  return LT_FAMILY(float, CountOps, (long long *)op_count);
 }
 
 }  // extern "C"

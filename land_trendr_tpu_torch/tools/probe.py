@@ -5,6 +5,7 @@ and ``scaling`` subcommands)::
 
     python -m land_trendr_tpu_torch.tools.probe stages  [--px 262144] [--device cuda]
     python -m land_trendr_tpu_torch.tools.probe scaling [--px-list 4096,65536,262144]
+    python -m land_trendr_tpu_torch.tools.probe kernel  [--px 262144] [--reps 20]
 
 ``stages`` times four variants of one segmentation call on the same
 float32 population (``tools/population.py``, seed 7, 40 years):
@@ -26,7 +27,10 @@ has no dispatch constant to cancel, so the JAX probe's paired-chain method
 is not needed.  With ``--device cpu`` the wrappers run the plain versions
 and times come from the host clock (a check of the probe, not a device
 measurement).  ``scaling`` times the fused kernel over a list of pixel
-counts.  Each subcommand prints one JSON line last.
+counts.  ``kernel`` (card only) reports where the time goes inside the
+float32 kernels: each fused-kernel stage's share of the cycles, occupancy
+and shared bytes per block, the block-size sweep, and kernel-alone and
+wrapper milliseconds.  Each subcommand prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -42,11 +46,12 @@ import torch
 
 from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.ops.segment import _select_and_assemble, torch_segment_pixels
+from land_trendr_tpu_torch.ops import segment_cuda as sc
 from land_trendr_tpu_torch.ops.segment_cuda import cuda_family_stats, cuda_segment_pixels
 from land_trendr_tpu_torch.runtime.driver import resolve_device
 from land_trendr_tpu_torch.tools.population import make_population
 
-__all__ = ["main", "scaling", "stages"]
+__all__ = ["kernel", "kernel_report", "main", "scaling", "stages"]
 
 NY = 40
 
@@ -142,9 +147,65 @@ def scaling(px_list: "list[int]", device: str = "cuda", reps: int = 5) -> dict:
     return out
 
 
+def kernel_report(years, vals, mask, reps: int = 20) -> dict:
+    """Where the time goes inside the float32 kernels on these CUDA inputs.
+
+    Each fused-kernel stage's share of the summed per-thread ``clock64()``
+    cycles (:func:`cuda_segment_stage_cycles`), the mean cycles per pixel,
+    each kernel's resident blocks and warps per SM and shared bytes per
+    block, the kernel-alone and wrapper milliseconds of both kernels, and
+    the fused kernel at each block size of the sweep (CUDA events, mean of
+    ``reps`` calls after a warm-up)."""
+    dev = vals.device
+    params = LTParams()
+    px = vals.shape[0]
+    cyc = sc.cuda_segment_stage_cycles(years, vals, mask, params)
+    if not torch.equal(cyc[:, : len(sc.STAGES)].sum(dim=1), cyc[:, -1]):
+        raise RuntimeError("stage cycles do not sum to each thread's total")
+    per_stage = cyc[:, : len(sc.STAGES)].double().sum(dim=0)
+    total = float(per_stage.sum())
+    job = sc._Launch(years, vals, mask, params)
+    fjob = sc._FamilyLaunch(years, vals, mask, params)
+    ny = vals.shape[1]
+    sweep = [
+        {**sc.occupancy("fused", torch.float32, ny, b),
+         "ms": _per_call_s(lambda b=b: job.run(0, px, block=b), reps, dev) * 1e3}
+        for b in sc.SWEEP
+    ]
+    return {
+        "px": px,
+        "ny": vals.shape[1],
+        "device_name": _device_name(dev),
+        "stage_share": {k: float(v) / total for k, v in zip(sc.STAGES, per_stage)},
+        "cycles_per_px": {k: float(v) / px for k, v in zip(sc.STAGES, per_stage)},
+        "occupancy": [sc.occupancy(k, d, ny)
+                      for k in ("fused", "family") for d in (torch.float32, torch.float64)],
+        "block_sweep": sweep,
+        "fused_ms": _per_call_s(lambda: job.run(0, px), reps, dev) * 1e3,
+        "fused_wrapper_ms": _per_call_s(
+            lambda: cuda_segment_pixels(years, vals, mask, params), reps, dev) * 1e3,
+        "family_ms": _per_call_s(fjob.run, reps, dev) * 1e3,
+        "family_wrapper_ms": _per_call_s(
+            lambda: cuda_family_stats(years, vals, mask, params), reps, dev) * 1e3,
+    }
+
+
+def kernel(px: int = 262_144, reps: int = 20) -> dict:
+    """:func:`kernel_report` on the probe's population, on the card."""
+    dev = resolve_device("cuda")
+    out = {"probe": "kernel", "timing": "cuda events"}
+    out.update(kernel_report(*_inputs(px, dev), reps=reps))
+    for k, v in out["stage_share"].items():
+        print(f"{k}: {100 * v:.1f}% of cycles ({out['cycles_per_px'][k]:.0f} per px)", flush=True)
+    for row in out["block_sweep"]:
+        print(f"block {row['block']}: {row['ms']:.4f} ms ({row['warps_per_sm']} warps/SM, "
+              f"{row['smem_bytes']} B shared)", flush=True)
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("probe", choices=["stages", "scaling"])
+    ap.add_argument("probe", choices=["stages", "scaling", "kernel"])
     ap.add_argument("--px", type=int, default=262_144)
     ap.add_argument("--px-list", type=lambda s: [int(x) for x in s.split(",")],
                     default=[4096, 65536, 262144])
@@ -154,6 +215,8 @@ def main(argv: "list[str] | None" = None) -> int:
     args = ap.parse_args(argv)
     if args.probe == "stages":
         res = stages(args.px, args.device, args.reps)
+    elif args.probe == "kernel":
+        res = kernel(args.px, args.reps)
     else:
         res = scaling(args.px_list, args.device, args.reps)
     line = json.dumps(res)

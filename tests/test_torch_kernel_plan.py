@@ -1,0 +1,226 @@
+"""The kernels' launch plan (``ops/segment_cuda.py``): shared memory per
+block, pixel-major inputs and outputs with no year-major copies, and the
+stage-cycle instrumentation.
+
+On the CPU these tests read the Python-side plan of a launch without
+launching anything.  The tests marked ``cuda`` build the kernels and hold
+the slab path against the plain version on the card (ragged last blocks,
+unaligned views, chunked launches, stage cycles); they skip where there is
+no card.  The file needs nothing from ``tests/conftest.py``, so on a
+machine with the card and no JAX run:
+
+    python -m pytest tests/test_torch_kernel_plan.py -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from land_trendr_tpu_torch.config import LTParams
+from land_trendr_tpu_torch.ops import segment_cuda as sc
+from land_trendr_tpu_torch.ops.segment import torch_family_stats, torch_segment_pixels
+
+torch.set_num_threads(1)
+
+
+def _inputs(seed, px, ny, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    years = torch.arange(1984, 1984 + ny, dtype=torch.int32)
+    t = np.arange(ny)
+    d = rng.integers(0, max(ny, 1), size=(px, 1))
+    vals = np.where(t[None, :] >= d, 0.6, 0.1) + rng.normal(0, 0.03, size=(px, ny))
+    vals[rng.uniform(size=(px, ny)) < 0.01] = np.nan  # non-finite, unmasked
+    mask = rng.uniform(size=(px, ny)) > 0.15
+    return years, torch.from_numpy(vals).to(dtype), torch.from_numpy(mask)
+
+
+# ---------------------------------------------------------------------------
+# shared memory per block
+# ---------------------------------------------------------------------------
+
+# bytes: 16 (mbarrier) + the year axis rounded up to 16 + block threads x
+# (NY y-column slots + max(NY, 16) | 1 t-column / staging slots) x value size
+@pytest.mark.parametrize(
+    "dtype,ny,want",
+    [
+        (torch.float32, 1, 18_464),
+        (torch.float32, 2, 19_488),
+        (torch.float32, 40, 83_120),
+        (torch.float32, 64, 132_368),
+        (torch.float64, 1, 18_464),
+        (torch.float64, 2, 19_488),
+        (torch.float64, 40, 83_280),
+        (torch.float64, 64, 132_624),
+    ],
+)
+def test_smem_bytes_per_block(dtype, ny, want):
+    assert sc.smem_bytes(ny, dtype) == want
+    assert want <= sc.SMEM_LIMIT == 232_448
+
+
+@pytest.mark.parametrize("dtype,block", [(torch.float64, 256), (torch.float32, 512)])
+def test_smem_plan_rejects_above_the_block_limit(dtype, block):
+    with pytest.raises(ValueError, match="232,448"):
+        sc.smem_bytes(64, dtype, block)
+
+
+def test_block_sizes_are_multiples_of_the_chunk_granule():
+    assert sc.BLOCKS == {torch.float32: 256, torch.float64: 128}
+    assert all(b % sc.CUDA_BLOCK == 0 for b in sc.BLOCKS.values())
+    assert set(sc.BLOCKS.values()) <= set(sc.SWEEP)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan: the caller's tensors in, pixel-major tensors out
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_launch_reads_the_callers_tensors(dtype):
+    years, vals, mask = _inputs(1, 37, 40, dtype)
+    params = LTParams()
+    job = sc._Launch(years, vals, mask, params)
+    # no transposed values, no cleaned mask: the kernel reads these
+    assert job.values is vals and job.mask is mask
+    assert job.years.shape == (40,) and job.years.dtype == dtype
+    assert job.smem == sc.smem_bytes(40, dtype)
+    nv, nm = params.max_vertices, params.max_segments
+    widths = [40, 40, None, nv, nv, nv, nv, nm, nm, nm, None, None, None]
+    for out, w in zip(job.outs, widths):
+        assert out.shape == ((37,) if w is None else (37, w))
+        assert out.is_contiguous()
+    # the result is the kernel's output tensors themselves, not copies
+    res = job.result()
+    assert [o.data_ptr() for o in res] == [
+        job.outs[i].data_ptr() for i in (2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 1, 0)
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_family_launch_reads_the_callers_tensors(dtype):
+    years, vals, mask = _inputs(2, 37, 40, dtype)
+    job = sc._FamilyLaunch(years, vals, mask, LTParams())
+    assert job.values is vals and job.mask is mask
+    desp, vm, sse = job.result()
+    # year-major device outputs, returned as views in the plain layout
+    assert desp.shape == (37, 40) and desp.data_ptr() == job.despiked.data_ptr()
+    assert vm.shape == (37, 6, 40) and vm.data_ptr() == job.vmasks.data_ptr()
+    assert sse.shape == (37, 6) and sse.data_ptr() == job.sses.data_ptr()
+
+
+@pytest.mark.parametrize("kw", ["op_count", "cycles", "block"])
+def test_float32_only_launches_reject_float64(kw):
+    # the op tally, stage cycles and sweep entries are float32 kernels: a
+    # float64 job is refused before anything is built or launched
+    years, vals, mask = _inputs(4, 32, 40, torch.float64)
+    job = sc._Launch(years, vals, mask, LTParams())
+    arg = 256 if kw == "block" else torch.zeros(32, dtype=torch.int64)
+    with pytest.raises(ValueError, match="float32"):
+        job.run(0, 32, **{kw: arg})
+
+
+def test_sweep_launch_rejects_an_unbuilt_block():
+    years, vals, mask = _inputs(4, 32, 40)
+    job = sc._Launch(years, vals, mask, LTParams())
+    with pytest.raises(ValueError, match="sweep"):
+        job.run(0, 32, block=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stage_cycles_need_the_card(dtype):
+    years, vals, mask = _inputs(3, 32, 40, dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.cuda_segment_stage_cycles(years, vals, mask)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def _same_decisions_and_bits(got, ref, exact_floats: bool):
+    agree = (
+        (got.model_valid == ref.model_valid)
+        & (got.n_vertices == ref.n_vertices)
+        & (got.vertex_indices == ref.vertex_indices).all(dim=1)
+    )
+    assert bool(agree.all())
+    for name, a, b in zip(got._fields, got, ref):
+        if exact_floats or not a.dtype.is_floating_point:
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        else:
+            assert torch.equal(a.isnan(), b.isnan()), name
+            fin = a.isfinite()
+            assert float((a[fin] - b[fin]).abs().max()) <= 1e-8, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny", [1, 2, 39, 64])
+def test_ragged_slab_matches_plain_on_card(card, ny):
+    # 1000 px: the last block of either block size is ragged
+    years, vals, mask = _inputs(ny, 1000, ny, torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        v, m, y = vals.to(dtype).to(card), mask.to(card), years.to(card)
+        got = sc.cuda_segment_pixels(y, v, m)
+        ref = torch_segment_pixels(y, v, m)
+        _same_decisions_and_bits(got, ref, exact_floats=dtype == torch.float32)
+        fam, pfam = sc.cuda_family_stats(y, v, m), torch_family_stats(y, v, m)
+        for a, b in zip(fam, pfam):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_unaligned_view_matches_plain_on_card(card):
+    # a row offset of 39 values leaves the slab off 16-byte alignment:
+    # the blocks take per-thread loads
+    years, vals, mask = (x.to(card) for x in _inputs(5, 1025, 39))
+    v, m = vals[1:], mask[1:]
+    assert v.is_contiguous() and v.data_ptr() % 16
+    got = sc.cuda_segment_pixels(years, v, m)
+    _same_decisions_and_bits(got, torch_segment_pixels(years, v, m), exact_floats=True)
+
+
+@pytest.mark.cuda
+def test_chunked_pixel_major_equals_unchunked_on_card(card):
+    # chunks of 384 start inside a 256-thread block of the float32 kernel
+    years, vals, mask = (x.to(card) for x in _inputs(6, 1536, 39))
+    whole = sc.cuda_segment_pixels(years, vals, mask)
+    before = sc.LAUNCHES
+    parts = sc.cuda_segment_pixels_chunked(years, vals, mask, chunk=384)
+    assert sc.LAUNCHES == before + 4
+    for name, a, b in zip(whole._fields, whole, parts):  # bit for bit, NaN == NaN
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+
+
+@pytest.mark.cuda
+def test_stage_cycles_sum_to_the_total_on_card(card):
+    years, vals, mask = _inputs(7, 2048, 40)
+    mask[:64, 3:] = False  # three valid years: below min_observations
+    vals[64:128] = 0.5     # flat: y_range 0, no candidates or family
+    years, vals, mask = years.to(card), vals.to(card), mask.to(card)
+    cyc = sc.cuda_segment_stage_cycles(years, vals, mask)
+    assert cyc.shape == (2048, len(sc.STAGES) + 1)
+    assert int(cyc.min()) >= 0
+    assert torch.equal(cyc[:, :-1].sum(dim=1), cyc[:, -1])
+    assert bool((cyc[:, -1] > 0).all())
+    # each mark sits where the stage it closes runs: the stages a pixel
+    # skips count 0, and only those
+    valid = mask & vals.isfinite()
+    enough = valid.sum(dim=1) >= LTParams().min_observations_needed
+    desp = sc.cuda_segment_pixels(years, vals, mask).despiked
+    y_hi = desp.masked_fill(~valid, -torch.inf).amax(dim=1)
+    y_lo = desp.masked_fill(~valid, torch.inf).amin(dim=1)
+    fits = enough & (y_hi > y_lo)
+    assert bool((~enough[:64]).all()) and bool((enough[64:128] & ~fits[64:128]).all())
+    stage = {name: cyc[:, i] > 0 for i, name in enumerate(sc.STAGES)}
+    assert bool(stage["load_compact"].all()) and bool(stage["refit_output"].all())
+    assert torch.equal(stage["despike"], enough)
+    for name in ("candidates_cull", "family_fits", "scoring_selection"):
+        assert torch.equal(stage[name], fits), name
