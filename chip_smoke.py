@@ -47,9 +47,40 @@ each of which fails the script on its own:
    kernel, the family kernel, family + plain tail and the plain version,
    timed with CUDA events; its JSON line is printed.  This is the family
    kernel's path: its launch count is read around this phase.
+7. **Robustness on the card**, a 512 x 512 x 40 stack at tile 128 (16
+   tiles), each run with its own launch count: (a) a fault schedule that
+   hits ``feed``, ``dispatch``, ``compute.wait``, ``fetch.wait`` and
+   ``manifest.record`` once each (``max_retries=2``, no backoff): the
+   record fault is the last tile's, so the run aborts with every other
+   tile durable and a clean resume completes it; the assembled rasters are
+   byte-equal to a clean run's, and the fused launches equal 16 plus the
+   re-dispatches (one per injected ``compute.wait``/``fetch.wait``) plus
+   the resumed tile; (b) ``dispatch`` failing three times on one tile with
+   ``quarantine_tiles``: exactly that tile is quarantined and the run
+   completes; (c) ``stall_timeout_s=2`` with ~10 s of ``torch.cuda._sleep``
+   enqueued before one tile's event: ``StallError`` within 4 s and the
+   process lives on; (d) a cancel after the third durable tile:
+   ``RunCancelled``, and a rerun resumes the rest.
+8. **Composite, telemetry and trace**: (a) a 512 x 512 Collection-2
+   archive with 2–3 acquisitions a year loaded with ``composite="medoid"``
+   on the card is byte-equal to the same load on the CPU (the card's
+   composite seconds printed), then segmented; (b) phase 4's scene with
+   ``telemetry=True, flight=True``: one ``tile_done`` per tile,
+   ``flight.jsonl`` written, the HBM peak gauge read from ``metrics.prom``;
+   the compute-wait poll against a blocking ``synchronize()`` wait,
+   alternating, px/s of each; one run under ``utils/profiling.trace``,
+   whose kernel intervals give the device's busy share of the wall;
+   (c) the CLI: ``segment --trace --out-overviews 2`` (the trace names
+   ``segment_fused_kernel``),
+   ``pixel --from-stack --engine both`` at two pixels (oracle and kernel
+   agree on vertex years), and ``info`` on an output raster (two
+   overview pages).
 
-Each kernel's launch count is set to 0 just before its path (phase 4 for
-the fused kernel, phase 6 for the family kernel) and read just after.
+Phases 4 and 4b also assert that nothing was retried or quarantined and
+print the run's HBM peak (the value the telemetry gauge holds).  Each
+kernel's launch count is set to 0 just before its path (phase 4 for the
+fused kernel, phase 6 for the family kernel; phases 7 and 8 count their
+own runs) and read just after.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -65,6 +96,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -86,6 +118,11 @@ SCENE_REPEATS = 2
 FTV = ("ndvi", "tcw")
 #: calls per variant the stage probe times
 PROBE_REPS = 5
+#: robustness scene (phase 7): 512 x 512 x 40 at tile 128
+ROBUST = 512
+ROBUST_TILE = 128
+#: cycles of the device spin behind the stall (phase 7c): ~10 s at H100 clocks
+STALL_CYCLES = int(2e10)
 #: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
@@ -184,6 +221,47 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def write_multidate_c2(out_dir: str, synth, rng: np.random.Generator) -> int:
+    """A Collection-2 per-band archive (NIR, SWIR2, QA_PIXEL) with two or
+    three acquisitions a year: each is the synthetic year plus its own DN
+    noise and clouds.  Returns the number of acquisitions."""
+    from land_trendr_tpu_torch.io.geotiff import GeoMeta, write_geotiff
+
+    os.makedirs(out_dir)
+    geo = GeoMeta(pixel_scale=(30.0, 30.0, 0.0),
+                  tiepoint=(0.0, 0.0, 0.0, 500000.0, 5000000.0, 0.0))
+    h, w = synth.qa.shape[1:]
+    n = 0
+    for i, year in enumerate(synth.years.tolist()):
+        for mmdd in ("0610", "0712", "0830")[: 2 + i % 2]:
+            stem = f"LT05_L2SP_045030_{year}{mmdd}_{year}{mmdd}_02_T1"
+            for band, num in (("nir", 4), ("swir2", 7)):
+                dn = synth.dn_year(band, i).astype(np.int32) + rng.integers(-150, 150, (h, w))
+                write_geotiff(os.path.join(out_dir, f"{stem}_SR_B{num}.TIF"),
+                              np.clip(dn, -32768, 32767).astype(np.int16), geo=geo)
+            clouds = np.where(rng.uniform(size=(h, w)) < 0.15, 1 << 3, 0).astype(np.uint16)
+            write_geotiff(os.path.join(out_dir, f"{stem}_QA_PIXEL.TIF"),
+                          synth.qa[i] | clouds, geo=geo)
+            n += 1
+    return n
+
+
+def raster_bytes(out_dir: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def prom_gauge(path: str, name: str) -> "float | None":
+    with open(path) as f:
+        for line in f:
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -200,8 +278,16 @@ def main() -> int:
         torch_family_stats,
         torch_segment_pixels,
     )
-    from land_trendr_tpu_torch.runtime.driver import RunConfig, assemble_outputs, run_stack
-    from land_trendr_tpu_torch.runtime.stack import stack_from_synthetic
+    from land_trendr_tpu_torch.runtime import driver
+    from land_trendr_tpu_torch.runtime.driver import (
+        Run,
+        RunCancelled,
+        RunConfig,
+        StallError,
+        assemble_outputs,
+        run_stack,
+    )
+    from land_trendr_tpu_torch.runtime.stack import load_stack_dir_c2, stack_from_synthetic
     from land_trendr_tpu_torch.tools import probe
 
     dev = torch.device("cuda", 0)
@@ -379,7 +465,12 @@ def main() -> int:
         log(f"[scene] stage_s {json.dumps(summary['stage_s'])}")
         log(f"[scene] upload {json.dumps(summary['upload'])}")
         log(f"[scene] fetch {json.dumps(summary['fetch'])}")
+        log(f"[scene] HBM peak (the telemetry gauge's value) {summary['device_bytes_peak']} B, "
+            f"torch max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+            f"retries {summary['retries']}, quarantined {summary['tiles_quarantined']}")
+        assert summary["retries"] == 0 and summary["tiles_quarantined"] == [], summary
         assert summary["tiles_done"] == n_tiles, summary
+        scene_px_s = [summary["px_per_s"]]
         assert launches == n_tiles, f"{launches} kernel launches for {n_tiles} tiles"
         assert header.get("context", {}).get("impl") == "cuda", header
         assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
@@ -389,6 +480,8 @@ def main() -> int:
             work = os.path.join(tmp, f"work{rep}")
             again = run_stack(stack, dataclasses.replace(cfg, workdir=work), device="cuda")
             assert again["tiles_done"] == n_tiles, again
+            assert again["retries"] == 0 and again["tiles_quarantined"] == [], again
+            scene_px_s.append(again["px_per_s"])
             log(f"[scene] repeat {rep + 1}: px_per_s {again['px_per_s']} "
                 f"wall_s {again['wall_s']} stage_s {json.dumps(again['stage_s'])}")
             shutil.rmtree(work)
@@ -416,13 +509,16 @@ def main() -> int:
             f"outputs {len(paths)}")
         log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
         log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
+        log(f"[ftv+change] HBM peak (the telemetry gauge's value) "
+            f"{summary['device_bytes_peak']} B; retries {summary['retries']}, "
+            f"quarantined {summary['tiles_quarantined']}")
+        assert summary["retries"] == 0 and summary["tiles_quarantined"] == [], summary
         assert summary["tiles_done"] == n_tiles, summary
         assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
         assert header.get("context", {}).get("impl") == "cuda", header
         assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
         want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
         assert want <= set(paths), sorted(want - set(paths))
-    del stack
 
     # ---- phase 5: the CLI ----------------------------------------------
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -462,6 +558,239 @@ def main() -> int:
     log(f"[probe] family kernel launches {family_launches}, fused {segment_cuda.LAUNCHES}")
     print(json.dumps(stages), flush=True)
     assert family_launches > 0, "the stage probe never launched the family kernel"
+
+    # ---- phase 7: robustness on the card --------------------------------
+    t7 = time.perf_counter()
+    rstack = stack_from_synthetic(make_stack(SceneSpec(height=ROBUST, width=ROBUST, seed=7)))
+    r_tiles = (ROBUST // ROBUST_TILE) ** 2
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_robust_", dir=ROOT) as tmp:
+        def rcfg(name, **kw):
+            kw.setdefault("retry_backoff_s", 0.0)
+            return RunConfig(tile_size=ROBUST_TILE, workdir=os.path.join(tmp, name, "w"),
+                             out_dir=os.path.join(tmp, name, "o"), **kw)
+
+        clean = rcfg("clean")
+        segment_cuda.LAUNCHES = 0
+        s_clean = run_stack(rstack, clean, device="cuda")
+        assert segment_cuda.LAUNCHES == r_tiles and s_clean["retries"] == 0, s_clean
+        assemble_outputs(rstack, clean)
+        clean_bytes = raster_bytes(clean.out_dir)
+
+        # (a) every host seam once; the record fault is the last tile's
+        sched = "seed=1,feed@2,dispatch@5,compute.wait@8,fetch.wait@11,manifest.record@15"
+        faulty = rcfg("faults", max_retries=2, fault_schedule=sched)
+        segment_cuda.LAUNCHES = 0
+        run = Run(rstack, faulty, device="cuda")
+        try:
+            run.execute()
+            raise AssertionError("the manifest.record fault did not stop the run")
+        except OSError as e:
+            assert "manifest.record#15" in str(e), e
+        fault_launches = segment_cuda.LAUNCHES
+        segment_cuda.LAUNCHES = 0
+        resumed = run_stack(rstack, rcfg("faults", max_retries=2), device="cuda")
+        resume_launches = segment_cuda.LAUNCHES
+        assert resumed["tiles_done"] == 1 and resumed["tiles_skipped_resume"] == r_tiles - 1
+        redispatches = 2  # the compute.wait and the fetch.wait fault each re-dispatch once
+        assert run.progress["retries"] == 4, run.progress
+        assert fault_launches + resume_launches == r_tiles + redispatches + 1, (
+            fault_launches, resume_launches)
+        assemble_outputs(rstack, faulty)
+        assert raster_bytes(faulty.out_dir) == clean_bytes, "fault-run rasters differ"
+        log(f"[robust] faults {sched}: retries {run.progress['retries']}, launches "
+            f"{fault_launches} + {resume_launches} (resume of the last tile) = {r_tiles} tiles + "
+            f"{redispatches} re-dispatches + 1; rasters byte-equal to the clean run's")
+
+        # (b) one tile fails its dispatch three times: quarantined
+        quar = rcfg("quar", max_retries=2, quarantine_tiles=True,
+                    fault_schedule="seed=1,dispatch@4*3")
+        segment_cuda.LAUNCHES = 0
+        s_q = run_stack(rstack, quar, device="cuda")
+        assert s_q["tiles_quarantined"] == [4], s_q["tiles_quarantined"]
+        assert segment_cuda.LAUNCHES == r_tiles - 1 and s_q["retries"] == 2
+        log(f"[robust] quarantine: tiles_quarantined {s_q['tiles_quarantined']}, "
+            f"launches {segment_cuda.LAUNCHES}, pixels {s_q['pixels']}")
+
+        # (c) the device spins ~10 s before one tile's event: StallError
+        real_dispatch = driver.process_tile_dn
+        n_calls = [0]
+
+        def spin_third_tile(*a, **kw):
+            out = real_dispatch(*a, **kw)
+            n_calls[0] += 1
+            if n_calls[0] == 3:
+                torch.cuda._sleep(STALL_CYCLES)
+            return out
+
+        driver.process_tile_dn = spin_third_tile
+        t0 = time.perf_counter()
+        try:
+            run_stack(rstack, rcfg("stall", stall_timeout_s=2.0), device="cuda")
+            raise AssertionError("the stall did not raise StallError")
+        except StallError as e:
+            stall_s = time.perf_counter() - t0
+            log(f"[robust] stall: StallError after {stall_s:.2f}s ({e})")
+        finally:
+            driver.process_tile_dn = real_dispatch
+        assert stall_s < 4.0, f"StallError took {stall_s:.2f}s"
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        log(f"[robust] stall: the spin drained {time.perf_counter() - t0:.2f}s later")
+
+        # (d) cancel after the third durable tile, then resume
+        cancel = threading.Event()
+        durable = []
+
+        def on_durable(t, arrays, meta):
+            durable.append(t.tile_id)
+            if len(durable) == 3:
+                cancel.set()
+
+        canc = rcfg("cancel")
+        try:
+            Run(rstack, canc, device="cuda", cancel=cancel, on_tile_durable=on_durable).execute()
+            raise AssertionError("the cancel did not raise RunCancelled")
+        except RunCancelled:
+            pass
+        rest = run_stack(rstack, canc, device="cuda")
+        assert rest["tiles_skipped_resume"] == len(durable), (rest, durable)
+        assert rest["tiles_done"] == r_tiles - len(durable)
+        assemble_outputs(rstack, canc)
+        assert raster_bytes(canc.out_dir) == clean_bytes, "cancel + resume rasters differ"
+        log(f"[robust] cancel: {len(durable)} tiles durable at the cancel, resume did "
+            f"{rest['tiles_done']}; rasters byte-equal")
+    del rstack
+    log(f"[robust] phase 7 took {time.perf_counter() - t7:.1f}s")
+
+    # ---- phase 8: composite, telemetry and trace ------------------------
+    t8 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_c2_", dir=ROOT) as tmp:
+        arc = os.path.join(tmp, "c2")
+        synth = make_stack(SceneSpec(height=ROBUST, width=ROBUST, seed=9))
+        n_acq = write_multidate_c2(arc, synth, np.random.default_rng(9))
+        del synth
+        t0 = time.perf_counter()
+        on_card = load_stack_dir_c2(arc, bands=("nir", "swir2"), composite="medoid",
+                                    device="cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = load_stack_dir_c2(arc, bands=("nir", "swir2"), composite="medoid",
+                                   device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for b in ("nir", "swir2"):
+            assert np.array_equal(on_card.dn_bands[b], on_cpu.dn_bands[b]), b
+        assert np.array_equal(on_card.qa, on_cpu.qa)
+        ccfg = RunConfig(tile_size=256, workdir=os.path.join(tmp, "w"),
+                         out_dir=os.path.join(tmp, "o"))
+        segment_cuda.LAUNCHES = 0
+        s_c = run_stack(on_card, ccfg, device="cuda")
+        assert segment_cuda.LAUNCHES == 4 and s_c["tiles_done"] == 4 and s_c["retries"] == 0
+        log(f"[composite] {ROBUST}x{ROBUST} archive, {on_card.n_years} years, {n_acq} "
+            f"acquisitions: medoid load on the card {card_s:.2f}s (CPU {cpu_s:.2f}s, load "
+            f"and decode included), byte-equal to the CPU's; segmented: fit_rate "
+            f"{s_c['fit_rate']:.4f}, px_per_s {s_c['px_per_s']}")
+        del on_card, on_cpu
+
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_tel_", dir=ROOT) as tmp:
+        tcfg = RunConfig(tile_size=TILE, workdir=os.path.join(tmp, "w"),
+                         out_dir=os.path.join(tmp, "o"), telemetry=True, flight=True,
+                         sampler_interval_s=0.5)
+        segment_cuda.LAUNCHES = 0
+        s_t = run_stack(stack, tcfg, device="cuda")
+        assert segment_cuda.LAUNCHES == n_tiles and s_t["retries"] == 0
+        with open(s_t["telemetry"]["events"]) as f:
+            evs = [json.loads(line) for line in f]
+        done_ids = sorted(r["tile_id"] for r in evs if r["ev"] == "tile_done")
+        assert done_ids == list(range(n_tiles)), done_ids
+        assert os.path.getsize(s_t["telemetry"]["flight"]) > 0
+        hbm_peak = prom_gauge(s_t["telemetry"]["metrics"], "lt_device_bytes_peak")
+        assert hbm_peak == s_t["device_bytes_peak"], (hbm_peak, s_t["device_bytes_peak"])
+        log(f"[telemetry] telemetry+flight: px_per_s {s_t['px_per_s']} (phase 4 runs "
+            f"{scene_px_s}), {len(done_ids)} tile_done events, flight.jsonl "
+            f"{os.path.getsize(s_t['telemetry']['flight'])} B, HBM peak gauge "
+            f"lt_device_bytes_peak {hbm_peak:.0f} B")
+        # the compute-wait poll against a blocking wait, alternating
+        from land_trendr_tpu_torch.runtime import fetch as fetchmod
+
+        poll_wait = fetchmod.wait_event
+        rates = {"poll": [], "synchronize": []}
+        for rep in range(2):
+            for mode in ("poll", "synchronize"):
+                fetchmod.wait_event = poll_wait if mode == "poll" else (
+                    lambda ev: ev.synchronize())
+                try:
+                    s_w = run_stack(stack, dataclasses.replace(
+                        tcfg, telemetry=False, flight=False,
+                        workdir=os.path.join(tmp, f"{mode}{rep}")), device="cuda")
+                finally:
+                    fetchmod.wait_event = poll_wait
+                rates[mode].append(s_w["px_per_s"])
+        log(f"[telemetry] compute/fetch wait px_per_s: poll {rates['poll']}, "
+            f"blocking synchronize {rates['synchronize']}")
+        # the device's busy share of the scene run: union of the kernel
+        # intervals in a profiler trace over the run's wall
+        from land_trendr_tpu_torch.utils.profiling import trace
+
+        tdir = os.path.join(tmp, "trace")
+        with trace(tdir):
+            s_p = run_stack(stack, dataclasses.replace(
+                tcfg, telemetry=False, flight=False, workdir=os.path.join(tmp, "traced")),
+                device="cuda")
+        with open(os.path.join(tdir, os.listdir(tdir)[0])) as f:
+            evs = json.load(f)["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs if e.get("cat") == "kernel")
+        busy, end = 0.0, float("-inf")
+        for t0_us, t1_us in spans:
+            busy += max(0.0, t1_us - max(t0_us, end))
+            end = max(end, t1_us)
+        fused_us = sum(e["dur"] for e in evs
+                       if e.get("cat") == "kernel" and "segment_fused_kernel" in e["name"])
+        log(f"[telemetry] profiled NBR run: wall {s_p['wall_s']} s, px_per_s "
+            f"{s_p['px_per_s']}, {len(spans)} kernels, device busy {busy / 1e6:.4f} s "
+            f"= {100 * busy / 1e6 / s_p['wall_s']:.2f}% of wall (idle "
+            f"{100 - 100 * busy / 1e6 / s_p['wall_s']:.2f}%), segment_fused_kernel "
+            f"{fused_us / 1e3:.3f} ms in total")
+    del stack
+
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_cli8_", dir=ROOT) as tmp:
+        def cli8(*argv: str) -> str:
+            out = subprocess.run(
+                [sys.executable, "-m", "land_trendr_tpu_torch", *argv],
+                cwd=tmp, env=env, capture_output=True, text=True, check=False, timeout=600,
+            )
+            if out.returncode != 0:
+                raise RuntimeError(f"CLI {argv} exited {out.returncode}:\n{out.stderr[-3000:]}")
+            return out.stdout
+
+        cli8("synth", "D", "--size", "256")
+        traced = json.loads(cli8("segment", "D", "--trace", "T", "--out-overviews", "2"))
+        names = set()
+        for fn in os.listdir(os.path.join(tmp, "T")):
+            with open(os.path.join(tmp, "T", fn)) as f:
+                names |= {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+        kernels = sorted(n for n in names if "segment_fused_kernel" in n)
+        assert kernels, "the trace does not name segment_fused_kernel"
+        log(f"[cli] segment --trace --out-overviews 2: impl {traced['summary']['impl']}, trace "
+            f"names {kernels[0][:90]}; lt_ ranges in the trace: "
+            f"{sorted(n for n in names if n.startswith('lt_'))}")
+        # (10, 20) fits no model on this stack; (24, 0) is a disturbed pixel
+        for x, y in ((10, 20), (24, 0)):
+            pix = json.loads(cli8("pixel", "--from-stack", "D", "--x", str(x), "--y", str(y),
+                                  "--engine", "both"))
+            assert pix["parity"]["vertex_years_equal"], pix["parity"]
+            assert pix["parity"]["model_valid_equal"] and pix["torch"]["device"].startswith("cuda")
+            log(f"[cli] pixel ({x}, {y}) --engine both: model_valid "
+                f"{pix['oracle']['model_valid']}, vertex years oracle "
+                f"{pix['oracle']['vertex_years']} kernel {pix['torch']['vertex_years']} "
+                f"({pix['torch']['dtype']} on {pix['torch']['device']})")
+        assert pix["oracle"]["model_valid"], "the disturbed pixel fit no model"
+        path = traced["outputs"]["rmse"]
+        info = json.loads(cli8("info", path))[path]
+        assert info["overview_pages"] == 2, info
+        log(f"[cli] info {path}: {info['height']}x{info['width']} {info['dtype']} "
+            f"{info['compression']}, {info['overview_pages']} overview pages, "
+            f"{info['file_bytes']} B")
+    log(f"[phase 8] took {time.perf_counter() - t8:.1f}s")
 
     kernel = {
         "name": "segment_fused",

@@ -5,8 +5,14 @@ ports so far:
 
 ``segment``   stack directory → segment rasters (the main pipeline), with
               optional FTV rasters (``--ftv``) and fused change maps
-              (``--change``)
+              (``--change``); retries, quarantine, the stall watchdog,
+              fault injection, the feed cache and ingest store, the medoid
+              composite, overviews, telemetry, the flight recorder and a
+              profiler trace (``--trace``)
+``pixel``     segment ONE series through the NumPy oracle and/or this
+              package's segmentation (the single-pixel debug/parity path)
 ``change``    segment rasters → change maps (yod/mag/dur/rate/preval/dsnr)
+``info``      inspect rasters header-only, optionally one decoded window
 ``synth``     materialise a synthetic Landsat stack (fixtures / demos)
 ``params``    print the algorithm parameters as JSON (a template for
               ``--params-json``)
@@ -15,9 +21,16 @@ The top-level ``--device`` flag picks where the pipeline runs: ``cuda``
 (the default, the hand-written kernel on the card) or ``cpu`` (the plain
 PyTorch version; for tests and debugging only).  ``--device cuda`` on a
 machine without a usable card fails with a clear error; it never carries
-on on the CPU (``change`` runs its selector there too).  The device also
-decides the segmentation implementation, so there is no ``--impl``.  Flags of the JAX package's ``segment`` that
-this package does not implement yet are rejected as unknown arguments.
+on on the CPU (``change`` runs its selector there too, ``--composite``
+its selection).  The device also decides the segmentation implementation,
+so there is no ``--impl``.  Flags of the JAX package's ``segment`` that
+this package does not implement yet (leases, speculation, the multihost
+merge, mesh sharding, tuning, fleet publish) are rejected as unknown
+arguments.
+
+Exit codes of ``segment``: 2 config/usage error, 3 a tile exhausted its
+retries or was quarantined (a re-run resumes exactly the missing tiles),
+4 stall-watchdog abort.
 """
 
 from __future__ import annotations
@@ -170,7 +183,99 @@ def build_parser() -> argparse.ArgumentParser:
                      help="fuse change-map selection into every tile's program; "
                      "change_*.tif rasters assemble beside the segment products")
     _add_change_flags(seg, prefix="change-")
+    seg.add_argument("--lazy", action="store_true",
+                     help="windowed file-backed ingest (C2 per-band layout "
+                     "only): no input cube in host RAM")
+    seg.add_argument("--feed-cache-mb", type=int, default=256,
+                     help="decoded-block cache budget (MiB) for the windowed "
+                     "feed path; 0 disables the cache")
+    seg.add_argument("--decode-workers", type=int, default=0,
+                     help="feed-decode threads: 0 = auto, 1 = serial, N = N")
+    seg.add_argument("--no-feed-readahead", action="store_true",
+                     help="disable the next-tile block-decode hint (only "
+                     "meaningful with --lazy and a non-zero --feed-cache-mb)")
+    seg.add_argument("--ingest-store-mb", type=int, default=0,
+                     help="persistent decoded-block store budget (MiB) under "
+                     "the workdir: a rerun over the same stacks skips decode; "
+                     "0 = off")
+    seg.add_argument("--ingest-store-dir", default=None, metavar="DIR",
+                     help="store directory override (default "
+                     "WORKDIR/ingest_store)")
+    seg.add_argument("--composite", default=None, choices=("medoid",),
+                     help="collapse multi-acquisition years of a C2 per-band "
+                     "archive to per-pixel QA-masked medoid composites, "
+                     "selected on --device (default: one acquisition a year)")
+    seg.add_argument("--out-overviews", type=int, default=0,
+                     help="overview pyramid levels on output rasters "
+                     "(N 2x reductions; default 0 = none)")
+    seg.add_argument("--trace", default=None, metavar="LOGDIR",
+                     help="capture a torch.profiler host + device trace of "
+                     "the run as Chrome trace JSON under LOGDIR")
+    seg.add_argument("--telemetry", action="store_true",
+                     help="run-wide telemetry: events.jsonl and metrics.prom "
+                     "under --workdir")
+    seg.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                     help="with --telemetry: serve a live /metrics endpoint "
+                     "on PORT (0 = ephemeral)")
+    seg.add_argument("--metrics-host", default="", metavar="HOST",
+                     help="bind address for --metrics-port (default: all "
+                     "interfaces)")
+    seg.add_argument("--metrics-interval-s", type=float, default=5.0,
+                     metavar="SEC",
+                     help="with --telemetry: metrics.prom refresh period")
+    seg.add_argument("--flight", action="store_true",
+                     help="with --telemetry: flight recorder, dumped to "
+                     "WORKDIR/flight.jsonl at run end")
+    seg.add_argument("--flight-ring-events", type=int, default=2048, metavar="N",
+                     help="flight-ring capacity in events; 0 disables ring "
+                     "and sampler")
+    seg.add_argument("--sampler-interval-s", type=float, default=5.0,
+                     metavar="SEC", help="flight resource-sampler period")
+    seg.add_argument("--max-retries", type=int, default=2)
+    seg.add_argument("--retry-backoff-s", type=float, default=0.5, metavar="SEC",
+                     help="base of the exponential per-tile retry backoff "
+                     "(attempt n sleeps ~SEC*2^(n-1), ±50%% jitter, capped "
+                     "at 30s); 0 retries immediately")
+    seg.add_argument("--quarantine-tiles", action="store_true",
+                     help="a tile that exhausts --max-retries is recorded as "
+                     "failed and the run continues; exit code 3, no assembly")
+    seg.add_argument("--stall-timeout-s", type=float, default=None, metavar="SEC",
+                     help="abort (exit 4) after SEC without tile progress "
+                     "(default: no watchdog)")
+    seg.add_argument("--straggler-k", type=float, default=4.0, metavar="K",
+                     help="flag a tile in flight longer than K x the rolling "
+                     "median tile duration (observability only)")
+    seg.add_argument("--straggler-min-tiles", type=int, default=5, metavar="N",
+                     help="no straggler verdicts until N tiles completed")
+    seg.add_argument("--fault-schedule", default=None, metavar="SPEC",
+                     help="deterministic fault injection for test runs, e.g. "
+                     "'seed=7,dispatch@1,fetch.wait@0*2=io'")
     _add_param_flags(seg)
+
+    pix = sub.add_parser("pixel", help="segment one series (single-pixel "
+                         "debug/parity path)")
+    pix.add_argument("series", nargs="?", default=None,
+                     help="JSON file with {years: [...], values: [...], "
+                     "mask?: [...]}; '-' reads stdin; values use the index's "
+                     "natural sign with --index, or are taken as-is "
+                     "(disturbance-positive) without it.  Omit with "
+                     "--from-stack.")
+    pix.add_argument("--from-stack", default=None, metavar="DIR",
+                     help="pull the series from a stack directory: --index at "
+                     "pixel (--x, --y) with the standard QA + range masking")
+    pix.add_argument("--x", type=int, default=None, help="column (with --from-stack)")
+    pix.add_argument("--y", type=int, default=None, help="row (with --from-stack)")
+    pix.add_argument("--scale", type=float, default=2.75e-5,
+                     help="DN → reflectance scale for --from-stack (C2 default)")
+    pix.add_argument("--offset", type=float, default=-0.2,
+                     help="DN → reflectance offset for --from-stack (C2 default)")
+    pix.add_argument("--engine", choices=("oracle", "torch", "both"), default="both",
+                     help="'torch' is this package's float64 segmentation on "
+                     "--device (the CUDA kernel on the card)")
+    pix.add_argument("--index", default=None, choices=INDEX_NAMES,
+                     help="flip sign per this index's disturbance convention; "
+                     "with --from-stack it also selects the index (default nbr)")
+    _add_param_flags(pix)
 
     chg = sub.add_parser(
         "change",
@@ -192,7 +297,196 @@ def build_parser() -> argparse.ArgumentParser:
     syn.add_argument("--year-start", type=int, default=1984)
     syn.add_argument("--year-end", type=int, default=2023)
     syn.add_argument("--seed", type=int, default=20260729)
+
+    inf = sub.add_parser("info", help="inspect rasters header-only: shape, dtype, "
+                         "layout, compression, georeferencing, overview pages")
+    inf.add_argument("paths", nargs="+", help="GeoTIFF file(s)")
+    inf.add_argument("--window", default=None, metavar="Y0,X0,H,W",
+                     help="also decode this window and report value stats")
     return p
+
+
+#: value-carrying fields that flip with the index's disturbance sign — the
+#: raster convention of the segment pipeline
+_SIGNED_FIELDS = (
+    "vertex_src_vals", "vertex_fit_vals", "seg_magnitude", "seg_rate",
+    "fitted", "despiked",
+)
+
+
+def _result_to_dict(res, sign: float = 1.0) -> dict:
+    """Oracle result / one-pixel SegOutputs → plain-JSON dict, with
+    ``sign`` undoing the disturbance-positive flip (natural orientation)."""
+    import numpy as np
+
+    out = {}
+    for name in (
+        "n_vertices", "vertex_indices", "vertex_years", "vertex_src_vals",
+        "vertex_fit_vals", "seg_magnitude", "seg_duration", "seg_rate",
+        "rmse", "p_of_f", "model_valid", "fitted", "despiked",
+    ):
+        v = getattr(res, name)
+        v = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+        if name in _SIGNED_FIELDS:
+            v = sign * v
+        out[name] = v.item() if v.ndim == 0 else v.tolist()
+    out["model_valid"] = bool(out["model_valid"])
+    out["n_vertices"] = int(out["n_vertices"])
+    return out
+
+
+def _pixel_from_stack(args: argparse.Namespace):
+    """(years, natural-orientation series, mask, index) for one stack pixel,
+    through the index and masking the tile program applies."""
+    import numpy as np
+    import torch
+
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.runtime.stack import load_stack_dir
+
+    if args.x is None or args.y is None:
+        raise SystemExit("--from-stack needs --x and --y")
+    index = (args.index or "nbr").lower()
+    stack = load_stack_dir(args.from_stack, bands=idx.required_bands(index))
+    h, w = stack.shape
+    if not (0 <= args.y < h and 0 <= args.x < w):
+        raise SystemExit(f"pixel ({args.x}, {args.y}) outside raster {w}x{h}")
+    dn = {b: torch.from_numpy(np.ascontiguousarray(a[:, args.y, args.x]))
+          for b, a in stack.dn_bands.items()}
+    sr = {b: idx.scale_sr(v, args.scale, args.offset) for b, v in dn.items()}
+    qa = torch.from_numpy(np.ascontiguousarray(stack.qa[:, args.y, args.x]))
+    mask = (idx.qa_valid_mask(qa) & idx.sr_valid_mask(sr)).numpy()
+    # natural orientation: _run_pixel applies the disturbance flip once
+    series = idx.compute_index(index, sr, disturbance_positive=False).numpy()
+    return stack.years, series.astype(np.float64), mask, index
+
+
+def _run_pixel(args: argparse.Namespace) -> int:
+    """Single-pixel debug path: one series through oracle and/or segmentation."""
+    import numpy as np
+
+    if (args.series is None) == (args.from_stack is None):
+        raise SystemExit("pass exactly one of SERIES or --from-stack DIR")
+    device = None
+    if args.engine in ("torch", "both"):
+        from land_trendr_tpu_torch.runtime.driver import resolve_device
+
+        try:
+            device = resolve_device(args.device)
+        except (ValueError, RuntimeError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if args.from_stack:
+        years, values, mask, index = _pixel_from_stack(args)
+        args.index = index
+    else:
+        if args.series == "-":
+            payload = json.load(sys.stdin)
+        else:
+            with open(args.series) as f:
+                payload = json.load(f)
+        years = np.asarray(payload["years"], dtype=np.int32)
+        values = np.asarray(payload["values"], dtype=np.float64)
+        mask = (
+            np.asarray(payload["mask"], dtype=bool)
+            if "mask" in payload
+            else np.isfinite(values)
+        )
+    if years.shape != values.shape or years.shape != mask.shape:
+        raise SystemExit("years/values/mask must have identical lengths")
+    sign = 1.0
+    if args.index:
+        from land_trendr_tpu_torch.ops.indices import DISTURBANCE_SIGN
+
+        sign = DISTURBANCE_SIGN[args.index.lower()]
+        values = sign * values
+    params = _params_from_args(args)
+
+    result: dict = {"params": params.to_dict()}
+    if args.engine in ("oracle", "both"):
+        from land_trendr_tpu_torch.models.oracle import PixelSegmenter
+
+        result["oracle"] = _result_to_dict(
+            PixelSegmenter(params).segment(years, values, mask), sign
+        )
+    if args.engine in ("torch", "both"):
+        import torch
+
+        from land_trendr_tpu_torch.ops.segment import SegOutputs
+        from land_trendr_tpu_torch.ops.segment_cuda import cuda_segment_pixels
+
+        out = cuda_segment_pixels(
+            torch.from_numpy(years).to(device),
+            torch.from_numpy(np.ascontiguousarray(values[None, :])).to(device),
+            torch.from_numpy(np.ascontiguousarray(mask[None, :])).to(device),
+            params,
+        )
+        result["torch"] = _result_to_dict(SegOutputs(*(f[0] for f in out)), sign)
+        result["torch"]["dtype"] = str(out.fitted.dtype).replace("torch.", "")
+        result["torch"]["device"] = str(device)
+    if args.engine == "both":
+        o, k = result["oracle"], result["torch"]
+        result["parity"] = {
+            "vertex_indices_equal": o["vertex_indices"] == k["vertex_indices"],
+            "vertex_years_equal": o["vertex_years"] == k["vertex_years"],
+            "model_valid_equal": o["model_valid"] == k["model_valid"],
+            "max_abs_fitted_delta": float(
+                np.max(np.abs(np.asarray(o["fitted"]) - np.asarray(k["fitted"])))
+            ),
+            "kernel_dtype": k["dtype"],
+        }
+    print(json.dumps(result, indent=2))
+    return 0
+
+
+def _run_info(args) -> int:
+    """Header-only raster inspection; one JSON document for all paths."""
+    import os
+
+    import numpy as np
+
+    from land_trendr_tpu_torch.io.geotiff import read_geotiff_info, read_geotiff_window
+
+    win = None
+    if args.window:
+        try:
+            y0, x0, h, w = (int(v) for v in args.window.split(","))
+        except ValueError:
+            print(f"--window {args.window!r} is not Y0,X0,H,W", file=sys.stderr)
+            return 2
+        win = (y0, x0, h, w)
+
+    out = {}
+    for path in args.paths:
+        geo, info = read_geotiff_info(path)
+        rec = {
+            "height": info.height,
+            "width": info.width,
+            "bands": info.bands,
+            "dtype": str(info.dtype),
+            "layout": "tiled" if info.tiled else "strips",
+            "compression": info.compression_name(),
+            "bigtiff": info.big,
+            # reduced-resolution pages behind the full-resolution one (the
+            # one key the JAX package's info does not print)
+            "overview_pages": info.overview_pages,
+            "file_bytes": os.path.getsize(path),
+            "geotransform": geo.geotransform(),
+            "nodata": geo.nodata,
+        }
+        if win is not None:
+            a = np.asarray(read_geotiff_window(path, *win), dtype=np.float64)
+            finite = a[np.isfinite(a)]
+            rec["window"] = {
+                "y0_x0_h_w": list(win),
+                "min": float(finite.min()) if finite.size else None,
+                "max": float(finite.max()) if finite.size else None,
+                "mean": float(finite.mean()) if finite.size else None,
+                "finite_frac": round(float(finite.size / a.size), 6) if a.size else None,
+            }
+        out[path] = rec
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -206,6 +500,12 @@ def main(argv: "list[str] | None" = None) -> int:
     if args.cmd == "params":
         print(_params_from_args(args).to_json())
         return 0
+
+    if args.cmd == "pixel":
+        return _run_pixel(args)
+
+    if args.cmd == "info":
+        return _run_info(args)
 
     if args.cmd == "synth":
         from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
@@ -238,12 +538,14 @@ def main(argv: "list[str] | None" = None) -> int:
     from land_trendr_tpu_torch.ops.change import ChangeFilter, sieve_change_rasters
     from land_trendr_tpu_torch.ops.indices import required_bands
     from land_trendr_tpu_torch.runtime.driver import (
+        Run,
         RunConfig,
+        StallError,
+        TileRetriesExhausted,
         assemble_outputs,
         resolve_device,
-        run_stack,
     )
-    from land_trendr_tpu_torch.runtime.stack import load_stack_dir
+    from land_trendr_tpu_torch.runtime.stack import load_stack_dir, open_stack_dir_c2_lazy
 
     for flag in ("fetch", "upload"):
         if getattr(args, f"no_packed_{flag}") and getattr(args, f"packed_{flag}"):
@@ -258,6 +560,10 @@ def main(argv: "list[str] | None" = None) -> int:
                   "change rasters are produced)", file=sys.stderr)
             return 2
         change_filt = None
+    if args.lazy and args.composite is not None:
+        print("error: --lazy cannot composite (one acquisition per year); "
+              "pre-composite or drop --lazy", file=sys.stderr)
+        return 2
     try:
         device = resolve_device(args.device)
         cfg = RunConfig(
@@ -268,6 +574,13 @@ def main(argv: "list[str] | None" = None) -> int:
             workdir=args.workdir,
             out_dir=args.out_dir,
             resume=not args.no_resume,
+            max_retries=args.max_retries,
+            retry_backoff_s=args.retry_backoff_s,
+            quarantine_tiles=args.quarantine_tiles,
+            stall_timeout_s=args.stall_timeout_s,
+            straggler_k=args.straggler_k,
+            straggler_min_tiles=args.straggler_min_tiles,
+            fault_schedule=args.fault_schedule,
             write_fitted=args.write_fitted,
             fetch_f16=args.fetch_f16,
             change_filt=change_filt,
@@ -283,6 +596,8 @@ def main(argv: "list[str] | None" = None) -> int:
                 False if args.no_packed_upload else True if args.packed_upload else "auto"
             ),
             upload_depth=args.upload_depth,
+            ingest_store_mb=args.ingest_store_mb,
+            ingest_store_dir=args.ingest_store_dir,
             scale=args.scale,
             offset=args.offset,
             reject_bits=args.reject_bits,
@@ -290,23 +605,78 @@ def main(argv: "list[str] | None" = None) -> int:
             manifest_compress=args.manifest_compress,
             write_workers=args.write_workers,
             feed_workers=args.feed_workers,
+            feed_cache_mb=args.feed_cache_mb,
+            decode_workers=args.decode_workers,
+            feed_readahead=not args.no_feed_readahead,
+            out_overviews=args.out_overviews,
             chunk_px=args.chunk_px,
+            telemetry=args.telemetry,
+            metrics_port=args.metrics_port,
+            metrics_host=args.metrics_host,
+            metrics_interval_s=args.metrics_interval_s,
+            flight=args.flight,
+            flight_ring_events=args.flight_ring_events,
+            sampler_interval_s=args.sampler_interval_s,
         )
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    stack = load_stack_dir(
-        args.stack_dir,
-        bands=required_bands(args.index, ftv),
-        reject_bits=cfg.reject_bits,
-        scale=cfg.scale,
-        offset=cfg.offset,
-    )
+    if cfg.metrics_port is not None:
+        # probe the scrape port now: the real bind happens deep in the run
+        import socket
+
+        try:
+            with socket.socket() as sk:
+                sk.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                sk.bind((cfg.metrics_host, cfg.metrics_port))
+        except OSError as e:
+            print(f"error: --metrics-port {cfg.metrics_port} unusable: {e}",
+                  file=sys.stderr)
+            return 2
+    bands = required_bands(args.index, ftv)
     try:
-        summary = run_stack(stack, cfg, device=device)
+        if args.lazy:
+            stack = open_stack_dir_c2_lazy(args.stack_dir, bands=bands)
+        else:
+            stack = load_stack_dir(
+                args.stack_dir,
+                bands=bands,
+                composite=args.composite,
+                reject_bits=cfg.reject_bits,
+                scale=cfg.scale,
+                offset=cfg.offset,
+                device=device,
+            )
+        run = Run(stack, cfg, device=device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    try:
+        if args.trace:
+            from land_trendr_tpu_torch.utils.profiling import trace
+
+            with trace(args.trace):
+                summary = run.execute()
+        else:
+            summary = run.execute()
+    except StallError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 4
+    except TileRetriesExhausted as e:
+        print(f"error: {e} (re-run to resume from the manifest)", file=sys.stderr)
+        return 3
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if summary.get("tiles_quarantined"):
+        print(json.dumps({"summary": summary, "outputs": None}, indent=2))
+        print(
+            f"error: {len(summary['tiles_quarantined'])} tile(s) quarantined "
+            "after exhausting retries; outputs NOT assembled (re-run to "
+            "resume the quarantined tiles)",
+            file=sys.stderr,
+        )
+        return 3
     paths = assemble_outputs(stack, cfg)
     if change_filt is not None and args.change_mmu > 1:
         sieve_change_rasters(cfg.out_dir, args.change_mmu)

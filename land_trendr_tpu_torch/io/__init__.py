@@ -1,8 +1,9 @@
-"""io subpackage: host-side raster I/O (GeoTIFF codec, synthetic stacks).
-Copies of the JAX package's modules of the same names, which hold no JAX
-code; the decoded-block cache and shared decode pool of the JAX package's
-feed path are not ported yet."""
+"""io subpackage: host-side raster I/O (GeoTIFF codec, synthetic stacks,
+decoded-block cache + shared decode pool for the feed path, the persistent
+ingest store).  Copies of the JAX package's modules of the same names,
+which hold no JAX code."""
 
+from land_trendr_tpu_torch.io import blockcache
 from land_trendr_tpu_torch.io.geotiff import (
     GeoMeta,
     GeoTiffStreamWriter,
@@ -20,6 +21,7 @@ from land_trendr_tpu_torch.io.synthetic import (
 )
 
 __all__ = [
+    "blockcache",
     "GeoMeta",
     "GeoTiffStreamWriter",
     "TiffInfo",

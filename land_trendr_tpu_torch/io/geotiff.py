@@ -20,7 +20,7 @@ slice of TIFF 6.0 + GeoTIFF it actually needs:
   (pixel scale + tiepoint + the raw GeoKey directory blocks), round-tripped
   losslessly so outputs inherit the input grid.
 
-This is host-side I/O: arrays land in NumPy and are fed to the TPU pipeline
+This is host-side I/O: arrays land in NumPy and are fed to the device pipeline
 by the runtime driver.
 """
 
@@ -29,12 +29,13 @@ from __future__ import annotations
 import dataclasses
 import mmap
 import struct
+import time
 import zlib
 from typing import BinaryIO, Mapping
 
 import numpy as np
 
-from land_trendr_tpu_torch.io import native
+from land_trendr_tpu_torch.io import blockcache, native
 
 __all__ = ["GeoMeta", "TiffInfo", "read_geotiff", "write_geotiff"]
 
@@ -601,6 +602,9 @@ def read_geotiff_window(
     (multi-page band stacking as in :func:`read_geotiff`).  Georeferencing
     is the FULL raster's — offset by ``(y0, x0)`` pixels when a window
     transform is needed (``GeoMeta.geotransform``)."""
+    # fault seam "feed.decode" (runtime.faults): the windowed feed path's
+    # decode errors — a transient NFS read, a torn block — surface here
+    blockcache.fault_check("feed.decode")
     with open(path, "rb") as f:
         bo, big, page_tags, _ = _walk_full_pages(f, path)
         width, height, key, total_spp = _pages_geometry(path, page_tags)
@@ -613,11 +617,15 @@ def read_geotiff_window(
             )
         spps = [_tag1(path, t, _T_SAMPLES_PER_PIXEL, 1) for t in page_tags]
         out = np.zeros((total_spp, h, w), dtype=np.dtype(_DTYPES[key]))
+        # decoded-block cache identity (None = caching off): window reads
+        # are the revisit-heavy path — tile edges, LazyBandCube re-reads,
+        # resume passes — so only they populate/consult the cache
+        fkey = blockcache.file_key(f, path) if blockcache.cache_enabled() else None
         band0 = 0
-        for tags, spp in zip(page_tags, spps):
+        for page, (tags, spp) in enumerate(zip(page_tags, spps)):
             _decode_ifd(
                 f, path, bo, big, tags, out[band0 : band0 + spp],
-                window=(y0, x0, h, w),
+                window=(y0, x0, h, w), page=page, fkey=fkey,
             )
             band0 += spp
     return out[0] if total_spp == 1 else out
@@ -631,6 +639,8 @@ def _decode_ifd(
     tags: dict[int, tuple],
     out: np.ndarray,
     window: tuple[int, int, int, int] | None = None,
+    page: int = 0,
+    fkey: tuple | None = None,
 ) -> tuple[GeoMeta, TiffInfo]:
     """Decode one IFD's raster into the preallocated ``(spp, H, W)`` view
     ``out`` (native byte order); returns the page's geo/info.
@@ -638,7 +648,11 @@ def _decode_ifd(
     ``window=(y0, x0, h, w)`` decodes ONLY the blocks intersecting that
     region into an ``(spp, h, w)`` view — the random-access read path
     (GDAL ReadAsArray-with-window equivalent): I/O and decode cost scale
-    with the window, not the raster."""
+    with the window, not the raster.
+
+    ``fkey`` (a :func:`blockcache.file_key` identity) + ``page`` enable
+    the decoded-block cache for this page's blocks; ``None`` decodes
+    uncached.  Cached and uncached reads are byte-identical."""
     width = _tag1(path, tags, _T_IMAGE_WIDTH)
     height = _tag1(path, tags, _T_IMAGE_LENGTH)
     spp = _tag1(path, tags, _T_SAMPLES_PER_PIXEL, 1)
@@ -738,22 +752,24 @@ def _decode_ifd(
                 f"size {fsize})"
             )
 
-    # Block decode: the native fast path when eligible — fused
-    # inflate+unpredict across the window's blocks, threaded in C++
-    # (native/lt_native.cc); otherwise (native absent, unsupported layout,
-    # or a NativeCodecError fallback) the NumPy reference path, one block
-    # at a time inside the placement loop, so a full-file read holds ONE
-    # compressed + one decoded block beyond the output array.  Both
-    # produce byte-identical blocks.
+    # Block decode, in three layers (land_trendr_tpu_torch.io.blockcache):
+    # (1) the decoded-block cache resolves revisited blocks instantly;
+    # (2) cache misses run the native fast path when eligible — fused
+    # inflate+unpredict across the missing blocks, threaded in C++
+    # (native/lt_native.cc) under the shared decode_workers knob; (3) any
+    # remainder (native absent, unsupported layout, or a NativeCodecError
+    # fallback) decodes on the NumPy reference path, fanned over the
+    # shared thread pool (zlib releases the GIL).  All three produce
+    # byte-identical blocks — cache and pool are acceleration only.
     if tiled:
         rows_of = [blk_rows] * len(sel)  # file tiles are full-size
     else:
         # a legally-short last strip decodes only its real rows
         rows_of = [min(rps, height - s * rps) for _, s in coords]
+    use_cache = fkey is not None and blockcache.cache_enabled()
 
-    def _decode_at(pos: int) -> np.ndarray:
-        f.seek(sel_offsets[pos])
-        data = _decompress(f.read(sel_counts[pos]), compression)
+    def _decode_one(pos: int, raw: bytes) -> np.ndarray:
+        data = _decompress(raw, compression)
         b = np.frombuffer(
             data, dtype=dtype, count=rows_of[pos] * blk_w * chunk_spp
         )
@@ -762,9 +778,44 @@ def _decode_ifd(
         )
         return _unpredict(b, predictor)
 
+    def _decode_at(pos: int) -> np.ndarray:
+        """Serial reference path, one block straight from the file — the
+        placement loop calls this lazily so a full-file read without the
+        native lib holds ONE compressed + one decoded block beyond the
+        output array, exactly as before the cache existed."""
+        t0 = time.perf_counter()
+        f.seek(sel_offsets[pos])
+        b = _decode_one(pos, f.read(sel_counts[pos]))
+        blockcache.note_decode_seconds(time.perf_counter() - t0)
+        if use_cache:
+            blockcache.cache_put((*fkey, page, sel[pos]), b)
+        return b
+
     blocks: list[np.ndarray | None] = [None] * len(sel)
+    if use_cache:
+        native_dt = dtype.newbyteorder("=")
+        for pos, bidx in enumerate(sel):
+            b = blockcache.cache_get((*fkey, page, bidx))
+            if b is not None:
+                # fault seam "cache.corrupt" + the validation that makes a
+                # poisoned entry survivable: a cached block that no longer
+                # matches its slot's shape/dtype (bit rot, a corrupting
+                # bug, an injected fault) is invalidated and re-decoded
+                # from the file instead of failing the tile
+                b = blockcache.fault_corrupt("cache.corrupt", b)
+                if (
+                    b.shape != (rows_of[pos], blk_w, chunk_spp)
+                    or b.dtype != native_dt
+                ):
+                    blockcache.drop_corrupt((*fkey, page, bidx))
+                    b = None
+            blocks[pos] = b
+    miss = [pos for pos, b in enumerate(blocks) if b is None]
+
+    t_dec = time.perf_counter()
     if (
-        native.available()
+        miss
+        and native.available()
         and bo == "<"
         # predictor 2 is integer differencing; float files tagged with
         # it (nonstandard) must keep NumPy's float-cumsum semantics
@@ -780,15 +831,17 @@ def _decode_ifd(
         try:
             nat_blocks = native.decode_blocks(
                 buf,
-                np.asarray(sel_offsets, dtype=np.uint64),
-                np.asarray(sel_counts, dtype=np.uint64),
+                np.asarray([sel_offsets[p] for p in miss], dtype=np.uint64),
+                np.asarray([sel_counts[p] for p in miss], dtype=np.uint64),
                 compression=compression,
                 predictor=predictor,
                 rows=blk_rows,
                 width=blk_w,
                 spp=chunk_spp,
                 dtype=dtype.newbyteorder("="),
-                block_rows=np.asarray(rows_of, dtype=np.uint64),
+                block_rows=np.asarray(
+                    [rows_of[p] for p in miss], dtype=np.uint64
+                ),
             )
         except native.NativeCodecError:
             nat_blocks = None
@@ -802,7 +855,35 @@ def _decode_ifd(
                     # freed with the object
                     pass
         if nat_blocks is not None:
-            blocks = [nat_blocks[pos][: rows_of[pos]] for pos in range(len(sel))]
+            for j, pos in enumerate(miss):
+                b = nat_blocks[j][: rows_of[pos]]
+                if use_cache:
+                    # a copy, not the slice: caching the view would pin
+                    # the whole (n_miss, rows, w, spp) batch in memory
+                    b = b.copy()
+                    blockcache.cache_put((*fkey, page, sel[pos]), b)
+                blocks[pos] = b
+            miss = []
+
+    if miss:
+        pool = blockcache.decode_pool() if len(miss) > 1 else None
+        if pool is not None:
+            # NumPy parallel path: raw bytes read serially up front (one
+            # shared file handle), decompress+unpredict fanned over the
+            # shared pool — transient memory is the misses' compressed
+            # bytes, which a window read bounds to the window
+            raws = []
+            for pos in miss:
+                f.seek(sel_offsets[pos])
+                raws.append(f.read(sel_counts[pos]))
+            for pos, b in zip(miss, pool.map(_decode_one, miss, raws)):
+                if use_cache:
+                    blockcache.cache_put((*fkey, page, sel[pos]), b)
+                blocks[pos] = b
+        # else: remaining misses stay None and decode lazily, one at a
+        # time, inside the placement loop (_decode_at) — the pre-cache
+        # serial memory profile
+    blockcache.note_decode_seconds(time.perf_counter() - t_dec)
 
     for pos, coord in enumerate(coords):
         block = blocks[pos]

@@ -23,6 +23,7 @@ despiked series, family vertex sets, SSEs).
   ``cudaGetLastError()`` and the wrapper raises on a non-zero code.  Every
   launch of the fused kernel adds one to :data:`LAUNCHES`, every launch of
   the family kernel one to :data:`FAMILY_LAUNCHES`, and nothing else does.
+  Each launch is an NVTX range (``lt_segment_fused``, ``lt_family_stats``).
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
   (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`,
@@ -51,6 +52,7 @@ from land_trendr_tpu_torch.ops.segment import (
     torch_segment_pixels,
     torch_segment_pixels_chunked,
 )
+from land_trendr_tpu_torch.utils.profiling import nvtx_range
 
 __all__ = [
     "BLOCKS",
@@ -357,16 +359,17 @@ class _Launch:
             extra = (block,)
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
-        rc = fn(
-            self.years.data_ptr(), _at(self.values, start), _at(self.mask, start),
-            count, self.ny,
-            *(_at(o, start) for o in self.outs),
-            p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
-            float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
-            float(p.p_val_threshold), float(p.best_model_proportion),
-            int(p.min_observations_needed), lentz_iters(self.ny),
-            stream, *extra,
-        )
+        with nvtx_range("lt_segment_fused"):
+            rc = fn(
+                self.years.data_ptr(), _at(self.values, start), _at(self.mask, start),
+                count, self.ny,
+                *(_at(o, start) for o in self.outs),
+                p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
+                float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
+                float(p.p_val_threshold), float(p.best_model_proportion),
+                int(p.min_observations_needed), lentz_iters(self.ny),
+                stream, *extra,
+            )
         if rc != 0:
             raise RuntimeError(f"segment_fused launch failed: CUDA error {rc}")
         LAUNCHES += 1
@@ -551,14 +554,16 @@ class _FamilyLaunch:
             extra = (op_count.data_ptr(),)
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
-        rc = fn(
-            self.years.data_ptr(), self.values.data_ptr(), self.mask.data_ptr(),
-            self.px, self.ny,
-            self.despiked.data_ptr(), self.vmasks.data_ptr(), self.sses.data_ptr(), self.px,
-            p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
-            float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
-            stream, *extra,
-        )
+        with nvtx_range("lt_family_stats"):
+            rc = fn(
+                self.years.data_ptr(), self.values.data_ptr(), self.mask.data_ptr(),
+                self.px, self.ny,
+                self.despiked.data_ptr(), self.vmasks.data_ptr(), self.sses.data_ptr(),
+                self.px,
+                p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
+                float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
+                stream, *extra,
+            )
         if rc != 0:
             raise RuntimeError(f"family_stats launch failed: CUDA error {rc}")
         FAMILY_LAUNCHES += 1

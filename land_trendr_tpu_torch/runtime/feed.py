@@ -21,6 +21,14 @@ Packed and per-array runs produce byte-identical artifacts: the wire
 format is a pure reinterpretation of the fed bytes.  ``upload_packed=
 "auto"`` packs only on a CUDA device; on the CPU the fed arrays are used
 as they are.
+
+Every packed upload gets a fresh pinned buffer, and the driver keeps each
+tile's fed host arrays until the tile is done: a retried tile is uploaded
+again from those (:func:`to_device`), never re-dispatched from a buffer
+that may have gone back to the pinned cache.  An upload error surfacing
+at the landing (fault seam ``upload.wait``) enters the driver's retry
+ladder; repeated consecutive failures :meth:`TileUploader.demote` the run
+to the per-array path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from land_trendr_tpu_torch.runtime import faults
+
 __all__ = [
     "UploadEntry",
     "UploadPlan",
@@ -42,6 +52,7 @@ __all__ = [
     "pack_inputs",
     "plan_wire_bytes",
     "resolve_packed",
+    "to_device",
     "unpack_inputs",
 ]
 
@@ -192,6 +203,7 @@ class PackedUpload:
 
     def arrays(self) -> tuple[dict, torch.Tensor]:
         """The device arrays; the current stream waits for the landing."""
+        faults.check("upload.wait")
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self._words.device)
         cur.wait_event(self._landed)
@@ -218,11 +230,17 @@ class SyncUpload:
         )
 
     def arrays(self) -> tuple[dict, torch.Tensor]:
-        dev = self._uploader.device
-        dn = {k: torch.from_numpy(v).to(dev) for k, v in self._dn.items()}
-        qa = torch.from_numpy(self._qa).to(dev)
         self._uploader.stats.add(tiles=1)
-        return dn, qa
+        return to_device(self._dn, self._qa, self._uploader.device)
+
+
+def to_device(dn: dict, qa: np.ndarray, device: torch.device) -> tuple[dict, torch.Tensor]:
+    """Fed host arrays → tensors on ``device``, one copy per array (the
+    per-array path, and the retry ladder's re-upload)."""
+    return (
+        {k: torch.from_numpy(v).to(device) for k, v in dn.items()},
+        torch.from_numpy(qa).to(device),
+    )
 
 
 class TileUploader:
@@ -231,11 +249,19 @@ class TileUploader:
     def __init__(self, device: torch.device, packed: bool) -> None:
         self.device = torch.device(device)
         self.packed = packed
+        self.demoted = False
         self.plan: UploadPlan | None = None
         self.stats = _Stats()
         self._stream = None
         if packed:
             self._stream = torch.cuda.Stream(device=self.device)
+
+    def demote(self) -> None:
+        """Drop to the per-array path for the rest of the run (after
+        repeated upload failures); artifacts are byte-identical either way
+        and in-flight packed handles still resolve."""
+        self.packed = False
+        self.demoted = True
 
     def start(self, dn: dict, qa: np.ndarray) -> "PackedUpload | SyncUpload":
         """Issue one tile's upload; a packed copy starts crossing NOW."""
@@ -263,4 +289,4 @@ class TileUploader:
 
     def summary(self) -> dict:
         """Run-scoped counters for the run summary."""
-        return {"packed": self.packed, **self.stats.snapshot()}
+        return {"packed": self.packed, "demoted": self.demoted, **self.stats.snapshot()}

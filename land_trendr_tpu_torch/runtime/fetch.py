@@ -10,8 +10,8 @@ Counterpart of ``land_trendr_tpu/runtime/fetch.py``.  Three pieces:
 * **Async overlap**: the buffer leaves with one ``non_blocking``
   device→host copy into **pinned** memory on a side stream, ordered after
   the tile's compute; a CUDA event marks when it has landed, and
-  :meth:`PackedHandle.wait` blocks only on that event, while later tiles
-  compute.
+  :meth:`PackedHandle.wait` waits only for that event (polling it, see
+  :func:`wait_event`), while later tiles compute.
 * **Host-side unpack** (:func:`unpack_tile`): crop to the tile's real
   pixels first, then float16 upcast, sign flip and dtype conversion —
   byte for byte the per-product path's output.
@@ -51,6 +51,7 @@ __all__ = [
     "plan_wire_bytes",
     "resolve_packed",
     "unpack_tile",
+    "wait_event",
 ]
 
 #: the full per-pixel segmentation product set (``RunConfig.products``
@@ -235,6 +236,20 @@ def unpack_tile(
     return arrays, model_valid
 
 
+#: host sleep between polls of a CUDA event
+POLL_S = 1e-4
+
+
+def wait_event(ev) -> None:
+    """Wait for a CUDA event by polling ``query()`` with a short sleep
+    (:data:`POLL_S`) instead of ``synchronize()``: the waiting thread runs
+    Python between polls, so the stall watchdog's interrupt lands while
+    the device is still busy (a native ``synchronize`` would hold the
+    thread inside the CUDA runtime until the device finishes)."""
+    while not ev.query():
+        time.sleep(POLL_S)
+
+
 def _to_host(arr: torch.Tensor) -> np.ndarray:
     """Per-product device→host read (fault seam ``fetch.wait``)."""
     faults.check("fetch.wait")
@@ -296,6 +311,8 @@ class PackedHandle:
     the landed buffer.  The pinned buffer is read only after its event.
     """
 
+    packed = True
+
     def __init__(self, fetcher: "TileFetcher", host: torch.Tensor, landed) -> None:
         self._fetcher = fetcher
         self._host = host
@@ -309,7 +326,10 @@ class PackedHandle:
             if not self._ready:
                 faults.check("fetch.wait")
                 t0 = time.perf_counter()
-                self._landed.synchronize()
+                # the lock makes the wait idempotent across the driver and
+                # writer threads: a second caller must wait for the landing
+                # lt: noqa[LT007]
+                wait_event(self._landed)
                 self._fetcher.stats.add(wait_s=time.perf_counter() - t0)
                 self._ready = True
 
@@ -331,6 +351,8 @@ class PackedHandle:
 class UnpackedHandle:
     """The per-product path: each product read synchronously in
     ``tile_arrays`` (in the writer pool)."""
+
+    packed = False
 
     def __init__(self, fetcher: "TileFetcher", out: "TileOutputs") -> None:
         self._fetcher = fetcher
@@ -366,9 +388,17 @@ class TileFetcher:
         self.cfg = cfg
         self.device = torch.device(device)
         self.packed = packed
+        self.demoted = False
         self.plan: FetchPlan | None = None
         self.stats = _Stats()
         self._stream = torch.cuda.Stream(device=self.device) if packed else None
+
+    def demote(self) -> None:
+        """Drop to the per-product path for the rest of the run (after
+        repeated packed-fetch failures); artifacts are byte-identical
+        either way and in-flight packed handles still drain."""
+        self.packed = False
+        self.demoted = True
 
     def start(self, out: "TileOutputs") -> "PackedHandle | UnpackedHandle":
         """Issue one tile's fetch; a packed copy starts landing NOW."""
@@ -398,4 +428,4 @@ class TileFetcher:
 
     def summary(self) -> dict:
         """Run-scoped counters for the run summary."""
-        return {"packed": self.packed, **self.stats.snapshot()}
+        return {"packed": self.packed, "demoted": self.demoted, **self.stats.snapshot()}

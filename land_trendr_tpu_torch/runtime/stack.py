@@ -137,6 +137,7 @@ def load_stack_dir(
     reject_bits: int | None = None,
     scale: float = 2.75e-5,
     offset: float = -0.2,
+    device="cuda",
 ) -> RasterStack:
     """Load a directory of Landsat rasters, auto-detecting the layout.
 
@@ -158,7 +159,8 @@ def load_stack_dir(
     :func:`~land_trendr_tpu_torch.ops.indices.required_bands` automatically).
     The per-band C2 layout additionally skips reading the unused files.
     ``composite`` ("medoid") applies to the C2 layout only, where multiple
-    acquisitions per year can occur — see :func:`load_stack_dir_c2`.
+    acquisitions per year can occur — see :func:`load_stack_dir_c2`, which
+    also takes ``device``.
     """
     names = sorted(
         n for n in os.listdir(path) if re.search(pattern, n, re.IGNORECASE)
@@ -174,6 +176,7 @@ def load_stack_dir(
             reject_bits=reject_bits,
             scale=scale,
             offset=offset,
+            device=device,
         )
     if composite is not None:
         raise ValueError(
@@ -250,6 +253,7 @@ def load_stack_dir_c2(
     reject_bits: int | None = None,
     scale: float = 2.75e-5,
     offset: float = -0.2,
+    device="cuda",
 ) -> RasterStack:
     """Load a directory of Landsat Collection-2 Level-2 per-band files.
 
@@ -267,19 +271,19 @@ def load_stack_dir_c2(
     acquisition per year is required and multiple dates raise with the
     offending values listed; ``composite="medoid"`` instead builds the
     per-pixel QA-masked medoid composite of each multi-acquisition year
-    on device in the JAX package; this package does not port the
-    composite yet and rejects any ``composite`` value.
-    ``reject_bits``/``scale``/``offset`` are accepted for signature
-    parity.  One WRS-2 path/row is required either way; ``pattern``
+    on device (:func:`land_trendr_tpu_torch.ops.composite.medoid_composite` —
+    an extension beyond the reference, which tells users to composite
+    first).  ``reject_bits``/``scale``/``offset`` feed the composite's
+    validity masks and should match the run's ``RunConfig`` values so
+    selection and segmentation mask identically (None → the C2
+    defaults).  ``device`` is where the composite runs: ``"cuda"`` (the
+    default, like every entry point; raises without a card) or ``"cpu"``
+    — read only when a year needs compositing.  One WRS-2 path/row is required either way; ``pattern``
     (regex on file names, the same argument :func:`load_stack_dir`
     takes) pre-filters the directory, e.g. to select one path/row.
     """
-    if composite is not None:
-        # the medoid composite (ops/composite.py) is not ported yet
-        raise ValueError(
-            f"composite={composite!r} is not supported by this package; "
-            "pre-composite the archive to one image per year"
-        )
+    if composite not in (None, "medoid"):
+        raise ValueError(f"composite={composite!r} not None|'medoid'")
     # year -> date -> band -> path
     groups: dict[int, dict[str, dict[str, str]]] = {}
     pathrows: set[str] = set()
@@ -355,7 +359,38 @@ def load_stack_dir_c2(
                     f"(have {sorted(by_date[date])})"
                 )
         dates = sorted(by_date)
-        per_band = {b: read_band(by_date[dates[0]][b], b) for b in needed}
+        if len(dates) == 1:
+            per_band = {b: read_band(by_date[dates[0]][b], b) for b in needed}
+        else:
+            # stack the year's acquisitions and medoid-composite on device
+            from land_trendr_tpu_torch.ops.composite import medoid_composite
+            from land_trendr_tpu_torch.ops.indices import DEFAULT_QA_REJECT
+
+            stacks = {}
+            for b in needed:
+                imgs = [read_band(by_date[d][b], b) for d in dates]
+                # within-year uniformity: np.stack would silently promote
+                # a mixed int16/uint16 year to int32 (same hazard
+                # _check_year_dtype blocks across years)
+                dtypes = sorted({str(a.dtype) for a in imgs})
+                if b != "qa" and len(dtypes) > 1:
+                    raise ValueError(
+                        f"band {b!r}: mixed DN dtypes across year {year}'s "
+                        f"acquisitions {dtypes} — re-export the archive "
+                        "with one dtype"
+                    )
+                stacks[b] = np.stack(imgs)
+            comp_dn, comp_qa = medoid_composite(
+                {b: stacks[b] for b in needed if b != "qa"},
+                stacks["qa"],
+                reject_bits=(
+                    DEFAULT_QA_REJECT if reject_bits is None else reject_bits
+                ),
+                scale=scale,
+                offset=offset,
+                device=device,
+            )
+            per_band = {**comp_dn, "qa": comp_qa}
         for b in needed:
             img = per_band[b]
             if b == "qa":
@@ -407,6 +442,23 @@ class LazyBandCube:
         self.shape = (len(self.paths), *shape)
         self.dtype = np.dtype(dtype)
         self.ndim = 3
+
+    def prefetch_window(self, y0: int, x0: int, h: int, w: int) -> int:
+        """Readahead hint: decode the blocks of this window (every year)
+        into the process-wide decoded-block cache off-thread, so a later
+        ``self[:, y0:y0+h, x0:x0+w]`` is served from cache — the driver
+        feed pool hints the NEXT planned tile while the current one waits
+        on the device.  Fire-and-forget; returns the number of per-file
+        hints actually queued (0 when the cache/readahead is off or the
+        decode pool is saturated — the read then just decodes on demand).
+        """
+        from land_trendr_tpu_torch.io import blockcache
+
+        queued = 0
+        for p in self.paths:
+            if blockcache.prefetch_window(p, y0, x0, h, w):
+                queued += 1
+        return queued
 
     def __getitem__(self, key) -> np.ndarray:
         from land_trendr_tpu_torch.io.geotiff import read_geotiff_window

@@ -52,7 +52,8 @@ def test_params_json(tmp_path):
 
 
 def test_absent_flags_are_rejected(tmp_path):
-    r = _cli("--device", "cpu", "segment", "D", "--telemetry", cwd=tmp_path)
+    # a later slice's flag (the elastic lease queue)
+    r = _cli("--device", "cpu", "segment", "D", "--lease-batch", "4", cwd=tmp_path)
     assert r.returncode == 2 and "unrecognized arguments" in r.stderr
 
 
@@ -140,3 +141,195 @@ def test_change_without_card_fails_clearly(tmp_path):
         pytest.skip("a CUDA card is present")
     r = _cli("change", "O", cwd=tmp_path)
     assert r.returncode == 2 and "is_available() is False" in r.stderr
+
+
+# ---------------------------------------------------------------------------
+# pixel and info, against the JAX package's CLI
+# ---------------------------------------------------------------------------
+
+#: the integer and boolean fields of a pixel result: equal exactly
+_DECISIONS = ("n_vertices", "vertex_indices", "vertex_years", "model_valid")
+
+
+def _jax_cli_json(argv, capsys):
+    """The JAX package's command handler in-process (no subprocess: the
+    suite runs JAX in float64, the pixel path's exact-parity mode)."""
+    from land_trendr_tpu import cli as jcli
+
+    args = jcli.build_parser().parse_args(argv)
+    handler = {"pixel": jcli._run_pixel, "info": jcli._run_info}[args.cmd]
+    assert handler(args) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def _port_cli_json(argv, capsys):
+    from land_trendr_tpu_torch.cli import main
+
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def _assert_pixel_equal(ours: dict, theirs: dict) -> None:
+    for name in _DECISIONS:
+        assert ours[name] == theirs[name], name
+    for name, v in ours.items():
+        if name in _DECISIONS or name in ("dtype", "device"):
+            continue
+        a = np.asarray(v, dtype=np.float64)
+        b = np.asarray(theirs[name], dtype=np.float64)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10, equal_nan=True, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("index", [None, "nbr"])
+def test_pixel_json_matches_jax_cli(tmp_path, capsys, seed, index):
+    rng = np.random.default_rng(seed)
+    years = list(range(1990, 2020))
+    t = np.arange(30.0)
+    values = 0.6 - 0.35 * (t >= 8 + seed) * np.exp(-0.15 * np.maximum(t - 8 - seed, 0))
+    values = values + rng.normal(0, 0.015, 30)
+    mask = (rng.uniform(size=30) > 0.1).tolist()
+    path = tmp_path / "series.json"
+    path.write_text(json.dumps({"years": years, "values": values.tolist(), "mask": mask}))
+    extra = ["--index", index] if index else []
+    ours = _port_cli_json(["--device", "cpu", "pixel", str(path), *extra], capsys)
+    theirs = _jax_cli_json(["pixel", str(path), *extra], capsys)
+    assert ours["params"] == theirs["params"]
+    assert ours["oracle"] == theirs["oracle"]
+    assert ours["torch"]["dtype"] == theirs["jax"]["dtype"] == "float64"
+    _assert_pixel_equal(ours["torch"], theirs["jax"])
+    assert ours["parity"]["vertex_indices_equal"] == theirs["parity"]["vertex_indices_equal"]
+    assert ours["torch"]["device"] == "cpu"
+
+
+@pytest.fixture(scope="module")
+def stack_dir(tmp_path_factory):
+    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
+
+    d = tmp_path_factory.mktemp("pix") / "D"
+    write_stack(str(d), make_stack(SceneSpec(width=32, height=24, year_start=1990,
+                                             year_end=2015, seed=3)))
+    return str(d)
+
+
+@pytest.mark.parametrize("x,y", [(10, 20), (0, 0), (31, 5), (17, 11)])
+def test_pixel_from_stack_matches_jax_cli(stack_dir, capsys, x, y):
+    argv = ["pixel", "--from-stack", stack_dir, "--x", str(x), "--y", str(y)]
+    ours = _port_cli_json(["--device", "cpu", *argv], capsys)
+    theirs = _jax_cli_json(argv, capsys)
+    assert ours["oracle"] == theirs["oracle"]
+    _assert_pixel_equal(ours["torch"], theirs["jax"])
+    ours_o = _port_cli_json(["pixel", "--engine", "oracle", *argv[1:]], capsys)
+    assert "torch" not in ours_o and ours_o["oracle"] == theirs["oracle"]
+
+
+def test_pixel_needs_card_for_torch_engine(tmp_path, stack_dir):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = _cli("pixel", "--from-stack", stack_dir, "--x", "1", "--y", "1", cwd=tmp_path)
+    assert r.returncode == 2 and "is_available() is False" in r.stderr
+
+
+@pytest.fixture(scope="module")
+def seg_out(stack_dir, tmp_path_factory):
+    import contextlib
+    import io
+
+    from land_trendr_tpu_torch.cli import main
+
+    root = tmp_path_factory.mktemp("seg")
+    argv = ["--device", "cpu", "segment", stack_dir, "--tile-size", "16",
+            "--out-overviews", "2", "--telemetry", "--flight", "--trace", str(root / "T"),
+            "--workdir", str(root / "w"), "--out-dir", str(root / "o")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return root, json.loads(buf.getvalue())
+
+
+def test_segment_overviews_telemetry_trace(seg_out):
+    root, out = seg_out
+    summary = out["summary"]
+    assert summary["tiles_done"] == 4 and summary["retries"] == 0
+    assert summary["tiles_quarantined"] == []
+    for k in ("events", "metrics", "flight"):
+        assert os.path.exists(summary["telemetry"][k]), k
+    traces = os.listdir(root / "T")
+    assert len(traces) == 1 and traces[0].endswith(".json")
+
+
+@pytest.mark.parametrize("product", ["rmse", "vertex_years", "model_valid"])
+def test_info_matches_jax_cli(seg_out, capsys, product):
+    _, out = seg_out
+    path = out["outputs"][product]
+    argv = ["info", path, "--window", "2,3,9,7"]
+    ours = _port_cli_json(argv, capsys)[path]
+    theirs = _jax_cli_json(argv, capsys)[path]
+    assert ours.pop("overview_pages") == 2
+    assert ours == theirs
+
+
+@pytest.mark.parametrize(
+    "extra,code,msg",
+    [
+        (["--fault-schedule", "nope@1"], 2, "unknown fault seam"),
+        (["--max-retries", "0", "--fault-schedule", "dispatch@0*99"], 3, "failed after 1"),
+        (["--max-retries", "0", "--quarantine-tiles", "--fault-schedule", "dispatch@1"],
+         3, "quarantined"),
+        (["--stall-timeout-s", "0.5", "--fault-schedule", "compute.wait@1=hang:30"], 4,
+         "stalled"),
+        (["--lazy", "--composite", "medoid"], 2, "--lazy cannot composite"),
+        (["--out-overviews", "-1"], 2, "out_overviews"),
+    ],
+    ids=["bad-schedule", "exhausted", "quarantine", "stall", "lazy-composite", "overviews"],
+)
+def test_segment_exit_codes(stack_dir, tmp_path, capsys, extra, code, msg):
+    from land_trendr_tpu_torch.cli import main
+
+    argv = ["--device", "cpu", "segment", stack_dir, "--tile-size", "16",
+            "--retry-backoff-s", "0", "--workdir", str(tmp_path / "w"),
+            "--out-dir", str(tmp_path / "o"), *extra]
+    assert main(argv) == code
+    out = capsys.readouterr()
+    assert msg in out.err
+    if code == 3 and "quarantined" in msg:
+        assert json.loads(out.out)["outputs"] is None
+
+
+@pytest.mark.parametrize(
+    "argv,key,value",
+    [
+        (["segment", "S"], "max_retries", 2),
+        (["segment", "S"], "retry_backoff_s", 0.5),
+        (["segment", "S"], "quarantine_tiles", False),
+        (["segment", "S"], "stall_timeout_s", None),
+        (["segment", "S"], "straggler_k", 4.0),
+        (["segment", "S"], "straggler_min_tiles", 5),
+        (["segment", "S"], "fault_schedule", None),
+        (["segment", "S"], "feed_cache_mb", 256),
+        (["segment", "S"], "decode_workers", 0),
+        (["segment", "S"], "no_feed_readahead", False),
+        (["segment", "S"], "ingest_store_mb", 0),
+        (["segment", "S"], "ingest_store_dir", None),
+        (["segment", "S"], "lazy", False),
+        (["segment", "S"], "composite", None),
+        (["segment", "S"], "out_overviews", 0),
+        (["segment", "S"], "trace", None),
+        (["segment", "S"], "telemetry", False),
+        (["segment", "S"], "metrics_port", None),
+        (["segment", "S"], "metrics_host", ""),
+        (["segment", "S"], "metrics_interval_s", 5.0),
+        (["segment", "S"], "flight", False),
+        (["segment", "S"], "flight_ring_events", 2048),
+        (["segment", "S"], "sampler_interval_s", 5.0),
+        (["pixel", "P"], "engine", "both"),
+        (["pixel", "P"], "scale", 2.75e-5),
+        (["info", "a.tif", "b.tif"], "paths", ["a.tif", "b.tif"]),
+    ],
+)
+def test_new_flag_defaults_match_jax(argv, key, value):
+    from land_trendr_tpu import cli as jcli
+
+    assert getattr(build_parser().parse_args(argv), key) == value
+    assert getattr(jcli.build_parser().parse_args(argv), key) == value

@@ -229,3 +229,93 @@ def test_family_kernel_op_counts_on_card(rng, card):
     years, vals, mask = (x.to(card) for x in _inputs(rng, px=512))
     ops = sc.cuda_family_op_counts(years, vals, mask)
     assert ops.shape == (512,) and int(ops.min()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the driver's robustness paths and the medoid composite on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_stack():
+    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack
+    from land_trendr_tpu_torch.runtime.stack import stack_from_synthetic
+
+    return stack_from_synthetic(make_stack(SceneSpec(width=128, height=128, seed=5)))
+
+
+def _tile_bytes(workdir) -> dict:
+    import glob
+    import os
+
+    out = {}
+    for p in sorted(glob.glob(os.path.join(workdir, "tile_*.npz"))):
+        with np.load(p) as z:
+            out[os.path.basename(p)] = {k: z[k].tobytes() for k in z.files}
+    return out
+
+
+@pytest.mark.cuda
+def test_stall_lands_while_the_device_is_busy(card, tmp_path, monkeypatch):
+    """A ~10 s device spin before one tile's event: the compute wait polls
+    the event from Python, so StallError lands within the timeout + 2 s
+    instead of after the spin."""
+    import time
+
+    from land_trendr_tpu_torch.runtime import StallError, driver
+
+    sc.load_library()  # the build is not part of the stall budget
+    real = driver.process_tile_dn
+    calls = []
+
+    def slow_second_tile(*a, **kw):
+        out = real(*a, **kw)
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda._sleep(int(2e10))  # ~10 s of spinning at H100 clocks
+        return out
+
+    monkeypatch.setattr(driver, "process_tile_dn", slow_second_tile)
+    cfg = driver.RunConfig(tile_size=32, workdir=str(tmp_path / "w"),
+                           out_dir=str(tmp_path / "o"), stall_timeout_s=1.0)
+    t0 = time.monotonic()
+    with pytest.raises(StallError):
+        driver.run_stack(_card_stack(), cfg, device=card)
+    assert time.monotonic() - t0 < 1.0 + 2.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_medoid_on_card_equals_cpu(card, rng):
+    from land_trendr_tpu_torch.ops.composite import medoid_composite
+
+    nd, h, w = 3, 96, 80
+    dn = {b: rng.integers(7300, 43000, (nd, h, w)).astype(np.uint16) for b in ("nir", "swir2")}
+    qa = np.where(rng.uniform(size=(nd, h, w)) < 0.3, 1 << 3, 0).astype(np.uint16)
+    on_card = medoid_composite(dn, qa, device=card, chunk_px=4096)
+    on_cpu = medoid_composite(dn, qa, device="cpu", chunk_px=4096)
+    for b in dn:
+        assert np.array_equal(on_card[0][b], on_cpu[0][b]), b
+    assert np.array_equal(on_card[1], on_cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_retry_after_recycled_upload_buffer_gives_clean_bytes(card, tmp_path, depth):
+    """Faults late in the run, after the pinned upload buffers have been
+    recycled: every retried tile is uploaded again from its retained host
+    arrays and lands byte-equal to a clean run's tile."""
+    from land_trendr_tpu_torch.runtime import driver
+
+    stack = _card_stack()
+    kw = dict(tile_size=32, upload_depth=depth, fetch_depth=depth, retry_backoff_s=0.0)
+    clean = driver.RunConfig(workdir=str(tmp_path / "c"), out_dir=str(tmp_path / "co"), **kw)
+    assert driver.run_stack(stack, clean, device=card)["retries"] == 0
+    faulty = driver.RunConfig(
+        workdir=str(tmp_path / "f"), out_dir=str(tmp_path / "fo"),
+        fault_schedule="seed=1,dispatch@9,compute.wait@11,fetch.wait@13,upload.wait@14",
+        **kw,
+    )
+    summary = driver.run_stack(stack, faulty, device=card)
+    assert summary["retries"] == 4 and summary["tiles_quarantined"] == []
+    assert summary["upload"]["packed"] and summary["fetch"]["packed"]
+    assert _tile_bytes(faulty.workdir) == _tile_bytes(clean.workdir)

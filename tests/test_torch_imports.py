@@ -63,9 +63,17 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.ops.change",
     "land_trendr_tpu_torch.tools.probe",
     "land_trendr_tpu_torch.tools.population",
+    "land_trendr_tpu_torch.runtime",
     "land_trendr_tpu_torch.runtime.driver",
     "land_trendr_tpu_torch.runtime.stack",
+    "land_trendr_tpu_torch.runtime.faults",
     "land_trendr_tpu_torch.io",
+    "land_trendr_tpu_torch.io.blockcache",
+    "land_trendr_tpu_torch.io.blockstore",
+    "land_trendr_tpu_torch.obs",
+    "land_trendr_tpu_torch.ops.composite",
+    "land_trendr_tpu_torch.models.oracle",
+    "land_trendr_tpu_torch.utils.profiling",
 ]
 
 
@@ -87,3 +95,16 @@ def test_main_path_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert "land_trendr_tpu_torch.runtime.driver" in res["port"]
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["obs/events.py", "obs/metrics.py", "obs/telemetry.py", "obs/spans.py",
+     "obs/flight.py", "io/blockcache.py", "io/blockstore.py", "runtime/faults.py",
+     "models/oracle.py", "ops/composite.py", "utils/profiling.py"],
+)
+def test_slice_modules_exist_and_scan_clean(module):
+    path = PORT / module
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for _, n in _imported(tree) if _forbidden(n)]
