@@ -75,6 +75,23 @@ each of which fails the script on its own:
    ``pixel --from-stack --engine both`` at two pixels (oracle and kernel
    agree on vertex years), and ``info`` on an output raster (two
    overview pages).
+9. **Elastic, pod, mesh and tuning**: (a) phase 4's scene with
+   ``lease_batch=2`` (16 tiles leased, 16 launches), then again with a
+   dead peer holding four leases that the ``lease.expire`` seam makes
+   stealable (4 stolen, 16 launches); (c) ``segment_pixels_sharded`` over
+   ``make_mesh()`` and ``[cuda:0, cuda:0]`` bit-identical to the unsharded
+   kernel on phase 2's population, then phase 4's scene over the two-shard
+   mesh (32 launches); the three scene runs' rasters byte-equal to phase
+   4's; (b) phase 7's stack written to disk: a two-process pod under
+   ``init_distributed`` on localhost (this script re-run with
+   ``--pod-worker``; 8 + 8 tiles, the primary's ``hosts`` fold both
+   ``ok``) and two ``segment --lease-batch 2`` processes with no process
+   group (their won tiles sum to 16), both byte-equal to one process;
+   (d) ``tune --smoke`` probes and stores a profile, a second call reloads
+   it with zero probes, and ``segment`` with ``auto`` tile size, chunk and
+   fetch depth names the profile and equals a run with those values given.
+   Seconds and px/s of each leg are printed with the card's name and power
+   limit.
 
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
@@ -90,14 +107,17 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -252,6 +272,82 @@ def raster_bytes(out_dir: str) -> dict:
         with open(os.path.join(out_dir, name), "rb") as f:
             out[name] = f.read()
     return out
+
+
+def raster_digests(out_dir: str) -> dict:
+    """SHA-256 of every raster in ``out_dir`` (byte equality of large scenes
+    without holding their bytes)."""
+    return {name: hashlib.sha256(data).hexdigest() for name, data in raster_bytes(out_dir).items()}
+
+
+def reap(procs: list, timeout: float) -> "list[tuple[str, str]]":
+    """Wait for every process (stdout, stderr); on a timeout or a failure
+    kill the rest, so no process outlives the smoke."""
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"process {p.args[:6]} exited {p.returncode}:\n{err[-3000:]}")
+            results.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results
+
+
+def launch_pod(args_for, env: dict, before, n: int = 2, attempts: int = 3) -> None:
+    """Run ``n`` :func:`pod_worker` processes of this script against a
+    coordinator on a free localhost port; a lost port race (another process
+    took the port between the probe and the bind) retries on a fresh one."""
+    for attempt in range(attempts):
+        before()
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            coordinator = f"localhost:{sk.getsockname()[1]}"
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pod-worker",
+                 coordinator, str(n), str(i), *args_for(i)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(n)
+        ]
+        try:
+            reap(procs, timeout=300)
+            return
+        except RuntimeError as e:
+            if "address already in use" not in str(e).lower() or attempt == attempts - 1:
+                raise
+
+
+def pod_worker(argv: list) -> int:
+    """One process of phase 9's pod: join the process group, run its
+    ``host_share`` of the 512² stack on the card over the shared workdir,
+    write its summary (with its fused-kernel launch count) as JSON."""
+    coordinator, world, rank, stack_dir, workdir, out_path = argv
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.ops.indices import required_bands
+    from land_trendr_tpu_torch.parallel import init_distributed
+    from land_trendr_tpu_torch.runtime.driver import RunConfig, run_stack
+    from land_trendr_tpu_torch.runtime.stack import load_stack_dir
+
+    init_distributed(coordinator, int(world), int(rank), timeout_s=120.0)
+    stack = load_stack_dir(stack_dir, bands=required_bands("nbr"))
+    cfg = RunConfig(tile_size=ROBUST_TILE, workdir=workdir, out_dir=workdir + "_o",
+                    telemetry=True)
+    segment_cuda.LAUNCHES = 0
+    summary = run_stack(stack, cfg, device="cuda")
+    summary["launches"] = segment_cuda.LAUNCHES
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(summary, f)
+    os.replace(out_path + ".tmp", out_path)
+    dist.destroy_process_group()
+    return 0
 
 
 def prom_gauge(path: str, name: str) -> "float | None":
@@ -457,6 +553,7 @@ def main() -> int:
         t0 = time.perf_counter()
         paths = assemble_outputs(stack, cfg)
         assemble_s = time.perf_counter() - t0
+        scene_digests = raster_digests(cfg.out_dir)  # phase 9's reference
         with open(os.path.join(cfg.workdir, "manifest.jsonl")) as f:
             header = json.loads(f.readline())
         log(f"[scene] px_per_s {summary['px_per_s']} wall_s {summary['wall_s']} "
@@ -750,7 +847,6 @@ def main() -> int:
             f"= {100 * busy / 1e6 / s_p['wall_s']:.2f}% of wall (idle "
             f"{100 - 100 * busy / 1e6 / s_p['wall_s']:.2f}%), segment_fused_kernel "
             f"{fused_us / 1e3:.3f} ms in total")
-    del stack
 
     with tempfile.TemporaryDirectory(prefix="lt_smoke_cli8_", dir=ROOT) as tmp:
         def cli8(*argv: str) -> str:
@@ -791,6 +887,204 @@ def main() -> int:
             f"{info['compression']}, {info['overview_pages']} overview pages, "
             f"{info['file_bytes']} B")
     log(f"[phase 8] took {time.perf_counter() - t8:.1f}s")
+
+    # ---- phase 9: elastic, pod, mesh and tuning -------------------------
+    t9 = time.perf_counter()
+    from land_trendr_tpu_torch.io.synthetic import write_stack
+    from land_trendr_tpu_torch.ops.indices import required_bands
+    from land_trendr_tpu_torch.parallel import make_mesh, segment_pixels_sharded
+    from land_trendr_tpu_torch.runtime.leases import LeaseQueue
+    from land_trendr_tpu_torch.runtime.manifest import TileManifest
+    from land_trendr_tpu_torch.runtime.stack import load_stack_dir
+
+    def leg(name: str, wall_s: float, px: int, summary: "dict | None" = None) -> None:
+        stages = f", stage_s {json.dumps(summary['stage_s'])}" if summary else ""
+        log(f"[phase 9] {name}: {wall_s:.3f} s, {px / wall_s:.1f} px/s{stages} ({smi})")
+
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_p9_", dir=ROOT) as tmp:
+        def scfg(name, **kw):
+            return RunConfig(tile_size=TILE, workdir=os.path.join(tmp, name, "w"),
+                             out_dir=os.path.join(tmp, name, "o"), **kw)
+
+        # (a) elastic at full tile size; the TTL sits far above the first
+        # tile's library load, so nothing is stolen by accident
+        ecfg = scfg("elastic", lease_batch=2, lease_ttl_s=600.0)
+        segment_cuda.LAUNCHES = 0
+        s_e = run_stack(stack, ecfg, device="cuda")
+        e_launches = segment_cuda.LAUNCHES
+        assert s_e["lease"]["acquired"] == n_tiles and s_e["lease"]["stolen"] == 0, s_e["lease"]
+        assert e_launches == n_tiles, e_launches
+        leg(f"elastic lease_batch=2 ({n_tiles} tiles leased, {e_launches} launches)",
+            s_e["wall_s"], s_e["pixels"], s_e)
+        # ... then a peer that died holding four leases: the lease.expire
+        # seam reads its live leases as expired, so this run steals them
+        xcfg = scfg("steal", lease_batch=2, lease_ttl_s=600.0,
+                    fault_schedule="seed=1,lease.expire%1.0")
+        peer_manifest = TileManifest(xcfg.workdir, xcfg.fingerprint(stack),
+                                     context={"mesh_devices": 1, "impl": "cuda"})
+        peer_manifest.open(resume=True)  # writes the header the peer leased under
+        dead = LeaseQueue(peer_manifest.path, range(n_tiles),
+                          ttl_s=600.0, owner="deadhost:1:peer")
+        assert len(dead.acquire(4)) == 4
+        segment_cuda.LAUNCHES = 0
+        s_x = run_stack(stack, xcfg, device="cuda")
+        x_launches = segment_cuda.LAUNCHES
+        assert s_x["lease"]["stolen"] == 4 and s_x["lease"]["acquired"] == n_tiles, s_x["lease"]
+        assert x_launches == n_tiles, x_launches
+        leg(f"elastic with a dead peer's 4 leases stolen ({x_launches} launches)",
+            s_x["wall_s"], s_x["pixels"], s_x)
+
+        # (c) mesh: the sharded kernel against the unsharded one, bit for bit
+        log(f"[mesh] torch.cuda.device_count() = {torch.cuda.device_count()}; a mesh over "
+            "more than one card is not verifiable on a one-card machine — the two-shard "
+            "mesh below repeats cuda:0")
+        whole = segment_cuda.cuda_segment_pixels(years, v32, mask, params)
+        every = torch.ones(POP_PX, dtype=torch.bool)
+        for mesh in (make_mesh(), [dev, dev]):
+            segment_cuda.LAUNCHES = 0
+            sharded = segment_pixels_sharded(years, v32, mask, params, mesh=mesh)
+            assert segment_cuda.LAUNCHES == len(mesh), segment_cuda.LAUNCHES
+            assert bit_identical(sharded, type(whole)(*(f.cpu() for f in whole)), every), (
+                f"sharded over {mesh} differs from the unsharded kernel")
+            log(f"[mesh] segment_pixels_sharded over {[str(d) for d in mesh]}: "
+                f"{segment_cuda.LAUNCHES} launches, bit-identical to the unsharded kernel")
+        del whole, sharded
+        mcfg = scfg("mesh")
+        segment_cuda.LAUNCHES = 0
+        s_m = run_stack(stack, mcfg, device="cuda", mesh=[dev, dev])
+        m_launches = segment_cuda.LAUNCHES
+        assert s_m["mesh_devices"] == 2 and m_launches == 2 * n_tiles, (s_m["mesh_devices"], m_launches)
+        leg(f"two-shard mesh [cuda:0, cuda:0] ({m_launches} launches)", s_m["wall_s"],
+            s_m["pixels"], s_m)
+
+        # the three scene runs' rasters against phase 4's, assembled together
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda c: assemble_outputs(stack, c), (ecfg, xcfg, mcfg)))
+        for name, c in (("elastic", ecfg), ("steal", xcfg), ("mesh", mcfg)):
+            assert raster_digests(c.out_dir) == scene_digests, f"{name} rasters differ from phase 4"
+        log(f"[phase 9] elastic, steal and mesh rasters byte-equal to phase 4's "
+            f"(assembled in {time.perf_counter() - t0:.1f} s)")
+
+        # (b) pods on the one card over phase 7's stack written to disk
+        synth = make_stack(SceneSpec(height=ROBUST, width=ROBUST, seed=7))
+        stack_dir = os.path.join(tmp, "stack512")
+        write_stack(stack_dir, synth)
+        del synth
+        pstack = load_stack_dir(stack_dir, bands=required_bands("nbr"))
+        pod_px = ROBUST * ROBUST
+
+        def pcfg(name, **kw):
+            kw.setdefault("tile_size", ROBUST_TILE)
+            return RunConfig(workdir=os.path.join(tmp, name, "w"),
+                             out_dir=os.path.join(tmp, name, "o"), **kw)
+
+        one = pcfg("single")
+        s_1 = run_stack(pstack, one, device="cuda")
+        assemble_outputs(pstack, one)
+        pod_ref = raster_digests(one.out_dir)
+        leg("512^2 single process (the pods' reference)", s_1["wall_s"], s_1["pixels"])
+
+        static = pcfg("pod")
+        outs = [os.path.join(tmp, f"pod{i}.json") for i in range(2)]
+        t0 = time.perf_counter()
+        launch_pod(lambda i: [stack_dir, static.workdir, outs[i]], env,
+                   before=lambda: shutil.rmtree(static.workdir, ignore_errors=True))
+        pod_s = time.perf_counter() - t0
+        per = []
+        for o in outs:
+            with open(o) as f:
+                per.append(json.load(f))
+        assert [s["tiles_done"] for s in per] == [8, 8], [s["tiles_done"] for s in per]
+        assert [s["launches"] for s in per] == [8, 8], [s["launches"] for s in per]
+        hosts = per[0]["telemetry"]["hosts"]
+        assert [h["process_index"] for h in hosts] == [0, 1], hosts
+        assert all(h["status"] == "ok" for h in hosts), hosts
+        assert "hosts" not in per[1]["telemetry"], "the fold is the primary's only"
+        assemble_outputs(pstack, static)
+        assert raster_digests(static.out_dir) == pod_ref, "pod rasters differ"
+        leg("two-process pod under init_distributed (8 + 8 tiles, hosts fold ok, byte-equal)",
+            pod_s, pod_px)
+
+        lease_work = os.path.join(tmp, "leasecli", "w")
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "land_trendr_tpu_torch", "segment", stack_dir,
+                 "--tile-size", str(ROBUST_TILE), "--workdir", lease_work,
+                 "--out-dir", os.path.join(tmp, "leasecli", f"o{i}"),
+                 "--lease-batch", "2", "--lease-ttl-s", "600"],
+                cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)
+        ]
+        results = reap(procs, timeout=600)
+        lease_s = time.perf_counter() - t0
+        won = [json.loads(out)["summary"]["lease"]["acquired"] for out, _ in results]
+        assert sum(won) == (ROBUST // ROBUST_TILE) ** 2, won
+        for i in range(2):
+            assert raster_digests(os.path.join(tmp, "leasecli", f"o{i}")) == pod_ref, (
+                f"lease CLI process {i} rasters differ")
+        leg(f"two `segment --lease-batch 2` processes, no process group (tiles won {won}, "
+            "byte-equal)", lease_s, pod_px)
+
+        # (d) tuning: probe, reload with zero probes, then "auto" knobs
+        store = os.path.join(tmp, "tune_store")
+
+        def cli9(*argv: str) -> dict:
+            out = subprocess.run(
+                [sys.executable, "-m", "land_trendr_tpu_torch", *argv],
+                cwd=tmp, env=env, capture_output=True, text=True, check=False, timeout=600,
+            )
+            if out.returncode != 0:
+                raise RuntimeError(f"CLI {argv} exited {out.returncode}:\n{out.stderr[-3000:]}")
+            return json.loads(out.stdout)
+
+        shape = f"{ROBUST},{ROBUST},{NY}"
+        t0 = time.perf_counter()
+        prof = cli9("tune", "--smoke", "--store-dir", store, "--shape", shape)
+        tune_s = time.perf_counter() - t0
+        assert prof["source"] == "probed" and prof["probes"] > 0, prof
+        assert all(g["ok"] for g in prof["groups"].values()), prof["groups"]
+        log(f"[tune] probed {prof['probes']} reps in {tune_s:.1f} s: key {prof['key']!r}, "
+            f"knobs {json.dumps(prof['knobs'])}")
+        log(f"[tune] groups {json.dumps(prof['groups'])}")
+        again = cli9("tune", "--smoke", "--store-dir", store, "--shape", shape)
+        assert again["source"] == "store" and again["probes"] == 0, again
+        assert again["knobs"] == prof["knobs"] and again["key"] == prof["key"]
+        log(f"[tune] second call: source {again['source']}, probes {again['probes']}")
+        auto = cli9("segment", stack_dir, "--workdir", "w_auto", "--out-dir", "o_auto",
+                    "--tile-size", "auto", "--chunk-px", "auto", "--fetch-depth", "auto",
+                    "--tune-store-dir", store)["summary"]
+        tune_blk = auto["tune"]
+        assert tune_blk["source"] == "store" and tune_blk["key"] == prof["key"], tune_blk
+        knobs = {k: prof["knobs"][k] for k in ("tile_size", "chunk_px", "fetch_depth")}
+        assert tune_blk["knobs"] == knobs, (tune_blk, knobs)
+        explicit = pcfg("explicit", **knobs)
+        run_stack(pstack, explicit, device="cuda")
+        assemble_outputs(pstack, explicit)
+        assert raster_digests(os.path.join(tmp, "o_auto")) == raster_digests(explicit.out_dir), (
+            "the auto run's rasters differ from the explicit run's")
+        leg(f"segment with auto knobs {json.dumps(knobs)} (tune block names {tune_blk['key']!r}; "
+            "rasters equal the explicit run's)", auto["wall_s"], auto["pixels"])
+        # the dispatch probe in full mode, in this process so its launches
+        # count: the tile-size sweep runs the tile program per tile, the
+        # chunk_px sweep the chunked kernel (one launch per chunk)
+        from land_trendr_tpu_torch.tune import KNOB_DEFAULTS
+        from land_trendr_tpu_torch.tune import probes as probemod
+
+        segment_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        d_best, d_rep = probemod.probe_group("dispatch", reps=3, smoke=False,
+                                             defaults=KNOB_DEFAULTS, device=dev)
+        d_launches = segment_cuda.LAUNCHES
+        assert d_launches > 0 and d_rep["best_s"] <= d_rep["default_s"], d_rep
+        log(f"[tune] dispatch probe, full mode: {d_launches} fused-kernel launches in "
+            f"{time.perf_counter() - t0:.2f} s, {d_rep['probes']} timed reps, knobs "
+            f"{json.dumps(d_best)}, timings {json.dumps(d_rep['timings'])} ({smi})")
+        del pstack
+    del stack
+    log(f"[phase 9] took {time.perf_counter() - t9:.1f}s")
+
 
     kernel = {
         "name": "segment_fused",
@@ -834,4 +1128,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-worker"]:
+        sys.exit(pod_worker(sys.argv[2:]))
     sys.exit(main())

@@ -7,8 +7,14 @@ ports so far:
               optional FTV rasters (``--ftv``) and fused change maps
               (``--change``); retries, quarantine, the stall watchdog,
               fault injection, the feed cache and ingest store, the medoid
-              composite, overviews, telemetry, the flight recorder and a
-              profiler trace (``--trace``)
+              composite, overviews, telemetry, the flight recorder, a
+              profiler trace (``--trace``), elastic runs (``--lease-batch``:
+              any number of ``segment`` processes over one workdir), mesh
+              sharding over the local cards (``--mesh``) and ``auto`` knobs
+              resolved through a tuning store (``--tune-store-dir``)
+``tune``      probe the execution knobs on the device and persist the
+              winning profile to a tuning store (a stored key reloads with
+              zero probes)
 ``pixel``     segment ONE series through the NumPy oracle and/or this
               package's segmentation (the single-pixel debug/parity path)
 ``change``    segment rasters → change maps (yod/mag/dur/rate/preval/dsnr)
@@ -23,10 +29,9 @@ PyTorch version; for tests and debugging only).  ``--device cuda`` on a
 machine without a usable card fails with a clear error; it never carries
 on on the CPU (``change`` runs its selector there too, ``--composite``
 its selection).  The device also decides the segmentation implementation,
-so there is no ``--impl``.  Flags of the JAX package's ``segment`` that
-this package does not implement yet (leases, speculation, the multihost
-merge, mesh sharding, tuning, fleet publish) are rejected as unknown
-arguments.
+so there is no ``--impl``.  Fleet publish (``--publish*``,
+``--telemetry-dir``), which this package does not implement yet, is
+rejected as unknown arguments.
 
 Exit codes of ``segment``: 2 config/usage error, 3 a tile exhausted its
 retries or was quarantined (a re-run resumes exactly the missing tiles),
@@ -46,6 +51,12 @@ from land_trendr_tpu_torch.ops.indices import DEFAULT_QA_REJECT, INDEX_NAMES
 from land_trendr_tpu_torch.runtime.manifest import ARTIFACT_COMPRESS
 
 __all__ = ["main", "build_parser", "run"]
+
+
+def _auto_int(s: str):
+    """Tunable-knob flag values: an integer or the 'auto' sentinel (the
+    tuning-store resolution)."""
+    return s if s == "auto" else int(s)
 
 
 def _add_param_flags(p: argparse.ArgumentParser) -> None:
@@ -134,7 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
     seg.add_argument("--index", default="nbr", choices=INDEX_NAMES,
                      help="index driving the segmentation")
     seg.add_argument("--ftv", default="", help="comma-separated FTV indices")
-    seg.add_argument("--tile-size", type=int, default=512, help="tile edge in pixels")
+    seg.add_argument("--tile-size", type=_auto_int, default=512,
+                     help="tile edge in pixels, or 'auto' (resolve through "
+                     "--tune-store-dir's profile; with no profile, 'auto' falls "
+                     "back to the LIBRARY default 256, not this flag's 512)")
     seg.add_argument("--workdir", default="lt_work")
     seg.add_argument("--out-dir", default="lt_out")
     seg.add_argument("--no-resume", action="store_true",
@@ -151,30 +165,42 @@ def build_parser() -> argparse.ArgumentParser:
                      "device→host copy per tile on a CUDA device)")
     seg.add_argument("--packed-fetch", action="store_true",
                      help="force the packed fetch")
-    seg.add_argument("--fetch-depth", type=int, default=2,
-                     help="packed fetches in flight")
+    seg.add_argument("--fetch-depth", type=_auto_int, default=2,
+                     help="packed fetches in flight, or 'auto'")
     seg.add_argument("--no-packed-upload", action="store_true",
                      help="upload each fed array on its own (default: one "
                      "packed pinned host→device copy per tile on a CUDA device)")
     seg.add_argument("--packed-upload", action="store_true",
                      help="force the packed upload")
-    seg.add_argument("--upload-depth", type=int, default=2,
-                     help="packed uploads in flight")
+    seg.add_argument("--upload-depth", type=_auto_int, default=2,
+                     help="packed uploads in flight, or 'auto'")
     seg.add_argument("--out-compress", default="deflate",
                      choices=("deflate", "lzw", "none"))
     seg.add_argument("--manifest-compress", default="none", choices=ARTIFACT_COMPRESS)
     seg.add_argument("--write-workers", type=int, default=1,
                      help="background tile-writer threads")
-    seg.add_argument("--feed-workers", type=int, default=1,
-                     help="background feed threads")
+    seg.add_argument("--feed-workers", type=_auto_int, default=1,
+                     help="background feed threads, or 'auto'")
     seg.add_argument("--reject-bits", type=lambda s: int(s, 0),
                      default=DEFAULT_QA_REJECT, metavar="MASK",
                      help="QA_PIXEL bitmask of rejected observation classes "
                      f"(decimal or 0x hex; default 0x{DEFAULT_QA_REJECT:x})")
     seg.add_argument("--chunk-px", default=262_144, metavar="N",
-                     type=lambda s: None if s.lower() == "none" else int(s),
+                     type=lambda s: (
+                         None if s.lower() == "none" else s if s == "auto" else int(s)
+                     ),
                      help="tiles with more pixels run the segmentation as "
-                     "chunked launches; 'none' disables chunking")
+                     "chunked launches; 'none' disables chunking; 'auto' "
+                     "resolves through the tuning store")
+    seg.add_argument("--tune-store-dir", default=None, metavar="DIR",
+                     help="on-disk tuning store (lt tune's output) the 'auto' "
+                     "knob values resolve through at run start; key miss or "
+                     "no DIR = hardcoded defaults")
+    seg.add_argument("--mesh", action="store_true",
+                     help="shard every tile's pixel axis over ALL local CUDA "
+                     "devices (one launch per device, no cross-device "
+                     "traffic); default runs on the single --device.  Needs "
+                     "a card")
     seg.add_argument("--scale", type=float, default=2.75e-5,
                      help="DN → reflectance scale (C2 default)")
     seg.add_argument("--offset", type=float, default=-0.2,
@@ -186,11 +212,14 @@ def build_parser() -> argparse.ArgumentParser:
     seg.add_argument("--lazy", action="store_true",
                      help="windowed file-backed ingest (C2 per-band layout "
                      "only): no input cube in host RAM")
-    seg.add_argument("--feed-cache-mb", type=int, default=256,
+    seg.add_argument("--feed-cache-mb", type=_auto_int, default=256,
                      help="decoded-block cache budget (MiB) for the windowed "
-                     "feed path; 0 disables the cache")
-    seg.add_argument("--decode-workers", type=int, default=0,
-                     help="feed-decode threads: 0 = auto, 1 = serial, N = N")
+                     "feed path; 0 disables the cache; 'auto' resolves "
+                     "through the tuning store")
+    seg.add_argument("--decode-workers", type=_auto_int, default=0,
+                     help="feed-decode threads: 0 = codec auto-threading, "
+                     "1 = serial, N = N threads, 'auto' = tuning-store "
+                     "resolution")
     seg.add_argument("--no-feed-readahead", action="store_true",
                      help="disable the next-tile block-decode hint (only "
                      "meaningful with --lazy and a non-zero --feed-cache-mb)")
@@ -205,9 +234,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="collapse multi-acquisition years of a C2 per-band "
                      "archive to per-pixel QA-masked medoid composites, "
                      "selected on --device (default: one acquisition a year)")
-    seg.add_argument("--out-overviews", type=int, default=0,
-                     help="overview pyramid levels on output rasters "
-                     "(N 2x reductions; default 0 = none)")
+    seg.add_argument("--out-overviews", type=_auto_int, default=0,
+                     help="overview pyramid levels on output rasters: an "
+                     "integer or 'auto' (until the smaller dimension drops "
+                     "under 256); default 0 = none")
     seg.add_argument("--trace", default=None, metavar="LOGDIR",
                      help="capture a torch.profiler host + device trace of "
                      "the run as Chrome trace JSON under LOGDIR")
@@ -242,15 +272,70 @@ def build_parser() -> argparse.ArgumentParser:
     seg.add_argument("--stall-timeout-s", type=float, default=None, metavar="SEC",
                      help="abort (exit 4) after SEC without tile progress "
                      "(default: no watchdog)")
+    seg.add_argument("--merge-timeout-s", type=float, default=None,
+                     metavar="SEC",
+                     help="multihost only: bound on the primary's wait for "
+                     "straggler peers' run_done during the event-log merge "
+                     "(default: derived from this run's wall time)")
     seg.add_argument("--straggler-k", type=float, default=4.0, metavar="K",
                      help="flag a tile in flight longer than K x the rolling "
                      "median tile duration (observability only)")
     seg.add_argument("--straggler-min-tiles", type=int, default=5, metavar="N",
                      help="no straggler verdicts until N tiles completed")
+    seg.add_argument("--lease-batch", type=int, default=0, metavar="N",
+                     help="elastic scheduling: replace the static host_share "
+                     "tile split with the shared-manifest lease queue — this "
+                     "process claims N tiles at a time, renews leases on "
+                     "progress, and steals tiles whose leases expired "
+                     "(dead/slow peer) or were never claimed, so processes "
+                     "may join/leave mid-run; 0 (default) keeps the static "
+                     "split.  Artifacts are byte-identical either way")
+    seg.add_argument("--lease-ttl-s", type=float, default=30.0, metavar="SEC",
+                     help="lease time-to-live: a lease not renewed within SEC "
+                     "is stealable by peers.  Size it above the slowest tile "
+                     "and the pod's clock skew (a short TTL only costs benign "
+                     "duplicate work, never correctness)")
+    seg.add_argument("--speculate", action="store_true",
+                     help="with --lease-batch: straggler-steered speculative "
+                     "execution — an idle process re-leases a tile the "
+                     "owner's live straggler detector flagged; first durable "
+                     "write wins, the loser lands as an identical no-op")
     seg.add_argument("--fault-schedule", default=None, metavar="SPEC",
                      help="deterministic fault injection for test runs, e.g. "
                      "'seed=7,dispatch@1,fetch.wait@0*2=io'")
     _add_param_flags(seg)
+
+    tun = sub.add_parser(
+        "tune",
+        help="autotune the execution knobs: run short calibration probes "
+        "(feed/decode/upload/fetch/dispatch groups) on --device, persist the "
+        "winning profile to the on-disk tuning store keyed by (device kind, "
+        "backend, scene shape class), and report it; a key already in the "
+        "store reloads with ZERO probes",
+    )
+    tun.add_argument("--store-dir", default="lt_tune_store", metavar="DIR",
+                     help="tuning-store directory the profile persists to / "
+                     "reloads from (point runs at it via --tune-store-dir)")
+    tun.add_argument("--shape", default="512,512,40", metavar="H,W,NY",
+                     help="scene shape class to tune for (height, width, "
+                     "years — bucketed coarsely, so a representative scene "
+                     "stands in for the workload)")
+    tun.add_argument("--groups", default=None, metavar="G1,G2,...",
+                     help="probe only these knob groups (feed, decode, upload, "
+                     "fetch, dispatch); unnamed groups keep their default knobs")
+    tun.add_argument("--reps", type=int, default=3,
+                     help="timing reps per candidate (median taken; a "
+                     "clearly-losing candidate is cut off after one)")
+    tun.add_argument("--smoke", action="store_true",
+                     help="seconds-scale probe workloads")
+    tun.add_argument("--retune", action="store_true",
+                     help="probe even when the store already holds this key's "
+                     "profile (and overwrite it)")
+    tun.add_argument("--dry-run", action="store_true",
+                     help="probe and report, write NOTHING to the store")
+    tun.add_argument("--workdir", default=None, metavar="DIR",
+                     help="also write tune telemetry (events.jsonl with "
+                     "tune_probe/tune_profile, lt_tune_* metrics) under DIR")
 
     pix = sub.add_parser("pixel", help="segment one series (single-pixel "
                          "debug/parity path)")
@@ -489,6 +574,93 @@ def _run_info(args) -> int:
     return 0
 
 
+def _run_tune(args) -> int:
+    """``tune``: probe (or reload) on ``--device``, persist unless
+    ``--dry-run``, report (the JAX package's report keys)."""
+    import time
+
+    from land_trendr_tpu_torch.runtime.driver import resolve_device
+    from land_trendr_tpu_torch.tune import TuningStore, autotune
+
+    try:
+        h, w, ny = (int(v) for v in args.shape.split(","))
+    except ValueError:
+        print(f"error: --shape {args.shape!r} is not H,W,NY", file=sys.stderr)
+        return 2
+    try:
+        device = resolve_device(args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    groups = (
+        tuple(g.strip() for g in args.groups.split(",") if g.strip())
+        if args.groups else None
+    )
+    telemetry = None
+    if args.workdir:
+        from land_trendr_tpu_torch.obs import Telemetry
+
+        telemetry = Telemetry(args.workdir, fingerprint="tune")
+    t0 = time.perf_counter()
+    status = "aborted"
+    try:
+        if telemetry is not None:
+            # every stream scope opens with run_start: a tune scope is a
+            # zero-tile run (impl "tune" names it)
+            telemetry.run_start(
+                fingerprint="tune", process_index=0, process_count=1,
+                tiles_total=0, tiles_todo=0, tiles_skipped_resume=0,
+                mesh_devices=1, impl="tune",
+            )
+        try:
+            profile = autotune(
+                args.store_dir,
+                height=h, width=w, n_years=ny,
+                device=device,
+                groups=groups,
+                reps=args.reps,
+                smoke=args.smoke,
+                retune=args.retune,
+                persist=not args.dry_run,
+                telemetry=telemetry,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        status = "ok"
+    finally:
+        if telemetry is not None:
+            wall = time.perf_counter() - t0
+            try:
+                telemetry.run_done(
+                    status, tiles_done=0, pixels=0,
+                    wall_s=round(wall, 3), px_per_s=0.0, fit_rate=0.0,
+                )
+            finally:
+                telemetry.close()
+    probed = profile["source"] == "probed"
+    report = {
+        "key": profile["key"],
+        "source": profile["source"],
+        "probes": profile["probes"] if probed else 0,
+        "knobs": profile["knobs"],
+        "groups": {
+            g: {
+                k: r[k]
+                for k in ("ok", "probes", "default_s", "best_s", "speedup", "error", "knobs")
+                if k in r
+            }
+            for g, r in profile.get("groups", {}).items()
+        },
+        "store_dir": args.store_dir,
+        "persisted": not args.dry_run and probed,
+    }
+    if not args.dry_run and probed:
+        report["profile_path"] = TuningStore(args.store_dir).path_for(profile["key"])
+    print(json.dumps(report, indent=2))
+    return 0
+
+
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -506,6 +678,9 @@ def main(argv: "list[str] | None" = None) -> int:
 
     if args.cmd == "info":
         return _run_info(args)
+
+    if args.cmd == "tune":
+        return _run_tune(args)
 
     if args.cmd == "synth":
         from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
@@ -578,8 +753,12 @@ def main(argv: "list[str] | None" = None) -> int:
             retry_backoff_s=args.retry_backoff_s,
             quarantine_tiles=args.quarantine_tiles,
             stall_timeout_s=args.stall_timeout_s,
+            merge_timeout_s=args.merge_timeout_s,
             straggler_k=args.straggler_k,
             straggler_min_tiles=args.straggler_min_tiles,
+            lease_batch=args.lease_batch,
+            lease_ttl_s=args.lease_ttl_s,
+            speculate=args.speculate,
             fault_schedule=args.fault_schedule,
             write_fitted=args.write_fitted,
             fetch_f16=args.fetch_f16,
@@ -617,7 +796,14 @@ def main(argv: "list[str] | None" = None) -> int:
             flight=args.flight,
             flight_ring_events=args.flight_ring_events,
             sampler_interval_s=args.sampler_interval_s,
+            tune_store_dir=args.tune_store_dir,
         )
+        mesh = None
+        if args.mesh:
+            from land_trendr_tpu_torch.parallel import make_mesh
+
+            # every local CUDA device; raises without one (no CPU fallback)
+            mesh = make_mesh()
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -647,7 +833,9 @@ def main(argv: "list[str] | None" = None) -> int:
                 offset=cfg.offset,
                 device=device,
             )
-        run = Run(stack, cfg, device=device)
+        # an explicit Run: its RESOLVED config ("auto" knobs read from the
+        # tuning store once, at construction) is what assembly reuses
+        run = Run(stack, cfg, device=device, mesh=mesh)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -677,7 +865,7 @@ def main(argv: "list[str] | None" = None) -> int:
             file=sys.stderr,
         )
         return 3
-    paths = assemble_outputs(stack, cfg)
+    paths = assemble_outputs(stack, run.cfg, device=device)
     if change_filt is not None and args.change_mmu > 1:
         sieve_change_rasters(cfg.out_dir, args.change_mmu)
     print(json.dumps({"summary": summary, "outputs": paths}, indent=2))

@@ -171,7 +171,9 @@ def _built() -> tuple[str, dict]:
                 f"nvcc failed ({proc.returncode}) building {_SRC.name}:\n"
                 f"{proc.stderr[-4000:]}"
             )
-        log_tmp = log_path.with_suffix(".txt.tmp")
+        # per-process temp names: concurrent builders (the processes of a
+        # pod on a cold _build/) each rename their own identical copy
+        log_tmp = _BUILD_DIR / f".tmp_{os.getpid()}_{log_path.name}"
         log_tmp.write_text(proc.stderr)
         os.replace(log_tmp, log_path)
         os.replace(tmp, lib)  # atomic: a concurrent builder's copy is identical

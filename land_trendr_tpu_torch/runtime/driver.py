@@ -1,12 +1,16 @@
 """The tile-run driver: stacks in, segment rasters out (PyTorch).
 
-Counterpart of ``land_trendr_tpu/runtime/driver.py`` at its single-host
-surface: :class:`RunConfig`, :class:`TileSpec` / :func:`plan_tiles`,
-:func:`_feed_tile`, the :class:`Run` class with manifest resume, the
-per-tile retry ladder, quarantine, the stall watchdog, cancellation,
-straggler verdicts, telemetry and the flight recorder, the decoded-block
-cache and the ingest store; :func:`run_stack` (its one-shot wrapper) and
-:func:`assemble_outputs`.
+Counterpart of ``land_trendr_tpu/runtime/driver.py``: :class:`RunConfig`,
+:class:`TileSpec` / :func:`plan_tiles`, :func:`_feed_tile`, the
+:class:`Run` class with manifest resume, the per-tile retry ladder,
+quarantine, the stall watchdog, cancellation, straggler verdicts,
+telemetry and the flight recorder, the decoded-block cache and the ingest
+store, the elastic lease queue with speculation
+(:mod:`~land_trendr_tpu_torch.runtime.leases`), pods (a process group's
+:func:`~land_trendr_tpu_torch.parallel.host_share` and the primary's
+event-log merge), mesh sharding over local devices and the ``"auto"``
+knobs (:mod:`~land_trendr_tpu_torch.tune`); :func:`run_stack` (its
+one-shot wrapper) and :func:`assemble_outputs`.
 
 The scene is cut into fixed-size tiles; every tile — edge tiles included —
 is padded to ``tile_size²`` pixels with fully-masked rows (the QA fill
@@ -28,12 +32,15 @@ Host waits on the device poll a CUDA event (:func:`~land_trendr_tpu_torch.
 runtime.fetch.wait_event`) rather than block in the CUDA runtime, so the
 stall watchdog's interrupt lands while the device is busy.
 
-Not ported yet (each waits for a later slice): leases and speculation
-(``lease_batch``, ``lease_ttl_s``, ``speculate``), the multihost merge
-(``merge_timeout_s``) and mesh sharding, the ``"auto"`` knobs
-(``tune_store_dir``), fleet publish (``publish``, ``publish_interval_s``,
-``telemetry_dir``), and the serving layer's ``programs`` and
-``shared_store``.
+With a mesh, each fed tile is padded to a multiple of the mesh size and
+split into one contiguous pixel block per mesh device before the upload;
+each block is uploaded to, computed on and fetched from its own device,
+and the blocks are joined on the host in pixel order before the manifest
+write.
+
+Not ported yet (the serving slice brings them): fleet publish
+(``publish``, ``publish_interval_s``, ``telemetry_dir``) and the serving
+layer's ``programs`` and ``shared_store``.
 """
 
 from __future__ import annotations
@@ -60,6 +67,8 @@ from land_trendr_tpu_torch.ops import indices as idx
 from land_trendr_tpu_torch.ops.change import ChangeFilter
 from land_trendr_tpu_torch.ops.segment_cuda import CUDA_BLOCK
 from land_trendr_tpu_torch.ops.tile import process_tile_dn, resolve_impl
+from land_trendr_tpu_torch.parallel.mesh import make_mesh
+from land_trendr_tpu_torch.parallel.multihost import host_share, process_count, process_index
 from land_trendr_tpu_torch.runtime import faults
 from land_trendr_tpu_torch.runtime import feed as feedmod
 from land_trendr_tpu_torch.runtime import fetch as fetchmod
@@ -68,7 +77,9 @@ from land_trendr_tpu_torch.runtime.manifest import (
     TileManifest,
     run_fingerprint,
 )
+from land_trendr_tpu_torch.runtime.leases import LeaseQueue
 from land_trendr_tpu_torch.runtime.stack import RasterStack
+from land_trendr_tpu_torch.tune import AUTO, resolve_config
 from land_trendr_tpu_torch.utils.profiling import StageTimer
 
 __all__ = [
@@ -202,10 +213,15 @@ class _StallWatchdog:
 class RunConfig:
     """Everything that defines a segmentation run over one stack.
 
-    The JAX package's single-host fields, with the same names, defaults
-    and meanings; see ``land_trendr_tpu/runtime/driver.py`` for the full
-    discussion of each.  Only the run-defining fields enter
-    :meth:`fingerprint`; the rest are execution facts.
+    The JAX package's fields (all but fleet publish), with the same
+    names, defaults and meanings; see ``land_trendr_tpu/runtime/driver.py``
+    for the full discussion of each.  Only the run-defining fields enter
+    :meth:`fingerprint`; the rest are execution facts.  The tunable knobs
+    (``tile_size``, ``chunk_px``, ``fetch_depth``, ``upload_depth``,
+    ``feed_workers``, ``decode_workers``, ``feed_cache_mb``) also take
+    ``"auto"``: :class:`Run` resolves them through ``tune_store_dir``'s
+    profile for the run's device and scene class, or to these defaults
+    without one; explicit values always win.
     """
 
     index: str = "nbr"
@@ -213,8 +229,9 @@ class RunConfig:
     #: products); fingerprinted
     ftv_indices: tuple[str, ...] = ()
     params: LTParams = LTParams()
-    #: scene tiling granularity (pixels per side); fingerprinted
-    tile_size: int = 256
+    #: scene tiling granularity (pixels per side), or "auto"; fingerprinted
+    #: (the resolved value)
+    tile_size: "int | str" = 256
     workdir: str = "lt_work"
     out_dir: str = "lt_out"
     resume: bool = True
@@ -232,12 +249,30 @@ class RunConfig:
     #: abort the run after this many seconds without tile progress
     #: (:class:`StallError`, CLI exit 4); ``None`` disables the watchdog
     stall_timeout_s: "float | None" = None
+    #: bound on the pod primary's wait for peers' ``run_done`` during the
+    #: event-log merge; ``None`` derives it from this run's wall time
+    #: (``max(60, min(2 * wall, 900))``)
+    merge_timeout_s: "float | None" = None
     #: live straggler threshold: a tile in flight longer than
     #: ``straggler_k`` x the rolling median of recent tile durations is
     #: flagged (``tile_straggler`` event) — observability only
     straggler_k: float = 4.0
     #: no straggler verdicts until this many tiles have completed
     straggler_min_tiles: int = 5
+    #: elastic scheduling (:mod:`land_trendr_tpu_torch.runtime.leases`):
+    #: ``0`` keeps the static ``host_share`` split; ``N > 0`` claims tiles
+    #: ``N`` at a time from the shared manifest's lease queue, renews on
+    #: progress and steals expired or unclaimed tiles, so processes may
+    #: join or leave mid-run.  The done record stays the one durability
+    #: signal; never fingerprinted
+    lease_batch: int = 0
+    #: lease time-to-live, seconds: a lease not renewed within it is
+    #: stealable.  Size it above the slowest tile and the pod's clock skew
+    lease_ttl_s: float = 30.0
+    #: with ``lease_batch``: an idle process speculatively re-leases a
+    #: tile its owner's straggler detector flagged; first durable write
+    #: wins, the loser's write lands as an identical no-op
+    speculate: bool = False
     #: deterministic fault-injection schedule
     #: (:func:`land_trendr_tpu_torch.runtime.faults.parse_schedule`);
     #: ``None`` keeps every seam inert.  Never fingerprinted
@@ -255,12 +290,12 @@ class RunConfig:
     #: device→host strategy: "auto" (packed on a CUDA device), True, False;
     #: a pure execution strategy — never fingerprinted
     fetch_packed: "bool | str" = "auto"
-    #: bound on in-flight packed fetches
-    fetch_depth: int = 2
+    #: bound on in-flight packed fetches, or "auto"
+    fetch_depth: "int | str" = 2
     #: host→device strategy: "auto" (packed on a CUDA device), True, False
     upload_packed: "bool | str" = "auto"
-    #: bound on in-flight packed uploads
-    upload_depth: int = 2
+    #: bound on in-flight packed uploads, or "auto"
+    upload_depth: "int | str" = 2
     #: persistent decoded-block store budget (MiB) under the workdir
     #: (:mod:`land_trendr_tpu_torch.io.blockstore`): a rerun over the same
     #: stacks skips TIFF decode.  ``0`` disables.  Never fingerprinted
@@ -282,24 +317,27 @@ class RunConfig:
     manifest_compress: str = "none"
     #: background tile-writer threads
     write_workers: int = 1
-    #: background feed threads
-    feed_workers: int = 1
+    #: background feed threads, or "auto"
+    feed_workers: "int | str" = 1
     #: decoded-block cache budget (MiB) for the windowed feed path
     #: (:mod:`land_trendr_tpu_torch.io.blockcache`); process-wide, and
-    #: (re)configured per run.  ``0`` disables.  Never fingerprinted
-    feed_cache_mb: int = 256
-    #: feed-decode threads: 0 = auto, 1 = serial, N = N threads
-    decode_workers: int = 0
+    #: (re)configured per run.  ``0`` disables; "auto" resolves through
+    #: the tuning store.  Never fingerprinted
+    feed_cache_mb: "int | str" = 256
+    #: feed-decode threads: 0 = the codec's own choice, 1 = serial, N = N
+    #: threads; "auto" resolves through the tuning store
+    decode_workers: "int | str" = 0
     #: hint the next planned tile's block set to the decode pool (lazy
     #: file-backed stacks with ``feed_cache_mb > 0`` only)
     feed_readahead: bool = True
     #: overview pyramid levels on output rasters (0 = none, N = that many
-    #: 2× nearest-neighbour reductions); the JAX package's ``"auto"``
-    #: comes with the tuning slice
-    out_overviews: int = 0
+    #: 2× nearest-neighbour reductions, "auto" = reduce until the smaller
+    #: side is under 256)
+    out_overviews: "int | str" = 0
     #: tiles with more pixels than this run the segmentation chunked;
-    #: ``None`` disables chunking.  Fingerprinted.
-    chunk_px: "int | None" = 262_144
+    #: ``None`` disables chunking, "auto" resolves through the tuning
+    #: store.  Fingerprinted (the resolved value).
+    chunk_px: "int | str | None" = 262_144
     #: segmentation implementation: "auto" (the kernel on a CUDA device,
     #: the plain version on the CPU); "cuda" or "torch" must name the one
     #: the run's device gives, else the run raises
@@ -324,9 +362,20 @@ class RunConfig:
     flight_ring_events: int = 2048
     #: flight resource-sampler period, seconds
     sampler_interval_s: float = 5.0
+    #: tuning store (:mod:`land_trendr_tpu_torch.tune`, written by ``lt
+    #: tune``) the "auto" knobs resolve through at Run construction; a key
+    #: miss or ``None`` gives the defaults above
+    tune_store_dir: "str | None" = None
 
     def __post_init__(self) -> None:
-        if not isinstance(self.tile_size, int) or self.tile_size < 1:
+        for name in (
+            "tile_size", "chunk_px", "fetch_depth", "upload_depth",
+            "feed_workers", "decode_workers", "feed_cache_mb", "out_overviews",
+        ):
+            v = getattr(self, name)
+            if isinstance(v, str) and v != AUTO:
+                raise ValueError(f"{name}={v!r} must be an integer or 'auto'")
+        if self.tile_size != AUTO and (not isinstance(self.tile_size, int) or self.tile_size < 1):
             raise ValueError(f"tile_size={self.tile_size!r} must be an integer >= 1")
         if self.index.lower() not in idx.INDEX_NAMES:
             raise ValueError(f"unknown index {self.index!r}; expected one of {idx.INDEX_NAMES}")
@@ -354,7 +403,7 @@ class RunConfig:
             raise ValueError(f"change_filt={self.change_filt!r} is not a ChangeFilter")
         if self.impl not in ("auto", "cuda", "torch"):
             raise ValueError(f"impl={self.impl!r} not one of 'auto', 'cuda', 'torch'")
-        if self.chunk_px is not None:
+        if self.chunk_px is not None and self.chunk_px != AUTO:
             if not isinstance(self.chunk_px, int) or self.chunk_px < 1:
                 raise ValueError(
                     f"chunk_px={self.chunk_px!r} must be an integer >= 1 (or None)"
@@ -373,7 +422,7 @@ class RunConfig:
                 raise ValueError(f"{name}={getattr(self, name)!r} not one of True, False, 'auto'")
         for name in ("fetch_depth", "upload_depth", "write_workers", "feed_workers"):
             v = getattr(self, name)
-            if not isinstance(v, int) or v < 1:
+            if v != AUTO and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"{name}={v!r} must be an integer >= 1")
         for name, what in (
             ("feed_cache_mb", "0 = off"),
@@ -381,18 +430,17 @@ class RunConfig:
             ("ingest_store_mb", "0 = off"),
         ):
             v = getattr(self, name)
-            if not isinstance(v, int) or v < 0:
+            if v != AUTO and (not isinstance(v, int) or v < 0):
                 raise ValueError(f"{name}={v!r} must be an integer >= 0 ({what})")
         if self.ingest_store_dir is not None and not self.ingest_store_mb:
             raise ValueError(
                 "ingest_store_dir requires ingest_store_mb > 0 (there is "
                 "no store to place without a budget)"
             )
-        if not isinstance(self.out_overviews, int) or self.out_overviews < 0:
-            raise ValueError(
-                f"out_overviews={self.out_overviews!r} must be an integer >= 0 "
-                "('auto' is not supported by this package yet)"
-            )
+        if self.out_overviews != AUTO and (
+            not isinstance(self.out_overviews, int) or self.out_overviews < 0
+        ):
+            raise ValueError(f"out_overviews={self.out_overviews!r} must be >= 0 or 'auto'")
         if self.metrics_port is not None:
             if not self.telemetry:
                 raise ValueError(
@@ -439,6 +487,23 @@ class RunConfig:
             )
         if self.straggler_min_tiles < 1:
             raise ValueError(f"straggler_min_tiles={self.straggler_min_tiles} must be >= 1")
+        if self.merge_timeout_s is not None and self.merge_timeout_s <= 0:
+            raise ValueError(
+                f"merge_timeout_s={self.merge_timeout_s} must be > 0 "
+                "(or None for the wall-time-derived bound)"
+            )
+        if self.lease_batch < 0:
+            raise ValueError(
+                f"lease_batch={self.lease_batch} must be >= 0 (0 = static "
+                "host_share split, N = elastic lease queue)"
+            )
+        if self.lease_ttl_s <= 0:
+            raise ValueError(f"lease_ttl_s={self.lease_ttl_s} must be > 0")
+        if self.speculate and not self.lease_batch:
+            raise ValueError(
+                "speculate requires lease_batch > 0 (speculative execution "
+                "is a lease-queue path; there is no queue to re-lease from)"
+            )
         if self.fault_schedule is not None:
             # parse NOW: a typo'd seam is a config error, not a dead injection
             faults.parse_schedule(self.fault_schedule)
@@ -580,14 +645,15 @@ def run_stack(
     cfg: RunConfig,
     tiles: "Sequence[TileSpec] | None" = None,
     device: "str | torch.device" = "cuda",
+    mesh: "Sequence[torch.device | str] | None" = None,
 ) -> dict:
-    """Segment a whole stack tile by tile on ``device``; returns the run
-    summary.  The one-shot wrapper: ``Run(...).execute()``.
+    """Segment a whole stack tile by tile on ``device`` (or over ``mesh``);
+    returns the run summary.  The one-shot wrapper: ``Run(...).execute()``.
 
     Raster outputs are not written here — call :func:`assemble_outputs`
     after (assembly only needs the workdir).
     """
-    return Run(stack, cfg, tiles=tiles, device=device).execute()
+    return Run(stack, cfg, tiles=tiles, device=device, mesh=mesh).execute()
 
 
 class Run:
@@ -609,6 +675,17 @@ class Run:
     once a tile's artifact is durable; its errors are logged, never the
     tile's.  ``programs`` and ``shared_store`` are the serving layer's and
     must be ``None`` until it is ported.
+
+    ``mesh`` (a list of devices of ``device``'s type, see
+    :func:`~land_trendr_tpu_torch.parallel.make_mesh`) shards every tile's
+    pixels over those devices, one launch per shard.  In a pod (a
+    process group from :func:`~land_trendr_tpu_torch.parallel.
+    init_distributed`) each process takes its ``host_share`` of the tiles
+    unless ``cfg.lease_batch`` makes them claim from the lease queue, and
+    the primary folds every process's event stream into its summary.
+    ``"auto"`` knobs of ``cfg`` are resolved here, once, for the run's
+    device (``self.cfg`` is the resolved config; ``self.tune_info`` says
+    which profile, None when nothing was "auto").
     """
 
     def __init__(
@@ -617,6 +694,7 @@ class Run:
         cfg: RunConfig,
         tiles: "Sequence[TileSpec] | None" = None,
         device: "str | torch.device" = "cuda",
+        mesh: "Sequence[torch.device | str] | None" = None,
         *,
         job_id: "str | None" = None,
         trace_id: "str | None" = None,
@@ -632,9 +710,21 @@ class Run:
                 "programs and shared_store belong to the serving layer, "
                 "which this package does not have yet; pass None"
             )
+        self.device = resolve_device(device)
+        self.mesh = make_mesh(mesh) if mesh is not None else None
+        if self.mesh is not None and self.mesh[0].type != self.device.type:
+            raise ValueError(
+                f"mesh devices {[str(d) for d in self.mesh]} are not of the "
+                f"run's device type {self.device.type!r}"
+            )
+        # "auto" knobs resolve HERE, before anything reads a knob: a
+        # deterministic store read for this device and scene class, never a
+        # probe; tune_info is the tune_profile event execute() emits
+        cfg, self.tune_info = resolve_config(
+            cfg, scene_shape=(*stack.shape, stack.n_years), device=self.device
+        )
         self.stack = stack
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.tiles = (
             list(tiles) if tiles is not None else plan_tiles(*stack.shape, cfg.tile_size)
         )
@@ -681,6 +771,7 @@ class Run:
             min_tiles=cfg.straggler_min_tiles,
             on_straggler=self._note_straggler,
         )
+        self.lease_q: "LeaseQueue | None" = None
         self.manifest: "TileManifest | None" = None
         self.telemetry = None
         self.fetcher = None
@@ -719,6 +810,15 @@ class Run:
                 tile_id, duration_s, threshold_s, median_s,
                 in_flight=in_flight, attempt=attempt,
             )
+        # elastic runs: the verdict steers — flag the held lease so an idle
+        # peer may speculatively re-lease the tile; best-effort, a failed
+        # append must never kill the sampler thread or the run
+        lq = self.lease_q
+        if lq is not None and in_flight:
+            try:
+                lq.flag(tile_id)
+            except Exception as exc:
+                log.warning("straggler flag append failed for tile %d: %s", tile_id, exc)
 
     def _note_device_bytes(self) -> "int | None":
         b = _device_live_bytes(self.device)
@@ -754,7 +854,7 @@ class Run:
             return None
         from land_trendr_tpu_torch.obs.flight import flight_path
 
-        path = flight_path(self.cfg.workdir)
+        path = flight_path(self.cfg.workdir, process_index(), process_count())
         try:
             self.flight.dump(path)
         except Exception as exc:
@@ -772,10 +872,39 @@ class Run:
 
     def execute(self) -> dict:
         """Run the tile pipeline; returns (and stores) the run summary."""
-        stack, cfg, dev = self.stack, self.cfg, self.device
+        stack, cfg, dev, mesh = self.stack, self.cfg, self.device, self.mesh
         tiles = self.tiles
         tile_px = cfg.tile_size * cfg.tile_size
-        chunk = cfg.chunk_px
+        n_mesh = len(mesh) if mesh is not None else 1
+        p_index, p_count = process_index(), process_count()
+
+        # validated BEFORE the workdir is touched, so a rejected run cannot
+        # stamp a fresh manifest with a bad context
+        if cfg.metrics_port and cfg.metrics_port + p_count - 1 > 65535:
+            raise ValueError(
+                f"metrics_port={cfg.metrics_port}: port + process_index "
+                f"exceeds 65535 for a {p_count}-process run"
+            )
+        if mesh is not None:
+            # chunking a sharded tile would re-split it, so the per-device
+            # slice itself must satisfy the memory bound
+            if cfg.chunk_px is not None and tile_px / n_mesh > cfg.chunk_px:
+                raise ValueError(
+                    f"per-device pixel slice {tile_px // n_mesh} exceeds "
+                    f"chunk_px={cfg.chunk_px}: reduce tile_size (or raise "
+                    "chunk_px if the devices' memory allows it) — chunking "
+                    "cannot be combined with a sharded pixel axis"
+                )
+            # the fed tile is padded (QA fill bit) to a multiple of the mesh
+            feed_px = tile_px + (-tile_px) % n_mesh
+            chunk = None
+        else:
+            feed_px = tile_px
+            chunk = cfg.chunk_px
+        # each process takes its share of the FULL deterministic tile list
+        # (identical everywhere), then filters resume-done tiles; elastic
+        # mode instead claims from the whole list through the lease queue
+        share = list(tiles) if cfg.lease_batch else host_share(tiles)
         impl_resolved = resolve_impl(cfg.impl, dev)
         if (
             impl_resolved == "cuda"
@@ -789,6 +918,16 @@ class Run:
             )
         fetch_packed = fetchmod.resolve_packed(cfg.fetch_packed, dev)
         upload_packed = feedmod.resolve_packed(cfg.upload_packed, dev)
+        if mesh is not None and upload_packed:
+            if cfg.upload_packed is True:
+                # the packed upload places ONE buffer on one device; a mesh
+                # uploads per shard
+                raise ValueError(
+                    "upload_packed=True cannot be combined with a mesh "
+                    "(sharded placement is per-shard); use upload_packed="
+                    "'auto' or False"
+                )
+            upload_packed = False
         if cfg.telemetry and self.flight is None and cfg.flight and cfg.flight_ring_events:
             # standalone flight run: this run owns its ring (and the
             # sampler + run-end dump); created before any leakable resource
@@ -800,14 +939,29 @@ class Run:
         manifest = self.manifest = TileManifest(
             cfg.workdir,
             cfg.fingerprint(stack),
-            context={"mesh_devices": 1, "impl": impl_resolved},
+            context={"mesh_devices": n_mesh, "impl": impl_resolved},
         )
         done = manifest.open(cfg.resume)
-        years = torch.from_numpy(stack.years.astype(np.int32)).to(dev)
+        years_host = torch.from_numpy(stack.years.astype(np.int32))
+        years = years_host.to(dev)
+        years_on = {d: years_host.to(d) for d in mesh} if mesh is not None else {}
         bands = idx.required_bands(cfg.index, cfg.ftv_indices)
-        todo = [t for t in tiles if t.tile_id not in done]
-        n_todo_start = len(todo)
-        n_resume_skipped = len(tiles) - len(todo)
+        lease_q: "LeaseQueue | None" = None
+        if cfg.lease_batch:
+            # the elastic work source: tiles are claimed from the shared
+            # manifest in lease_batch batches — ``todo`` starts empty and
+            # grows as claims win
+            lease_q = self.lease_q = LeaseQueue(
+                manifest.path, [t.tile_id for t in share], ttl_s=cfg.lease_ttl_s, done0=done
+            )
+            spec_by_id = {t.tile_id: t for t in share}
+            todo: "list[TileSpec]" = []
+            n_todo_start = sum(1 for t in share if t.tile_id not in done)
+            n_resume_skipped = len(share) - n_todo_start
+        else:
+            todo = [t for t in share if t.tile_id not in done]
+            n_todo_start = len(todo)
+            n_resume_skipped = len(share) - len(todo)
         self.progress.update(phase="setup", tiles_total=len(tiles), tiles_todo=n_todo_start)
 
         t_run = time.perf_counter()
@@ -907,46 +1061,62 @@ class Run:
         def _dispatch(dn, qa):
             """Enqueue one tile's program and its fetch.
 
-            ``dn``/``qa`` are device tensors (from the upload handle) or the
-            retained host arrays (the retry ladder, which uploads them
-            afresh).  Returns ``((fetch_handle, done_event), None)`` or
-            ``(None, exc)``; the event is None on the CPU, where the program
-            has run by the time this returns.
+            ``dn``/``qa`` are device tensors (from the upload handle; on a
+            mesh, lists of per-shard tensors) or the retained host arrays
+            (the retry ladder, which uploads them afresh).  Returns
+            ``((fetch_handle, done_events), None)`` or ``(None, exc)``;
+            there is one event per launch on a CUDA device and none on the
+            CPU, where the program has run by the time this returns.
             """
             try:
                 with timer.stage("dispatch"):
                     faults.check("dispatch")
                     if isinstance(qa, np.ndarray):
-                        dn, qa = feedmod.to_device(dn, qa, dev)
-                    out = process_tile_dn(
-                        years, dn, qa,
-                        index=cfg.index, params=cfg.params, scale=cfg.scale,
-                        offset=cfg.offset, reject_bits=cfg.reject_bits,
-                        chunk=chunk, impl=impl_resolved, ftv_indices=cfg.ftv_indices,
-                        change_filt=cfg.change_filt,
-                    )
-                    done_ev = None
-                    if dev.type == "cuda":
-                        done_ev = torch.cuda.Event()
-                        done_ev.record(torch.cuda.current_stream(dev))
+                        if mesh is not None:
+                            dn, qa = feedmod.to_mesh(dn, qa, mesh)
+                        else:
+                            dn, qa = feedmod.to_device(dn, qa, dev)
+                    if mesh is None:
+                        placed = [(dev, years, dn, qa)]
+                    else:
+                        placed = [(d, years_on[d], s_dn, s_qa)
+                                  for d, s_dn, s_qa in zip(mesh, dn, qa)]
+                    outs = []
+                    done_evs = []
+                    for d, y, t_dn, t_qa in placed:
+                        # one launch per shard: the tile program runs on the
+                        # device its tensors live on, on that device's stream
+                        outs.append(process_tile_dn(
+                            y, t_dn, t_qa,
+                            index=cfg.index, params=cfg.params, scale=cfg.scale,
+                            offset=cfg.offset, reject_bits=cfg.reject_bits,
+                            chunk=chunk, impl=impl_resolved,
+                            ftv_indices=cfg.ftv_indices, change_filt=cfg.change_filt,
+                        ))
+                        if d.type == "cuda":
+                            ev = torch.cuda.Event()
+                            ev.record(torch.cuda.current_stream(d))
+                            done_evs.append(ev)
+                    out = outs if mesh is not None else outs[0]
                 with timer.stage("fetch"):
                     # packed: the pack is enqueued right behind the tile's
                     # compute and its copy lands while the next tiles compute
                     handle = fetcher.start(out)
-                return (handle, done_ev), None
+                return (handle, done_evs), None
             except Exception as e:
                 return None, e
 
-        def _compute_wait(done_ev) -> None:
+        def _compute_wait(done_evs) -> None:
             """The tile's compute-wait (fault seam ``compute.wait``): polls
-            the tile's event, so a stall interrupt lands mid-wait."""
+            every launch's event (each shard's on a mesh), so a stall
+            interrupt lands mid-wait."""
             with timer.stage("compute"):
                 faults.check("compute.wait")
-                if done_ev is not None:
-                    fetchmod.wait_event(done_ev)
+                for ev in done_evs:
+                    fetchmod.wait_event(ev)
 
-        fetcher = self.fetcher = fetchmod.TileFetcher(cfg, dev, packed=fetch_packed)
-        uploader = self.uploader = feedmod.TileUploader(dev, packed=upload_packed)
+        fetcher = self.fetcher = fetchmod.TileFetcher(cfg, dev, packed=fetch_packed, mesh=mesh)
+        uploader = self.uploader = feedmod.TileUploader(dev, packed=upload_packed, mesh=mesh)
 
         def _write_job(t: TileSpec, handle, dt: float) -> tuple[int, int]:
             with timer.stage("write"):
@@ -970,6 +1140,10 @@ class Run:
                     "x0": t.x0,
                     "h": t.h,
                     "w": t.w,
+                    # elastic runs stamp the done record with its writer: the
+                    # FIRST done record's owner is the race winner (how
+                    # speculative wins are attributed)
+                    **({"owner": lease_q.owner} if lease_q is not None else {}),
                     "px_per_s": round(tile_px / dt, 1),
                     "no_fit_rate": round(1.0 - fit / px, 4),
                 }
@@ -1149,7 +1323,7 @@ class Run:
             t0_span = time.perf_counter()
             with timer.stage("feed"):
                 faults.check("feed")
-                fed = _feed_tile(stack, t, tile_px, bands)
+                fed = _feed_tile(stack, t, feed_px, bands)
             t1_span = time.perf_counter()
             if readahead is not None:
                 _prefetch_tile(stack, readahead, bands)
@@ -1213,10 +1387,17 @@ class Run:
             from land_trendr_tpu_torch.obs import Telemetry
 
             try:
+                # per-process port fan-out (port + process_index), like the
+                # per-process event and metrics file names
+                metrics_port = cfg.metrics_port
+                if metrics_port:
+                    metrics_port += p_index
                 telemetry = self.telemetry = Telemetry(
                     cfg.workdir,
                     fingerprint=manifest.fingerprint,
-                    metrics_port=cfg.metrics_port,
+                    process_index=p_index,
+                    process_count=p_count,
+                    metrics_port=metrics_port,
                     metrics_host=cfg.metrics_host,
                     metrics_interval_s=cfg.metrics_interval_s,
                     job_id=self.job_id,
@@ -1230,12 +1411,12 @@ class Run:
                 manifest.telemetry = telemetry
                 rs_rec = telemetry.run_start(
                     fingerprint=manifest.fingerprint,
-                    process_index=0,
-                    process_count=1,
+                    process_index=p_index,
+                    process_count=p_count,
                     tiles_total=len(tiles),
                     tiles_todo=n_todo_start,
                     tiles_skipped_resume=n_resume_skipped,
-                    mesh_devices=1,
+                    mesh_devices=n_mesh,
                     impl=impl_resolved,
                     **({"run_id": manifest.run_id} if manifest.run_id is not None else {}),
                 )
@@ -1243,12 +1424,15 @@ class Run:
                     manifest.record_clock_anchor(
                         run_id=rs_rec.get("run_id", ""),
                         host=rs_rec.get("host", ""),
-                        process_index=0,
+                        process_index=p_index,
                         anchor_wall=rs_rec.get("anchor_wall", rs_rec["t_wall"]),
                         anchor_mono=rs_rec.get("anchor_mono", rs_rec["t_mono"]),
                     )
                 except OSError as exc:
                     log.warning("manifest clock-anchor append failed: %s", exc)
+                if self.tune_info is not None:
+                    # which profile this run's "auto" knobs resolved through
+                    telemetry.tune_profile(**self.tune_info)
             except BaseException:
                 manifest.telemetry = None
                 try:
@@ -1372,22 +1556,102 @@ class Run:
                 uploader.note_backlog(len(pending_uploads))
 
         def _prime_feeds() -> None:
+            """Fill the bounded feed queue from ``todo`` (run start, and
+            elastic refills after the pipeline ran dry)."""
             nonlocal next_i
             while next_i < len(todo) and len(pending_feeds) < ra_depth:
                 _submit_feed(next_i)
                 next_i += 1
 
+        def _refill_work() -> int:
+            """Elastic mode: claim another lease batch and feed the won
+            tiles; returns the number won.  A failed claim (the
+            ``lease.acquire``/``lease.steal`` seams, a shared-filesystem
+            blip) is logged and retried next cycle."""
+            try:
+                won = lease_q.acquire(cfg.lease_batch, speculate=cfg.speculate)
+            except Exception as e:
+                log.warning("lease acquisition failed (%s); retrying next cycle", e)
+                if watchdog is not None:
+                    watchdog.tick()  # a failed claim is still liveness
+                return 0
+            for tile_id, mode, lease in won:
+                todo.append(spec_by_id[tile_id])
+                self.progress["tiles_leased"] += 1
+                if mode == "steal":
+                    self.progress["tiles_stolen"] += 1
+                    log.info("stole tile %d (lease expired; claimed gen %d)", tile_id, lease.gen)
+                    if telemetry is not None:
+                        telemetry.lease_stolen(
+                            tile_id, lease.gen, owner=lease_q.owner, from_owner=lease.prev_owner
+                        )
+                elif mode == "spec":
+                    self.progress["tiles_speculated"] += 1
+                    log.info(
+                        "speculatively re-leased straggler tile %d (gen %d; first "
+                        "durable write wins)", tile_id, lease.gen,
+                    )
+                    if telemetry is not None:
+                        telemetry.tile_speculated(
+                            tile_id, lease.gen, owner=lease_q.owner, from_owner=lease.prev_owner
+                        )
+                elif telemetry is not None:
+                    telemetry.tile_leased(tile_id, lease.gen, owner=lease_q.owner)
+            if won:
+                _prime_feeds()
+            return len(won)
+
+        def _lease_idle_wait() -> None:
+            """Nothing claimable while peers hold the undone tiles: wait one
+            bounded beat.  Waiting out a live peer's lease is not a stall,
+            so the watchdog is ticked; cancel still lands within a beat."""
+            if watchdog is not None:
+                watchdog.tick()
+            time.sleep(min(0.5, max(cfg.lease_ttl_s / 8.0, 0.05)))
+
         run_ok = False
         try:
             self.progress["phase"] = "pipeline"
             next_i = 0
+            if lease_q is not None:
+                _refill_work()
             _prime_feeds()
             pending = None
             while True:
                 self._check_cancel()
+                if lease_q is not None:
+                    lease_q.renew()
+                    if len(todo) - next_i <= ra_depth:
+                        _refill_work()
                 _pump_uploads()
                 if not pending_uploads:
-                    break  # feeds exhausted (or the remainder quarantined)
+                    if lease_q is None:
+                        break  # feeds exhausted (or the remainder quarantined)
+                    # elastic: the local pipeline ran dry — resolve the
+                    # in-flight tail first (its done records retire our held
+                    # leases), then claim / steal / speculate, and only then
+                    # wait on live peers
+                    if pending is not None:
+                        _finish(pending)
+                        pending = None
+                        continue
+                    if pending_fetches:
+                        _drain_fetches(0)
+                        continue
+                    if pending_writes:
+                        _drain_writes(0)
+                        continue
+                    if _refill_work():
+                        continue
+                    try:
+                        complete = lease_q.run_complete()
+                    except Exception as e:
+                        log.warning("lease completion poll failed (%s); retrying next cycle", e)
+                        complete = False
+                    if complete:
+                        break
+                    _lease_idle_wait()
+                    continue
                 t, handle, dn, qa, attempt0 = pending_uploads.popleft()
                 if telemetry is not None:
                     telemetry.tile_start(t.tile_id, attempt=attempt0)
@@ -1458,6 +1722,19 @@ class Run:
                     except Exception as exc:
                         log.error("ingest-store flush/close failed: %s", exc)
                     blockcache.detach_store(store)
+                if lease_q is not None and not run_ok:
+                    # relinquish unfinished claims so peers may claim NOW
+                    # instead of after the TTL; after the writer drain (its
+                    # tiles are done, not released); best-effort
+                    try:
+                        n_rel = lease_q.release_held("aborted")
+                        if n_rel:
+                            log.warning(
+                                "released %d unfinished tile lease(s) on abort; "
+                                "peers may claim them immediately", n_rel,
+                            )
+                    except Exception as exc:
+                        log.error("abort-path lease release failed: %s", exc)
                 if fault_plan is not None and not run_ok:
                     faults.set_observer(None)
                     faults.deactivate()
@@ -1471,6 +1748,9 @@ class Run:
                         telemetry.upload(uploader.summary())
                         if store is not None:
                             telemetry.ingest_store(store.stats_delta(store_base))
+                        lease_stats = lease_q.stats() if lease_q is not None else None
+                        if lease_stats is not None:
+                            telemetry.lease_summary(lease_stats)
                         telemetry.run_done(
                             "aborted",
                             tiles_done=n_done,
@@ -1480,6 +1760,10 @@ class Run:
                             fit_rate=(n_fit / n_px) if n_px else 0.0,
                             stage_s=timer.summary(),
                             tiles_quarantined=len(quarantined),
+                            tiles_stolen=lease_stats["stolen"] if lease_stats else None,
+                            tiles_speculated=(
+                                lease_stats["speculated"] if lease_stats else None
+                            ),
                         )
                     except Exception as exc:
                         log.error("abort-path telemetry run_done failed: %s", exc)
@@ -1513,7 +1797,7 @@ class Run:
             "px_per_s": round(n_px / wall, 1) if n_px else 0.0,
             "stage_s": timer.summary(),
             "fingerprint": manifest.fingerprint,
-            "mesh_devices": 1,
+            "mesh_devices": n_mesh,
             "device": str(dev),
             "impl": impl_resolved,
             # always present (empty on healthy runs): the CLI maps
@@ -1523,6 +1807,15 @@ class Run:
             "stragglers": self.straggler.stats()["stragglers"],
             "device_bytes_peak": self.device_bytes_peak,
         }
+        if self.tune_info is not None:
+            # which tuning profile resolved this run's "auto" knobs
+            summary["tune"] = self.tune_info
+        if lease_q is not None:
+            # elastic rollup: acquisitions, steals, speculative re-leases and
+            # their wins, renewals, torn lease-log lines skipped
+            summary["lease"] = lease_q.stats()
+            summary["tiles_stolen"] = summary["lease"]["stolen"]
+            summary["tiles_speculated"] = summary["lease"]["speculated"]
         feed_cache_stats = blockcache.stats_delta(feed_cache_base)
         if cfg.feed_cache_mb:
             summary["feed_cache"] = feed_cache_stats
@@ -1538,6 +1831,8 @@ class Run:
                 telemetry.upload(summary["upload"])
                 if store is not None:
                     telemetry.ingest_store(summary["ingest_store"])
+                if lease_q is not None:
+                    telemetry.lease_summary(summary["lease"])
                 try:
                     telemetry.run_done(
                         "ok",
@@ -1548,6 +1843,8 @@ class Run:
                         fit_rate=summary["fit_rate"],
                         stage_s=timer.summary(),
                         tiles_quarantined=len(quarantined),
+                        tiles_stolen=summary.get("tiles_stolen"),
+                        tiles_speculated=summary.get("tiles_speculated"),
                     )
                 finally:
                     summary["telemetry"] = {
@@ -1561,6 +1858,29 @@ class Run:
                     flight_file = self._dump_flight()
                     if flight_file is not None:
                         summary["telemetry"]["flight"] = flight_file
+                if p_count > 1 and p_index == 0:
+                    # the primary's fold: per-process event files live in the
+                    # shared workdir, so the merge is a bounded wait for every
+                    # peer's run_done — no collective, usable when a peer died.
+                    # The bound scales with this run (peers started together
+                    # on similar shares) but is capped, so a peer killed
+                    # without its run_done cannot hold the primary for hours
+                    from land_trendr_tpu_torch.parallel.multihost import merge_host_event_logs
+
+                    merge_timeout_s = (
+                        cfg.merge_timeout_s
+                        if cfg.merge_timeout_s is not None
+                        else max(60.0, min(2.0 * wall, 900.0))
+                    )
+                    summary["telemetry"]["hosts"] = merge_host_event_logs(
+                        cfg.workdir,
+                        expect_hosts=p_count,
+                        timeout_s=merge_timeout_s,
+                        poll_s=max(0.1, min(2.0, merge_timeout_s / 600.0)),
+                        # wall-clock domain: a peer file untouched since this
+                        # run began (60 s skew slack) holds a previous scope
+                        newer_than=time.time() - wall - 60.0,
+                    )
         finally:
             if fault_plan is not None:
                 summary["faults_injected"] = [
@@ -1573,7 +1893,9 @@ class Run:
         return summary
 
 
-def assemble_outputs(stack: RasterStack, cfg: RunConfig) -> dict[str, str]:
+def assemble_outputs(
+    stack: RasterStack, cfg: RunConfig, device: "str | torch.device" = "cuda"
+) -> dict[str, str]:
     """Mosaic per-tile artifacts into segment rasters.
 
     One multi-band GeoTIFF per product; the band axis is the per-pixel
@@ -1582,7 +1904,13 @@ def assemble_outputs(stack: RasterStack, cfg: RunConfig) -> dict[str, str]:
     product, so host memory stays O(tile × products).  ``cfg.out_overviews``
     adds that many 2× overview pages to each raster.  Returns product →
     path.
+
+    A config with ``"auto"`` knobs is resolved here for ``device`` (the
+    run's device), as :class:`Run` resolved it; in-process callers pass
+    the run's already-resolved ``Run.cfg`` instead, so a store re-probed
+    between run and assembly cannot change the tile size.
     """
+    cfg, _ = resolve_config(cfg, scene_shape=(*stack.shape, stack.n_years), device=device)
     tiles = plan_tiles(*stack.shape, cfg.tile_size)
     manifest = TileManifest(cfg.workdir, cfg.fingerprint(stack))
     done = manifest.open(resume=True)

@@ -53,6 +53,7 @@ __all__ = [
     "plan_wire_bytes",
     "resolve_packed",
     "to_device",
+    "to_mesh",
     "unpack_inputs",
 ]
 
@@ -229,8 +230,12 @@ class SyncUpload:
             bytes=sum(a.nbytes for a in dn.values()) + qa.nbytes,
         )
 
-    def arrays(self) -> tuple[dict, torch.Tensor]:
+    def arrays(self) -> "tuple[dict, torch.Tensor] | tuple[list[dict], list[torch.Tensor]]":
+        """The tile's tensors on the run's device — or, on a mesh, one
+        contiguous block per mesh device (:func:`to_mesh`)."""
         self._uploader.stats.add(tiles=1)
+        if self._uploader.mesh is not None:
+            return to_mesh(self._dn, self._qa, self._uploader.mesh)
         return to_device(self._dn, self._qa, self._uploader.device)
 
 
@@ -243,11 +248,42 @@ def to_device(dn: dict, qa: np.ndarray, device: torch.device) -> tuple[dict, tor
     )
 
 
+def to_mesh(
+    dn: dict, qa: np.ndarray, mesh: "list[torch.device]"
+) -> tuple[list[dict], list[torch.Tensor]]:
+    """Fed host arrays → one contiguous pixel block of each on each mesh
+    device, in mesh order (the per-shard upload; the fed pixel count is a
+    multiple of the mesh size).  Each block is copied from the host to its
+    own device — nothing crosses devices."""
+    n = len(mesh)
+    px = qa.shape[0]
+    if px % n:
+        raise ValueError(f"fed pixel count {px} not divisible by mesh size {n}")
+    step = px // n
+    shards = [
+        to_device({k: v[i * step : (i + 1) * step] for k, v in dn.items()},
+                  qa[i * step : (i + 1) * step], d)
+        for i, d in enumerate(mesh)
+    ]
+    return [s[0] for s in shards], [s[1] for s in shards]
+
+
 class TileUploader:
     """Per-run upload strategy: plan once, then one handle per tile."""
 
-    def __init__(self, device: torch.device, packed: bool) -> None:
+    def __init__(
+        self,
+        device: torch.device,
+        packed: bool,
+        mesh: "list[torch.device] | None" = None,
+    ) -> None:
+        if mesh is not None and packed:
+            raise ValueError(
+                "a mesh uploads per shard; the packed upload places one buffer "
+                "on one device"
+            )
         self.device = torch.device(device)
+        self.mesh = mesh
         self.packed = packed
         self.demoted = False
         self.plan: UploadPlan | None = None

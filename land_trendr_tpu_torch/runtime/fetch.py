@@ -45,6 +45,7 @@ __all__ = [
     "SIGNED_PRODUCTS",
     "FetchPlan",
     "PlanEntry",
+    "ShardedHandle",
     "TileFetcher",
     "build_plan",
     "pack_tile",
@@ -303,7 +304,22 @@ class _Stats:
             }
 
 
-class PackedHandle:
+class _Handle:
+    """A tile's fetch: :meth:`rows` gives the first ``px`` pixels' artifact
+    arrays and ``model_valid``; :meth:`tile_arrays` crops to the tile."""
+
+    def rows(self, px: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
+        raise NotImplementedError
+
+    def tile_arrays(self, t: "TileSpec") -> tuple[dict[str, np.ndarray], int]:
+        """The tile's artifact arrays (cropped to its real pixels) and its
+        count of fitted pixels."""
+        arrays, model_valid = self.rows(t.h * t.w)
+        self._fetcher.stats.add(tiles=1)
+        return arrays, int(model_valid.sum())
+
+
+class PackedHandle(_Handle):
     """One tile's in-flight packed copy into pinned host memory.
 
     ``wait`` is idempotent and thread-safe: the driver's bounded drain
@@ -333,22 +349,20 @@ class PackedHandle:
                 self._fetcher.stats.add(wait_s=time.perf_counter() - t0)
                 self._ready = True
 
-    def tile_arrays(self, t: "TileSpec") -> tuple[dict[str, np.ndarray], int]:
+    def rows(self, px: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
         self.wait()
         t0 = time.perf_counter()
-        arrays, model_valid = unpack_tile(
-            self._fetcher.plan, self._host.numpy(), t.h * t.w
-        )
+        arrays, model_valid = unpack_tile(self._fetcher.plan, self._host.numpy(), px)
         # the artifact arrays are views of the pinned buffer: copy them out
         # so the buffer can go back to the pinned-memory cache
         arrays = {k: np.array(v) for k, v in arrays.items()}
-        fit = int(model_valid.sum())
+        model_valid = np.array(model_valid)
         self._host = None
-        self._fetcher.stats.add(unpack_s=time.perf_counter() - t0, tiles=1)
-        return arrays, fit
+        self._fetcher.stats.add(unpack_s=time.perf_counter() - t0)
+        return arrays, model_valid
 
 
-class UnpackedHandle:
+class UnpackedHandle(_Handle):
     """The per-product path: each product read synchronously in
     ``tile_arrays`` (in the writer pool)."""
 
@@ -361,9 +375,8 @@ class UnpackedHandle:
     def wait(self) -> None:  # transfers happen in tile_arrays
         return None
 
-    def tile_arrays(self, t: "TileSpec") -> tuple[dict[str, np.ndarray], int]:
+    def rows(self, px: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
         stats = self._fetcher.stats
-        px = t.h * t.w
         arrays: dict[str, np.ndarray] = {}
         model_valid: np.ndarray | None = None
         for e in self._fetcher.plan.entries:
@@ -377,21 +390,51 @@ class UnpackedHandle:
                 model_valid = a
         if model_valid is None:
             raise ValueError("fetch plan carries no model_valid entry")
-        stats.add(tiles=1)
-        return arrays, int(model_valid.sum())
+        return arrays, model_valid
+
+
+class ShardedHandle(_Handle):
+    """A mesh tile's fetch: one handle per shard, in pixel order.  Each
+    shard lands from its own device; the rows are joined on the host, so
+    nothing crosses devices."""
+
+    def __init__(self, fetcher: "TileFetcher", handles: list, shard_px: int) -> None:
+        self._fetcher = fetcher
+        self._handles = handles
+        self._shard_px = shard_px
+        self.packed = all(h.packed for h in handles)
+
+    def wait(self) -> None:
+        for h in self._handles:
+            h.wait()
+
+    def rows(self, px: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
+        parts = [h.rows(self._shard_px) for h in self._handles]
+        arrays = {k: np.concatenate([p[0][k] for p in parts])[:px] for k in parts[0][0]}
+        return arrays, np.concatenate([p[1] for p in parts])[:px]
 
 
 class TileFetcher:
-    """Per-run fetch strategy: plan once, then one handle per tile."""
+    """Per-run fetch strategy: plan once, then one handle per tile (one per
+    shard of a mesh tile, each copied on its own device's side stream)."""
 
-    def __init__(self, cfg: "RunConfig", device: torch.device, packed: bool) -> None:
+    def __init__(
+        self,
+        cfg: "RunConfig",
+        device: torch.device,
+        packed: bool,
+        mesh: "list[torch.device] | None" = None,
+    ) -> None:
         self.cfg = cfg
         self.device = torch.device(device)
         self.packed = packed
         self.demoted = False
         self.plan: FetchPlan | None = None
         self.stats = _Stats()
-        self._stream = torch.cuda.Stream(device=self.device) if packed else None
+        self._streams = (
+            {d: torch.cuda.Stream(device=d) for d in (mesh or [self.device])}
+            if packed else {}
+        )
 
     def demote(self) -> None:
         """Drop to the per-product path for the rest of the run (after
@@ -400,17 +443,24 @@ class TileFetcher:
         self.packed = False
         self.demoted = True
 
-    def start(self, out: "TileOutputs") -> "PackedHandle | UnpackedHandle":
-        """Issue one tile's fetch; a packed copy starts landing NOW."""
+    def start(
+        self, out: "TileOutputs | list[TileOutputs]"
+    ) -> "PackedHandle | UnpackedHandle | ShardedHandle":
+        """Issue one tile's fetch; a packed copy starts landing NOW.  A list
+        is a mesh tile's per-shard outputs, in pixel order."""
+        if isinstance(out, list):
+            handles = [self.start(o) for o in out]
+            return ShardedHandle(self, handles, int(out[0].seg.model_valid.shape[0]))
         if self.plan is None:
             self.plan = build_plan(out, self.cfg)
         if not self.packed:
             return UnpackedHandle(self, out)
         t0 = time.perf_counter()
+        dev = out.seg.model_valid.device
         words = pack_tile(out, self.plan)
         host = torch.empty(words.numel(), dtype=torch.uint8, pin_memory=True)
-        side = self._stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        side = self._streams[dev]
+        side.wait_stream(torch.cuda.current_stream(dev))
         words.record_stream(side)
         landed = torch.cuda.Event()
         with torch.cuda.stream(side):

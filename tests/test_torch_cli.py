@@ -52,8 +52,8 @@ def test_params_json(tmp_path):
 
 
 def test_absent_flags_are_rejected(tmp_path):
-    # a later slice's flag (the elastic lease queue)
-    r = _cli("--device", "cpu", "segment", "D", "--lease-batch", "4", cwd=tmp_path)
+    # a later slice's flag (fleet publish)
+    r = _cli("--device", "cpu", "segment", "D", "--publish", cwd=tmp_path)
     assert r.returncode == 2 and "unrecognized arguments" in r.stderr
 
 
@@ -326,6 +326,28 @@ def test_segment_exit_codes(stack_dir, tmp_path, capsys, extra, code, msg):
         (["pixel", "P"], "engine", "both"),
         (["pixel", "P"], "scale", 2.75e-5),
         (["info", "a.tif", "b.tif"], "paths", ["a.tif", "b.tif"]),
+        (["segment", "S"], "lease_batch", 0),
+        (["segment", "S"], "lease_ttl_s", 30.0),
+        (["segment", "S"], "speculate", False),
+        (["segment", "S"], "merge_timeout_s", None),
+        (["segment", "S"], "mesh", False),
+        (["segment", "S"], "tune_store_dir", None),
+        (["segment", "S", "--tile-size", "auto"], "tile_size", "auto"),
+        (["segment", "S", "--chunk-px", "auto"], "chunk_px", "auto"),
+        (["segment", "S", "--fetch-depth", "auto"], "fetch_depth", "auto"),
+        (["segment", "S", "--upload-depth", "auto"], "upload_depth", "auto"),
+        (["segment", "S", "--feed-workers", "auto"], "feed_workers", "auto"),
+        (["segment", "S", "--decode-workers", "auto"], "decode_workers", "auto"),
+        (["segment", "S", "--feed-cache-mb", "auto"], "feed_cache_mb", "auto"),
+        (["segment", "S", "--out-overviews", "auto"], "out_overviews", "auto"),
+        (["tune"], "store_dir", "lt_tune_store"),
+        (["tune"], "shape", "512,512,40"),
+        (["tune"], "groups", None),
+        (["tune"], "reps", 3),
+        (["tune"], "smoke", False),
+        (["tune"], "retune", False),
+        (["tune"], "dry_run", False),
+        (["tune"], "workdir", None),
     ],
 )
 def test_new_flag_defaults_match_jax(argv, key, value):
@@ -333,3 +355,77 @@ def test_new_flag_defaults_match_jax(argv, key, value):
 
     assert getattr(build_parser().parse_args(argv), key) == value
     assert getattr(jcli.build_parser().parse_args(argv), key) == value
+
+
+def test_lease_and_auto_flags_build_the_jax_config():
+    """The same flags parse to the same RunConfig values in both packages,
+    and the two configs fingerprint alike (leases and the tuning store are
+    execution facts; the resolved knobs are what is fingerprinted)."""
+    from types import SimpleNamespace
+
+    from land_trendr_tpu import cli as jcli
+    from land_trendr_tpu.runtime.driver import RunConfig as JRunConfig
+    from land_trendr_tpu_torch.runtime.driver import RunConfig
+
+    argv = ["segment", "S", "--lease-batch", "3", "--lease-ttl-s", "12", "--speculate",
+            "--merge-timeout-s", "40", "--tile-size", "auto", "--chunk-px", "auto",
+            "--fetch-depth", "auto", "--tune-store-dir", "T", "--out-overviews", "auto"]
+    names = ("lease_batch", "lease_ttl_s", "speculate", "merge_timeout_s", "tile_size",
+             "chunk_px", "fetch_depth", "tune_store_dir", "out_overviews")
+    ours = build_parser().parse_args(argv)
+    theirs = jcli.build_parser().parse_args(argv)
+    fields = {n: getattr(ours, n) for n in names}
+    assert fields == {n: getattr(theirs, n) for n in names}
+    port_cfg, jax_cfg = RunConfig(**fields), JRunConfig(**fields)
+    assert all(getattr(port_cfg, n) == getattr(jax_cfg, n) for n in names)
+    stack = SimpleNamespace(years=np.arange(1990, 2014), shape=(40, 48))
+    explicit = dict(fields, tile_size=64, chunk_px=4096, fetch_depth=3)
+    assert RunConfig(**explicit).fingerprint(stack) == JRunConfig(**explicit).fingerprint(stack)
+
+
+def test_mesh_without_a_card_fails_clearly(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = _cli("--device", "cpu", "synth", "D", "--size", "32", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    r = _cli("--device", "cpu", "segment", "D", "--mesh", cwd=tmp_path)
+    assert r.returncode == 2 and "no CUDA device" in r.stderr
+
+
+def test_two_lease_processes_share_one_workdir(tmp_path):
+    """Two ``segment --lease-batch 1`` processes over one workdir and no
+    process group: together they win every tile once, and each assembles
+    rasters byte-equal to a one-process run's."""
+    r = _cli("--device", "cpu", "synth", "D", "--size", "64", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "land_trendr_tpu_torch", "--device", "cpu", "segment", "D",
+             "--tile-size", "32", "--workdir", "W", "--out-dir", f"O{i}",
+             "--lease-batch", "1", "--lease-ttl-s", "120"],
+            cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        for i in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out)["summary"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert sum(o["lease"]["acquired"] for o in outs) == 4
+    r = _cli("--device", "cpu", "segment", "D", "--tile-size", "32", "--workdir", "W1",
+             "--out-dir", "O1p", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    ref = sorted(os.listdir(tmp_path / "O1p"))
+    for i in range(2):
+        assert sorted(os.listdir(tmp_path / f"O{i}")) == ref
+        for name in ref:
+            assert (tmp_path / f"O{i}" / name).read_bytes() == (tmp_path / "O1p" / name).read_bytes()

@@ -319,3 +319,134 @@ def test_retry_after_recycled_upload_buffer_gives_clean_bytes(card, tmp_path, de
     assert summary["retries"] == 4 and summary["tiles_quarantined"] == []
     assert summary["upload"]["packed"] and summary["fetch"]["packed"]
     assert _tile_bytes(faulty.workdir) == _tile_bytes(clean.workdir)
+
+
+# ---------------------------------------------------------------------------
+# concurrent builders of the kernel library
+# ---------------------------------------------------------------------------
+
+_BUILDER = """
+import json, pathlib, sys
+from land_trendr_tpu_torch.ops import segment_cuda as sc
+sc._BUILD_DIR = pathlib.Path(sys.argv[1])
+{action}
+path, info = sc._built()
+print(json.dumps({{"path": path, "built": info["built"], "ptxas": info["ptxas"]}}))
+"""
+
+
+def _concurrent_builders(build_dir, env, action="", n=2):
+    """``n`` processes that build (or load) the library into ``build_dir``
+    at the same time; returns their reports."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(env, PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    code = _BUILDER.format(action=action)
+    procs = [
+        subprocess.Popen([sys.executable, "-c", code, str(build_dir)], env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(n)
+    ]
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=600)
+            assert p.returncode == 0, se[-3000:]
+            out.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def test_concurrent_builders_with_stub_nvcc(tmp_path):
+    """Two processes build into one cold directory at once (``nvcc``
+    replaced by a stub that takes a second): both succeed, each renames its
+    own temp files, and one library and one ptxas report remain."""
+    import os
+    import stat
+
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    stub = bin_dir / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        "sleep 1\n"
+        'echo "ptxas info    : stub report" >&2\n'
+        'printf stub > "$out"\n'
+    )
+    stub.chmod(stub.stat().st_mode | stat.S_IXUSR)
+    build = tmp_path / "build"
+    reports = _concurrent_builders(build, dict(os.environ, CUDA_HOME=str(tmp_path / "cuda")))
+    assert len({r["path"] for r in reports}) == 1
+    assert any(r["built"] for r in reports)
+    assert all("stub report" in r["ptxas"] for r in reports)
+    names = sorted(os.listdir(build))
+    assert [n for n in names if n.startswith(".tmp_")] == [], names
+    assert len([n for n in names if n.endswith(".so")]) == 1, names
+    assert len([n for n in names if n.endswith(".ptxas.txt")]) == 1, names
+
+
+@pytest.mark.cuda
+def test_two_processes_load_a_cold_build_on_card(card, tmp_path):
+    """Two processes build the real library into one cold directory at once
+    and each loads it."""
+    import os
+
+    reports = _concurrent_builders(tmp_path / "build", dict(os.environ),
+                                   action="sc.load_library()")
+    assert len({r["path"] for r in reports}) == 1 and any(r["built"] for r in reports)
+    assert not [n for n in os.listdir(tmp_path / "build") if n.startswith(".tmp_")]
+
+
+# ---------------------------------------------------------------------------
+# mesh and leases on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sharded_equals_unsharded_on_card(rng, card):
+    from land_trendr_tpu_torch.parallel import make_mesh, segment_pixels_sharded
+
+    years, vals, mask = _inputs(rng, px=4096)
+    years, vals, mask = years.to(card), vals.to(card), mask.to(card)
+    whole = sc.cuda_segment_pixels(years, vals, mask)
+    for mesh in (make_mesh(), [card, card], [card] * 4):
+        before = sc.LAUNCHES
+        out = segment_pixels_sharded(years, vals, mask, mesh=mesh)
+        assert sc.LAUNCHES - before == len(mesh)
+        for name, a, b in zip(whole._fields, whole, out):
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), name
+
+
+@pytest.mark.cuda
+def test_leased_and_mesh_runs_equal_static_on_card(card, tmp_path):
+    from land_trendr_tpu_torch.runtime import driver
+
+    stack = _card_stack()
+    kw = dict(tile_size=32, retry_backoff_s=0.0)
+    runs = {}
+    for name, extra, mesh in (
+        ("static", {}, None),
+        ("leased", dict(lease_batch=2, lease_ttl_s=600.0), None),
+        ("mesh", {}, [card, card]),
+    ):
+        cfg = driver.RunConfig(workdir=str(tmp_path / name), out_dir=str(tmp_path / f"{name}o"),
+                               **kw, **extra)
+        before = sc.LAUNCHES
+        runs[name] = driver.run_stack(stack, cfg, device=card, mesh=mesh)
+        assert sc.LAUNCHES - before == 16 * (2 if mesh else 1), name
+        assert _tile_bytes(cfg.workdir) == _tile_bytes(str(tmp_path / "static")), name
+    assert runs["leased"]["lease"]["acquired"] == 16 and runs["leased"]["lease"]["stolen"] == 0
+    assert runs["mesh"]["mesh_devices"] == 2
+    assert not runs["mesh"]["upload"]["packed"]  # "auto" uploads per shard on a mesh
+    forced = driver.RunConfig(workdir=str(tmp_path / "forced"), upload_packed=True, **kw)
+    with pytest.raises(ValueError, match="cannot be combined with a mesh"):
+        driver.run_stack(stack, forced, device=card, mesh=[card, card])

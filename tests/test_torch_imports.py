@@ -74,6 +74,14 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.ops.composite",
     "land_trendr_tpu_torch.models.oracle",
     "land_trendr_tpu_torch.utils.profiling",
+    "land_trendr_tpu_torch.runtime.leases",
+    "land_trendr_tpu_torch.parallel",
+    "land_trendr_tpu_torch.parallel.mesh",
+    "land_trendr_tpu_torch.parallel.multihost",
+    "land_trendr_tpu_torch.tune",
+    "land_trendr_tpu_torch.tune.store",
+    "land_trendr_tpu_torch.tune.probes",
+    "land_trendr_tpu_torch.tune.autotune",
 ]
 
 
@@ -101,7 +109,9 @@ def test_main_path_loads_no_jax():
     "module",
     ["obs/events.py", "obs/metrics.py", "obs/telemetry.py", "obs/spans.py",
      "obs/flight.py", "io/blockcache.py", "io/blockstore.py", "runtime/faults.py",
-     "models/oracle.py", "ops/composite.py", "utils/profiling.py"],
+     "models/oracle.py", "ops/composite.py", "utils/profiling.py",
+     "runtime/leases.py", "parallel/mesh.py", "parallel/multihost.py",
+     "tune/store.py", "tune/probes.py", "tune/autotune.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module

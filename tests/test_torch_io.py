@@ -1,6 +1,11 @@
 """The port's GeoTIFF window reads against the JAX package's, on files of
 every layout the writer makes, through the native decoder and without it."""
 
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -9,13 +14,42 @@ from land_trendr_tpu_torch.io import native
 from land_trendr_tpu_torch.io.geotiff import read_geotiff, read_geotiff_window, write_geotiff
 
 WINDOWS = [(0, 0, 50, 37), (3, 5, 20, 17), (31, 16, 19, 21), (49, 36, 1, 1)]
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "lt_native.cc"
+
+
+@pytest.fixture(scope="session")
+def native_lib(tmp_path_factory):
+    """This file's own build of the native codec: compiled with
+    ``native/Makefile``'s flags into a private directory (so it never races
+    another test's ``make`` of ``native/liblt_native.so``), then loaded
+    through the ``LT_NATIVE_LIB`` candidate."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native codec cannot be built here")
+    lib = tmp_path_factory.mktemp("native") / "liblt_native.so"
+    subprocess.run(
+        ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared", "-o", str(lib),
+         str(NATIVE_SRC), "-lz", "-pthread"],
+        check=True, capture_output=True,
+    )
+    old = os.environ.get("LT_NATIVE_LIB")
+    os.environ["LT_NATIVE_LIB"] = str(lib)
+    try:
+        native._LIB, native._LIB_PATH = native._load()
+        assert native.lib_path() == str(lib), native.lib_path()
+        yield lib
+    finally:
+        if old is None:
+            os.environ.pop("LT_NATIVE_LIB", None)
+        else:
+            os.environ["LT_NATIVE_LIB"] = old
 
 
 @pytest.fixture(params=[True, False], ids=["native", "numpy"])
 def decoder(request, monkeypatch):
-    if request.param and not native.available():
-        pytest.skip("native codec library not built")
-    if not request.param:
+    if request.param:
+        request.getfixturevalue("native_lib")
+        assert native.available()
+    else:
         monkeypatch.setattr(native, "available", lambda: False)
     return request.param
 
