@@ -1,5 +1,5 @@
-"""Chip smoke for the PyTorch/CUDA port: the `segment` path and the stage
-probe on one GPU.
+"""Chip smoke for the PyTorch/CUDA port: the `segment` path, the stage
+probe and the `serve` path on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,11 +7,14 @@ Needs one CUDA card and ``nvcc``; exits non-zero, printing no result,
 without them (or when run outside a checkout of the repository).  Phases,
 each of which fails the script on its own:
 
-1. **Build** the kernels (``csrc/segment_fused.cu``: the fused
-   segmentation kernel and the family kernel) from the checkout's source
-   with nvcc; print the build seconds, the ptxas register/stack/spill
-   report, each kernel's occupancy (blocks and warps per SM) and shared
-   bytes per block, and the card's name and power limit.
+1. **Build** the host raster codec (``native/lt_native.cc``, g++, used
+   by the loaders, the feed and the writers when present; the smoke goes
+   on without it if it cannot be built) and the kernels
+   (``csrc/segment_fused.cu``: the fused segmentation kernel and the
+   family kernel, narrow and wide) from the checkout's source with nvcc;
+   print the build seconds, the ptxas register/stack/spill report, each
+   kernel's occupancy (blocks and warps per SM) and shared bytes per
+   block, and the card's name and power limit.
 2. **Kernel against plain version** on 262,144 px x 40 years of a seeded
    mixed-regime population, default parameters: float32 decisions agree
    on >= 99.9% of pixels and floats within 1e-5 on the agreeing pixels;
@@ -22,6 +25,13 @@ each of which fails the script on its own:
    the kernel and the plain PyTorch version with CUDA events after a
    warm-up, and computes the kernel's roofline bound from this run's
    inputs.
+2c. **The wide kernels** (the instantiation for more than 64 years or 16
+   candidates) against their plain versions at 262,144 px: 72 years at
+   default params, and 40 years at 18 candidates (``max_segments=14,
+   vertex_count_overshoot=3``); float32 decisions >= 99.9% with floats
+   within 1e-5, float64 decisions exact; the wide family kernel at 72
+   years likewise.  CUDA-event times, op counts and bounds, with phase 2's
+   narrow time beside them.
 3. **Chunked against unchunked**: chunk 65,536 gives identical decisions.
 3b. **Family kernel against its plain version** on phase 2's population:
    vertex sets equal on every pixel in float64 and on >= 99.9% in
@@ -45,8 +55,9 @@ each of which fails the script on its own:
    --change --change-mmu 4`` and ``change OUT --mmu 4``.
 6. **Stage probe** (``tools/probe.py stages``) at 262,144 px: the fused
    kernel, the family kernel, family + plain tail and the plain version,
-   timed with CUDA events; its JSON line is printed.  This is the family
-   kernel's path: its launch count is read around this phase.
+   timed with CUDA events; its JSON line is printed; then the same probe
+   at 72 years and 65,536 px.  These are the family kernel's paths (narrow,
+   then wide): their launch counts are read around each.
 7. **Robustness on the card**, a 512 x 512 x 40 stack at tile 128 (16
    tiles), each run with its own launch count: (a) a fault schedule that
    hits ``feed``, ``dispatch``, ``compute.wait``, ``fetch.wait`` and
@@ -92,12 +103,34 @@ each of which fails the script on its own:
    fetch depth names the profile and equals a run with those values given.
    Seconds and px/s of each leg are printed with the card's name and power
    limit.
+10. **Serve**: a 1024 x 1024 x 40 stack written to disk, tile 512 (4 tiles
+   of 262,144 px per job). An in-process ``SegmentationServer`` (so the
+   launch counts are readable): (a) with ``batch=False`` two identical
+   jobs, the second submitted once the first runs: rasters byte-equal to
+   ``segment`` of the same stack, the first cold (5 launches: its warm-up
+   tile + 4), the second warm (4); (c) then a job at 18 candidates that
+   runs the wide instantiation (5 wide launches, cold), byte-equal to
+   ``segment`` with those params, and behind it (b) with batching on a
+   flood of 4 same-affinity jobs: one batch of 4 with one leader launch set
+   (4 launches), the members demuxed with 0 tiles of their own, all byte-
+   equal, the wide job in no batch. A ``serve --serve-port 0 --publish``
+   subprocess (with a slow ``dispatch`` fault so a job takes seconds),
+   driven over HTTP: (e) after one idle capture (the first capture in a
+   process pays the profiler's start-up), ``POST /debug/profile`` while a
+   job runs writes a trace naming ``segment_fused_kernel``, ``/healthz`` shows
+   ``warm_program_count`` and ``/metrics`` ``lt_serve_warm_hit_ratio``;
+   (d) a job cancelled mid-run leaves a resumable manifest and its
+   resubmission finishes byte-equal; (f) the server's snapshot and a
+   ``segment --publish`` of the same stack into the same telemetry
+   directory fold into 2 hosts, both ok. Job latencies, the flood's
+   jobs/s and launches per job are printed.
 
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
-kernel's launch count is set to 0 just before its path (phase 4 for the
-fused kernel, phase 6 for the family kernel; phases 7 and 8 count their
-own runs) and read just after.
+kernel's launch count is set to 0 just before its path (phases 4 and 10
+for the narrow fused kernel, phase 10 (c) for the wide one, phase 6 for
+both family kernels; phases 7 and 8 count their own runs) and read just
+after.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -143,6 +176,13 @@ ROBUST = 512
 ROBUST_TILE = 128
 #: cycles of the device spin behind the stall (phase 7c): ~10 s at H100 clocks
 STALL_CYCLES = int(2e10)
+#: serve scene (phase 10): 1024 x 1024 x 40 at tile 512, four tiles a job
+SERVE = 1024
+SERVE_TILE = 512
+#: the flood of same-affinity jobs (phase 10b)
+FLOOD = 4
+#: candidates beyond the narrow kernel (phases 2c and 10c): 18
+WIDE_PARAMS = {"max_segments": 14, "vertex_count_overshoot": 3}
 #: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
@@ -358,11 +398,402 @@ def prom_gauge(path: str, name: str) -> "float | None":
     return None
 
 
+#: phase 2c's wide-kernel populations: (name, years, params overrides)
+WIDE_CASES = (("ny72", 72, {}), ("nc18", NY, WIDE_PARAMS))
+
+
+def bytes_bound(px: int, ny: int, nv: int, nm: int) -> "tuple[int, int]":
+    """Bytes the fused and the family kernel must move for ``px`` float32
+    series of ``ny`` years: each input read once (values, mask bytes, the
+    year axis), each output written once."""
+    bytes_in = px * ny * (4 + 1) + ny * 4
+    fused = bytes_in + px * (4 * (2 * ny + 4 * nv + 3 * nm + 3) + 1)
+    family = bytes_in + px * (4 * ny + nm * ny + 4 * nm)
+    return fused, family
+
+
+def bound_of(n_bytes: int, n_ops: int) -> "tuple[float, str]":
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and FP32 operations over the FP32 peak, and which bounds it."""
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    ops_ms = n_ops / FP32_OPS_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def wide_kernels(dev: torch.device, narrow_ms: float) -> dict:
+    """Phase 2c: the wide instantiation of both kernels against their plain
+    versions on the card, at NY = 72 (default params) and at 18 candidates
+    (NY = 40): f32 decisions >= F32_FLOOR with floats within F32_ATOL on
+    agreeing pixels, f64 decisions exact; CUDA-event times, op counts and
+    bounds.  Returns the fused and family measurements for the kernels
+    line (the fused one at NY = 72)."""
+    from land_trendr_tpu_torch.config import LTParams
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.ops.segment import torch_family_stats, torch_segment_pixels
+
+    out = {}
+    for name, ny, over in WIDE_CASES:
+        params = LTParams(**over)
+        assert segment_cuda.instantiation(ny, params) == "wide", (name, ny, params)
+        years_np, vals_np, mask_np = population(np.random.default_rng(20261017), POP_PX, ny)
+        years = torch.from_numpy(years_np).to(dev)
+        mask = torch.from_numpy(mask_np).to(dev)
+        v32 = torch.from_numpy(vals_np.astype(np.float32)).to(dev)
+        v64 = torch.from_numpy(vals_np).to(dev)
+        before = (segment_cuda.LAUNCHES, segment_cuda.WIDE_LAUNCHES)
+        k32 = segment_cuda.cuda_segment_pixels(years, v32, mask, params)
+        k64 = segment_cuda.cuda_segment_pixels(years, v64, mask, params)
+        torch.cuda.synchronize()
+        assert (segment_cuda.LAUNCHES, segment_cuda.WIDE_LAUNCHES) == (
+            before[0], before[1] + 2), "the wide call did not launch the wide kernel"
+        p32 = torch_segment_pixels(years, v32, mask, params)
+        agree32 = decisions(k32, p32)
+        rate32 = float(agree32.float().mean())
+        err32 = max_float_err(k32, p32, agree32)
+        p64 = torch_segment_pixels(years, v64, mask, params)
+        agree64 = decisions(k64, p64)
+        n_bad64 = int((~agree64).sum())
+        err64 = max_float_err(k64, p64, agree64)
+        log(f"[wide] {name} (NY={ny}, {params.max_candidates} candidates): f32 decision "
+            f"agreement {rate32:.6f} (floor {F32_FLOOR}), max |float diff| {err32:.3e} "
+            f"(limit {F32_ATOL}), bit-identical there: {bit_identical(k32, p32, agree32)}; "
+            f"f64 decisions differ on {n_bad64} px (max |float diff| {err64:.3e}, limit "
+            f"{F64_ATOL})")
+        assert rate32 >= F32_FLOOR, f"{name}: f32 decision agreement {rate32}"
+        assert err32 <= F32_ATOL, f"{name}: f32 float disagreement {err32}"
+        assert n_bad64 == 0, f"{name}: f64 decisions differ on {n_bad64} pixels"
+        assert err64 <= F64_ATOL, f"{name}: f64 float disagreement {err64}"
+        job = segment_cuda._Launch(years, v32, mask, params)
+        ms = cuda_ms(lambda: job.run(0, POP_PX), reps=10)
+        job64 = segment_cuda._Launch(years, v64, mask, params)
+        ms64 = cuda_ms(lambda: job64.run(0, POP_PX), reps=5)
+        plain_ms = cuda_ms(lambda: torch_segment_pixels(years, v32, mask, params), reps=1)
+        n_ops = int(segment_cuda.cuda_segment_op_counts(years, v32, mask, params).sum())
+        fused_b, family_b = bytes_bound(POP_PX, ny, params.max_vertices, params.max_segments)
+        bound_ms, bound_by = bound_of(fused_b, n_ops)
+        occ = segment_cuda.occupancy("fused", torch.float32, ny, cap="wide")
+        log(f"[wide] {name} fused: kernel {ms:.4f} ms f32, {ms64:.4f} ms f64 (narrow phase 2: "
+            f"{narrow_ms:.4f} ms at NY={NY}); plain {plain_ms:.2f} ms; block {occ['block']}, "
+            f"{occ['smem_bytes']} B shared, {occ['warps_per_sm']} warps/SM; bound {fused_b} B, "
+            f"{n_ops} FP32 ops ({n_ops / POP_PX:.0f}/px) -> {bound_ms:.4f} ms by {bound_by}, "
+            f"kernel at {100 * bound_ms / ms:.1f}%")
+        rec = {"ms": ms, "ms_f64": ms64, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err32}
+        out[f"fused_{name}"] = rec
+        if name != "ny72":
+            continue
+        # the wide family kernel on the same population
+        f32 = segment_cuda.cuda_family_stats(years, v32, mask, params)
+        pf32 = torch_family_stats(years, v32, mask, params)
+        fagree = (f32[1] == pf32[1]).all(dim=(1, 2))
+        frate = float(fagree.float().mean())
+        ferr = max_pair_err((("despiked", f32[0], pf32[0]), ("sses", f32[2], pf32[2])), fagree)
+        f64 = segment_cuda.cuda_family_stats(years, v64, mask, params)
+        pf64 = torch_family_stats(years, v64, mask, params)
+        fbad = int((~(f64[1] == pf64[1]).all(dim=(1, 2))).sum())
+        ferr64 = max_pair_err((("despiked", f64[0], pf64[0]), ("sses", f64[2], pf64[2])),
+                              torch.ones_like(fagree))
+        log(f"[wide] {name} family: f32 vertex sets agree on {frate:.6f}, max |diff| "
+            f"{ferr:.3e}; f64 vertex sets differ on {fbad} px, max |diff| {ferr64:.3e}")
+        assert frate >= F32_FLOOR and ferr <= F32_ATOL, (frate, ferr)
+        assert fbad == 0 and ferr64 <= F64_ATOL, (fbad, ferr64)
+        fjob = segment_cuda._FamilyLaunch(years, v32, mask, params)
+        fms = cuda_ms(fjob.run, reps=10)
+        fplain = cuda_ms(lambda: torch_family_stats(years, v32, mask, params), reps=1)
+        f_ops = int(segment_cuda.cuda_family_op_counts(years, v32, mask, params).sum())
+        fbound, fby = bound_of(family_b, f_ops)
+        log(f"[wide] {name} family: kernel {fms:.4f} ms, plain {fplain:.2f} ms; bound "
+            f"{family_b} B, {f_ops} FP32 ops -> {fbound:.4f} ms by {fby}, kernel at "
+            f"{100 * fbound / fms:.1f}%")
+        out["family_ny72"] = {"ms": fms, "plain_ms": fplain, "bound_ms": fbound,
+                              "bound_by": fby, "max_abs_err": ferr}
+    return out
+
+
+def http(port: int, path: str, payload=None, timeout: float = 120.0) -> "tuple[int, dict]":
+    """One request to a server's loopback JSON API: ``(status, body)``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read()
+            return r.status, (json.loads(body) if body.startswith(b"{") else {"text": body.decode()})
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_state(get, states=("done", "cancelled", "error", "config_error", "stalled",
+                            "retries_exhausted"), timeout: float = 600.0, poll: float = 0.005):
+    """Poll ``get()`` (a job status dict) until its state is one of ``states``."""
+    t0 = time.monotonic()
+    while True:
+        st = get()
+        if st["state"] in states:
+            return st
+        assert time.monotonic() - t0 < timeout, f"job stuck in {st['state']}"
+        time.sleep(poll)
+
+
+def serve_phase(dev: torch.device, smi: str, env: dict) -> dict:
+    """Phase 10: ``serve`` on the card (see the module docstring); returns
+    the launch counts of the serve path and the measurements printed."""
+    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
+    from land_trendr_tpu_torch.obs import aggregate
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.serve import SegmentationServer, ServeConfig
+
+    t10 = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="lt_smoke_serve_", dir=ROOT) as tmp:
+        stack_dir = os.path.join(tmp, "stack")
+        write_stack(stack_dir, make_stack(SceneSpec(height=SERVE, width=SERVE, seed=10)))
+        n_tiles = (SERVE // SERVE_TILE) ** 2
+        job = {"stack_dir": stack_dir, "tile_size": SERVE_TILE}
+        wide_job = {**job, "params": dict(WIDE_PARAMS)}
+
+        # the references: `segment` of the same stack and params
+        def cli_ref(name, extra):
+            o = os.path.join(tmp, name)
+            r = subprocess.run(
+                [sys.executable, "-m", "land_trendr_tpu_torch", "segment", stack_dir,
+                 "--tile-size", str(SERVE_TILE), "--workdir", o + "_w", "--out-dir", o, *extra],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            assert r.returncode == 0, r.stderr[-2000:]
+            return raster_digests(o)
+
+        ref = cli_ref("cli_default", [])
+        ref_wide = cli_ref("cli_wide", ["--max-segments", "14", "--vertex-count-overshoot", "3"])
+        log(f"[serve] {SERVE}^2 x {NY} stack on disk; segment references: default and "
+            f"18-candidate params ({time.perf_counter() - t10:.1f} s)")
+
+        # ---- in-process server: (a), then (c) with the flood (b) behind it
+        dispatcher = None
+        server = SegmentationServer(ServeConfig(workdir=os.path.join(tmp, "srv"), batch=False,
+                                                batch_window_ms=500.0), device=dev)
+        try:
+            dispatcher = threading.Thread(target=server.serve_forever, name="smoke-dispatcher")
+            dispatcher.start()
+            status = server.job_status
+            # (a) cold, then warm: the second submitted once the first runs
+            segment_cuda.LAUNCHES = 0
+            j1 = server.submit(dict(job))
+            wait_state(lambda: status(j1["job_id"]), ("running",))
+            j2 = server.submit(dict(job))
+            s1 = wait_state(lambda: status(j1["job_id"]))
+            cold_launches = segment_cuda.LAUNCHES  # job 2 is still loading its stack
+            s2 = wait_state(lambda: status(j2["job_id"]))
+            warm_launches = segment_cuda.LAUNCHES - cold_launches
+            for s in (s1, s2):
+                assert s["state"] == "done", s.get("error")
+                assert s["summary"]["impl"] == "cuda" and s["summary"]["tiles_done"] == n_tiles
+                assert raster_digests(os.path.dirname(next(iter(s["outputs"].values())))) == ref, (
+                    f"{s['job_id']} rasters differ from segment's")
+            assert s1["summary"]["program_cache"]["misses"] == 1, s1["summary"]["program_cache"]
+            assert s2["summary"]["program_cache"]["hits"] == 1, s2["summary"]["program_cache"]
+            assert (cold_launches, warm_launches) == (n_tiles + 1, n_tiles), (
+                cold_launches, warm_launches)
+            lat = {k: (s["finished_t"] - s["submitted_t"], s["finished_t"] - s["started_t"])
+                   for k, s in (("cold", s1), ("warm", s2))}
+            log(f"[serve] (a) cold job: {cold_launches} launches, latency {lat['cold'][0]:.3f} s "
+                f"(exec {lat['cold'][1]:.3f} s, of it the run {s1['summary']['wall_s']} s, "
+                f"program warm-up {s1['summary']['program_cache']['compile_s']} s); warm job: "
+                f"{warm_launches} launches, exec {lat['warm'][1]:.3f} s (the run "
+                f"{s2['summary']['wall_s']} s; latency {lat['warm'][0]:.3f} s incl. its queue "
+                f"wait); the rest of exec is the stack load and assembly; both byte-equal to "
+                f"segment ({smi})")
+
+            # (c) the wide job, and the flood queued behind it
+            server.cfg = dataclasses.replace(server.cfg, batch=True)
+            segment_cuda.LAUNCHES = 0
+            segment_cuda.WIDE_LAUNCHES = 0
+            jw = server.submit(dict(wide_job))
+            wait_state(lambda: status(jw["job_id"]), ("running",))
+            # one tenant each: the per-tenant in-flight cap stays out of the way
+            flood = [server.submit({**job, "tenant": f"flood{i}"}) for i in range(FLOOD)]
+            sw = wait_state(lambda: status(jw["job_id"]))
+            wide_launches = segment_cuda.WIDE_LAUNCHES
+            t_flood0 = sw["finished_t"]
+            sf = [wait_state(lambda j=j: status(j["job_id"])) for j in flood]
+            flood_launches = segment_cuda.LAUNCHES
+            assert sw["state"] == "done", sw.get("error")
+            assert raster_digests(os.path.dirname(next(iter(sw["outputs"].values())))) == ref_wide, (
+                "the wide job's rasters differ from segment's")
+            assert wide_launches == n_tiles + 1, wide_launches
+            for s in sf:
+                assert s["state"] == "done", s.get("error")
+                assert raster_digests(os.path.dirname(next(iter(s["outputs"].values())))) == ref
+            assert [s["summary"]["tiles_done"] for s in sf] == [n_tiles] + [0] * (FLOOD - 1), (
+                [s["summary"]["tiles_done"] for s in sf])
+            assert flood_launches == n_tiles, flood_launches
+            launches_ev = []
+            with open(os.path.join(tmp, "srv", "events.jsonl")) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec.get("ev") == "batch_launch":
+                        launches_ev.append(rec)
+            assert len(launches_ev) == 1 and launches_ev[0]["jobs"] == FLOOD, launches_ev
+            assert launches_ev[0]["job_id"] == flood[0]["job_id"], "the wide job was batched"
+            flood_s = max(s["finished_t"] for s in sf) - t_flood0
+            log(f"[serve] (c) 18-candidate job: {wide_launches} wide launches (cold), "
+                f"latency {sw['finished_t'] - sw['submitted_t']:.3f} s, byte-equal to segment; "
+                f"(b) flood of {FLOOD}: one batch of {launches_ev[0]['jobs']}, {flood_launches} "
+                f"launches ({flood_launches / FLOOD:.2f} per job), members 0 tiles of their own, "
+                f"{FLOOD / flood_s:.3f} jobs/s ({flood_s:.3f} s), all byte-equal ({smi})")
+            out.update(cold_launches=cold_launches, warm_launches=warm_launches,
+                       wide_launches=wide_launches, flood_launches=flood_launches,
+                       cold_latency_s=lat["cold"][0], warm_exec_s=lat["warm"][1],
+                       flood_jobs_per_s=FLOOD / flood_s)
+        finally:
+            server.stop()
+            if dispatcher is not None:
+                dispatcher.join(timeout=300)
+            else:
+                server.serve_forever()  # never dispatched: runs the shared shutdown
+        assert not dispatcher.is_alive(), "the in-process server did not stop"
+
+        # ---- a `serve` subprocess over HTTP: (e), (d), (f)
+        srv_dir = os.path.join(tmp, "srvp")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "land_trendr_tpu_torch", "serve", "--workdir", srv_dir,
+             "--serve-port", "0", "--publish", "--publish-interval-s", "1",
+             "--fault-schedule", "seed=1,dispatch%1.0=slow:0.75"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            start = json.loads(proc.stdout.readline())
+            assert start["serving"] is True, start
+            port = start["port"]
+
+            def jstat(job_id):
+                return http(port, f"/jobs/{job_id}")[1]
+
+            # (e) a profile over a job's warm-up tile and its first tiles.  The
+            # first capture in a process pays the profiler's start-up (seconds,
+            # recording nothing meanwhile), so an idle capture comes first
+            t0 = time.perf_counter()
+            st, prof0 = http(port, "/debug/profile", {"duration_s": 0.5})
+            assert st == 200 and prof0.get("ok"), prof0
+            first_capture_s = time.perf_counter() - t0
+            st, d1 = http(port, "/jobs", job)
+            assert st == 200, d1
+            t0 = time.monotonic()
+            while True:
+                running = http(port, "/debug/jobs")[1].get("jobs", [])
+                prog = [j.get("progress", {}) for j in running if j.get("job_id") == d1["job_id"]]
+                if prog and prog[0].get("phase") in ("warmup", "pipeline"):
+                    break
+                assert time.monotonic() - t0 < 300, "the job never reached its warm-up"
+                time.sleep(0.01)
+            st, prof = http(port, "/debug/profile", {"duration_s": 4.0})
+            assert st == 200 and prof.get("ok"), prof
+            fused = []
+            for root, _dirs, files in os.walk(prof["path"]):
+                for fn in files:
+                    if fn.endswith(".json"):
+                        with open(os.path.join(root, fn)) as f:
+                            fused += [e for e in json.load(f).get("traceEvents", [])
+                                      if e.get("cat") == "kernel"
+                                      and "segment_fused_kernel" in e.get("name", "")]
+            assert fused, f"the profile under {prof['path']} names no segment_fused_kernel"
+            s = wait_state(lambda: jstat(d1["job_id"]))
+            assert s["state"] == "done", s
+            st, h = http(port, "/healthz")
+            assert st == 200 and h["warm_program_count"] >= 1, h
+            st, prom = http(port, "/metrics")
+            assert st == 200 and "lt_serve_warm_hit_ratio" in prom["text"], prom
+            log(f"[serve] (e) first /debug/profile of 0.5 s took {first_capture_s:.2f} s "
+                f"(profiler start-up); during a job: {prof['bytes']} B trace, "
+                f"{len(fused)} segment_fused_kernel launches in it; /healthz "
+                f"warm_program_count {h['warm_program_count']}; /metrics has "
+                "lt_serve_warm_hit_ratio")
+
+            # (d) cancel mid-run, then resubmit into the same workdir
+            st, d2 = http(port, "/jobs", job)
+            assert st == 200, d2
+            t0 = time.monotonic()
+            while not [p for p in os.listdir(d2["workdir"]) if p.startswith("tile_")] \
+                    if os.path.isdir(d2["workdir"]) else True:
+                assert time.monotonic() - t0 < 300, "no tile became durable"
+                time.sleep(0.005)
+            http(port, f"/jobs/{d2['job_id']}/cancel", {})
+            s = wait_state(lambda: jstat(d2["job_id"]))
+            done_tiles = len([p for p in os.listdir(d2["workdir"]) if p.startswith("tile_")])
+            assert s["state"] == "cancelled" and 1 <= done_tiles < n_tiles, (s["state"], done_tiles)
+            st, d3 = http(port, "/jobs", {**job, "workdir": d2["workdir"]})
+            assert st == 200, d3
+            s = wait_state(lambda: jstat(d3["job_id"]))
+            assert s["state"] == "done", s
+            assert s["summary"]["tiles_skipped_resume"] == done_tiles, s["summary"]
+            assert raster_digests(os.path.dirname(next(iter(s["outputs"].values())))) == ref
+            log(f"[serve] (d) cancelled after {done_tiles} durable tiles; the resubmission "
+                f"resumed {n_tiles - done_tiles} and is byte-equal to segment")
+
+            # (f) the server's snapshot and a segment --publish into one directory
+            tel = os.path.join(srv_dir, "telemetry")
+            r = subprocess.run(
+                [sys.executable, "-m", "land_trendr_tpu_torch", "segment", stack_dir,
+                 "--tile-size", str(SERVE_TILE), "--workdir", os.path.join(tmp, "pub_w"),
+                 "--out-dir", os.path.join(tmp, "pub_o"), "--telemetry", "--publish",
+                 "--telemetry-dir", tel],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            assert r.returncode == 0, r.stderr[-2000:]
+            view = aggregate.fold_dir(tel)
+            hosts = view["hosts"]
+            kinds = sorted(h.get("kind", "?") for h in hosts)
+            ok = [h for h in hosts if not (h.get("stale") or h.get("corrupt") or h.get("excluded"))]
+            assert view["counts"]["folded"] == 2 and len(ok) == 2, view["counts"]
+            log(f"[serve] (f) fold_dir: {view['counts']['folded']} hosts ({', '.join(kinds)}), "
+                f"both ok; lt_tiles_done_total "
+                f"{ {i['name']: i for i in view['metrics']}['lt_tiles_done_total']['value'] }")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t10
+    log(f"[phase 10] took {out['seconds']:.1f}s")
+    return out
+
+
+def build_native() -> "str | None":
+    """Build the host raster codec that the loaders, the feed and the writers
+    use when it is present (``native/lt_native.cc`` with the flags of
+    ``native/Makefile``) into the port's ``_build/``, and point
+    ``LT_NATIVE_LIB`` at it for this process and the processes it starts.
+    A working tree may hold ``native/liblt_native.so`` already; a checkout
+    does not.  The pure-NumPy path gives the same bytes, so a failed build
+    (no g++ or zlib) is logged and the smoke goes on without it."""
+    src = os.path.join(ROOT, "native", "lt_native.cc")
+    if not os.path.isfile(src) or shutil.which("g++") is None:
+        return None
+    out_dir = os.path.join(ROOT, "land_trendr_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "liblt_native.so")
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    r = subprocess.run(
+        ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared", "-o", tmp, src,
+         "-lz", "-pthread"], capture_output=True, text=True, timeout=300, check=False)
+    if r.returncode != 0:
+        log(f"[build] native codec not built (g++ exit {r.returncode}): {r.stderr[-400:]}")
+        return None
+    os.replace(tmp, lib)
+    os.environ["LT_NATIVE_LIB"] = lib
+    return lib
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
               file=sys.stderr)
         return 1
+    t_native = time.perf_counter()
+    native_lib = build_native()
     sys.path.insert(0, ROOT)
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.io import native
@@ -391,6 +822,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     smi = nvidia_smi_line()
     log(f"nvidia-smi: {smi}")
+    log(f"[build] native raster codec: {os.path.relpath(native_lib, ROOT) if native_lib else 'not built'}"
+        f" ({time.perf_counter() - t_native:.1f} s)")
     params = LTParams()
 
     # ---- phase 1: build -------------------------------------------------
@@ -453,14 +886,10 @@ def main() -> int:
     plain64_ms = cuda_ms(lambda: torch_segment_pixels(years, v64, mask, params), reps=1)
     ops = segment_cuda.cuda_segment_op_counts(years, v32, mask, params)
     n_ops = int(ops.sum())
-    nv, nm = params.max_vertices, params.max_segments
-    bytes_in = POP_PX * NY * (4 + 1) + NY * 4
-    bytes_out = POP_PX * (4 * (2 * NY + 4 * nv + 3 * nm + 3) + 1)
-    n_bytes = bytes_in + bytes_out
+    n_bytes, f_bytes = bytes_bound(POP_PX, NY, params.max_vertices, params.max_segments)
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     ops_ms = n_ops / FP32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound_ms, bound_by = bound_of(n_bytes, n_ops)
     log(f"[kernel] {POP_PX} px x {NY} yr f32: kernel {kernel_ms:.4f} ms "
         f"({POP_PX / kernel_ms / 1e3:.1f} M px/s), wrapper {wrapper_ms:.4f} ms, "
         f"plain {plain_ms:.2f} ms, plain f64 {plain64_ms:.2f} ms, fit rate {fit_rate_pop:.4f}")
@@ -520,11 +949,9 @@ def main() -> int:
     fam_plain_ms = cuda_ms(lambda: torch_family_stats(years, v32, mask, params), reps=2)
     fops = segment_cuda.cuda_family_op_counts(years, v32, mask, params)
     f_ops = int(fops.sum())
-    f_bytes = bytes_in + POP_PX * (4 * NY + nm * NY + 4 * nm)
     f_bytes_ms = f_bytes / HBM_BYTES_S * 1e3
     f_ops_ms = f_ops / FP32_OPS_S * 1e3
-    fam_bound_ms = max(f_bytes_ms, f_ops_ms)
-    fam_bound_by = "bytes" if f_bytes_ms >= f_ops_ms else "operations"
+    fam_bound_ms, fam_bound_by = bound_of(f_bytes, f_ops)
     log(f"[family] {POP_PX} px x {NY} yr f32: kernel {fam_ms:.4f} ms, wrapper "
         f"{fam_wrapper_ms:.4f} ms, plain {fam_plain_ms:.2f} ms")
     log(f"[family] bound: {f_bytes} B -> {f_bytes_ms:.4f} ms at 3.35 TB/s; {f_ops} FP32 ops "
@@ -532,6 +959,9 @@ def main() -> int:
         f"{f_ops_ms:.4f} ms at 67 TFLOP/s; bound {fam_bound_ms:.4f} ms by {fam_bound_by}; "
         f"kernel at {100 * fam_bound_ms / fam_ms:.1f}% of it")
     del k32, p32, k64, p64, ch, job, v64, f32, pf32, f64, pf64, tail32, tail64, fjob
+
+    # ---- phase 2c: the wide kernels against their plain versions --------
+    wide = wide_kernels(dev, kernel_ms)
 
     # ---- phase 4: scene through run_stack + assemble_outputs ------------
     t0 = time.perf_counter()
@@ -655,6 +1085,14 @@ def main() -> int:
     log(f"[probe] family kernel launches {family_launches}, fused {segment_cuda.LAUNCHES}")
     print(json.dumps(stages), flush=True)
     assert family_launches > 0, "the stage probe never launched the family kernel"
+    segment_cuda.WIDE_LAUNCHES = 0
+    segment_cuda.WIDE_FAMILY_LAUNCHES = 0
+    wide_stages = probe.stages(65_536, "cuda", reps=PROBE_REPS, ny=72)
+    wide_family_launches = segment_cuda.WIDE_FAMILY_LAUNCHES
+    log(f"[probe] at 72 years: wide family kernel launches {wide_family_launches}, wide fused "
+        f"{segment_cuda.WIDE_LAUNCHES}")
+    print(json.dumps(wide_stages), flush=True)
+    assert wide_family_launches > 0, "the 72-year stage probe never launched the wide family kernel"
 
     # ---- phase 7: robustness on the card --------------------------------
     t7 = time.perf_counter()
@@ -1085,13 +1523,19 @@ def main() -> int:
     del stack
     log(f"[phase 9] took {time.perf_counter() - t9:.1f}s")
 
+    # ---- phase 10: serve on the card ------------------------------------
+    served = serve_phase(dev, smi, env)
+    serve_launches = served["cold_launches"] + served["warm_launches"] + served["flood_launches"]
 
+    src = "land_trendr_tpu_torch/csrc/segment_fused.cu"
     kernel = {
         "name": "segment_fused",
         "route": "cuda",
-        "source": "land_trendr_tpu_torch/csrc/segment_fused.cu",
+        "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
-        "launches": launches,
+        # the narrow kernel's paths: phase 4's scene and phase 10's serve jobs
+        "launches": launches + serve_launches,
+        "launches_by_path": {"segment": launches, "serve": serve_launches},
         "max_abs_err": err32,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1100,10 +1544,29 @@ def main() -> int:
         "library_ms": None,
         "wrapper_ms": wrapper_ms,
     }
+    w72, w18 = wide["fused_ny72"], wide["fused_nc18"]
+    kernel_wide = {
+        "name": "segment_fused (wide: 128 years, 32 candidates)",
+        "route": "cuda",
+        "source": src,
+        "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
+        # the 18-candidate serve job of phase 10 (c)
+        "launches": served["wide_launches"],
+        "max_abs_err": max(w72["max_abs_err"], w18["max_abs_err"]),
+        "ms": w72["ms"],
+        "plain_ms": w72["plain_ms"],
+        "bound_ms": w72["bound_ms"],
+        "bound_by": w72["bound_by"],
+        "library_ms": None,
+        "shape": "262,144 px x 72 years f32",
+        "ms_18_candidates": w18["ms"],
+        "plain_ms_18_candidates": w18["plain_ms"],
+        "bound_ms_18_candidates": w18["bound_ms"],
+    }
     family = {
         "name": "family_stats",
         "route": "cuda",
-        "source": "land_trendr_tpu_torch/csrc/segment_fused.cu",
+        "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:938",
         "launches": family_launches,
         "max_abs_err": ferr32,
@@ -1114,8 +1577,24 @@ def main() -> int:
         "library_ms": None,
         "wrapper_ms": fam_wrapper_ms,
     }
+    fw = wide["family_ny72"]
+    family_wide = {
+        "name": "family_stats (wide: 128 years, 32 candidates)",
+        "route": "cuda",
+        "source": src,
+        "replaces": "land_trendr_tpu/ops/segment_pallas.py:938",
+        # the 72-year stage probe of phase 6
+        "launches": wide_family_launches,
+        "max_abs_err": fw["max_abs_err"],
+        "ms": fw["ms"],
+        "plain_ms": fw["plain_ms"],
+        "bound_ms": fw["bound_ms"],
+        "bound_by": fw["bound_by"],
+        "library_ms": None,
+        "shape": "262,144 px x 72 years f32",
+    }
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [kernel, family]}))
+    print(json.dumps({"kernels": [kernel, kernel_wide, family, family_wide]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -12,6 +12,10 @@ ports so far:
               any number of ``segment`` processes over one workdir), mesh
               sharding over the local cards (``--mesh``) and ``auto`` knobs
               resolved through a tuning store (``--tune-store-dir``)
+``serve``     the long-lived segmentation server: warm tile programs, a
+              bounded job queue over a loopback HTTP JSON API and a
+              filesystem drop-box, admission control, cancel and
+              timeouts, cross-job batching and the fleet telemetry loop
 ``tune``      probe the execution knobs on the device and persist the
               winning profile to a tuning store (a stored key reloads with
               zero probes)
@@ -29,9 +33,9 @@ PyTorch version; for tests and debugging only).  ``--device cuda`` on a
 machine without a usable card fails with a clear error; it never carries
 on on the CPU (``change`` runs its selector there too, ``--composite``
 its selection).  The device also decides the segmentation implementation,
-so there is no ``--impl``.  Fleet publish (``--publish*``,
-``--telemetry-dir``), which this package does not implement yet, is
-rejected as unknown arguments.
+so there is no ``--impl``.  The fleet router and load generator
+(``route``, ``load``), which this package does not implement yet, are
+rejected as unknown commands.
 
 Exit codes of ``segment``: 2 config/usage error, 3 a tile exhausted its
 retries or was quarantined (a re-run resumes exactly the missing tiles),
@@ -261,6 +265,19 @@ def build_parser() -> argparse.ArgumentParser:
                      "and sampler")
     seg.add_argument("--sampler-interval-s", type=float, default=5.0,
                      metavar="SEC", help="flight resource-sampler period")
+    seg.add_argument("--publish", action="store_true",
+                     help="with --telemetry: fleet telemetry publish — "
+                     "periodically snapshot this process's metrics + "
+                     "live progress into an atomic "
+                     "TELEMETRY_DIR/<host>.<pid>.snap.json, the "
+                     "per-process feed obs.aggregate folds into one pod view")
+    seg.add_argument("--publish-interval-s", type=float, default=5.0,
+                     metavar="SEC",
+                     help="fleet snapshot refresh period in seconds")
+    seg.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                     help="shared telemetry directory for --publish "
+                     "(default WORKDIR/telemetry); point a pod's "
+                     "processes at one DIR to aggregate them")
     seg.add_argument("--max-retries", type=int, default=2)
     seg.add_argument("--retry-backoff-s", type=float, default=0.5, metavar="SEC",
                      help="base of the exponential per-tile retry backoff "
@@ -304,6 +321,153 @@ def build_parser() -> argparse.ArgumentParser:
                      help="deterministic fault injection for test runs, e.g. "
                      "'seed=7,dispatch@1,fetch.wait@0*2=io'")
     _add_param_flags(seg)
+
+    srv = sub.add_parser(
+        "serve",
+        help="long-lived segmentation server on --device: warm tile programs, a "
+        "bounded job queue over a loopback HTTP JSON API + filesystem "
+        "drop-box, admission control with per-tenant caps, and "
+        "request-scoped telemetry (README §Service mode)",
+    )
+    srv.add_argument("--workdir", default="lt_serve",
+                     help="server root: the server's events/metrics "
+                     "stream, default per-job jobs/<id>/{work,out} "
+                     "directories, and the shared ingest store")
+    srv.add_argument("--serve-port", type=int, default=0, metavar="PORT",
+                     help="loopback HTTP JSON API port (0 = ephemeral, "
+                     "reported in the startup line)")
+    srv.add_argument("--serve-host", default="127.0.0.1", metavar="HOST",
+                     help="bind address for the job API — loopback ONLY "
+                     "(127.0.0.1, localhost or ::1): the API is an "
+                     "unauthenticated control surface; front it with an "
+                     "authenticated proxy or use --dropbox-dir for "
+                     "remote batch submission")
+    srv.add_argument("--serve-queue-depth", type=int, default=16,
+                     help="admission control: submissions past this "
+                     "queue depth are rejected with HTTP 429 instead of "
+                     "building unbounded backlog")
+    srv.add_argument("--tenant-max-inflight", type=int, default=4,
+                     help="admission control: per-tenant bound on "
+                     "queued+running jobs (429 at the cap; other "
+                     "tenants' traffic proceeds)")
+    srv.add_argument("--job-timeout-s", type=float, default=None,
+                     metavar="SEC",
+                     help="default per-job wall bound, submit to "
+                     "terminal: an over-budget job is cancelled through "
+                     "the run's cancel event and reported 'stalled' "
+                     "(the exit-4 analog; manifest stays resumable). "
+                     "Jobs may override per request")
+    srv.add_argument("--dropbox-dir", default=None, metavar="DIR",
+                     help="filesystem drop-box: job-request JSON files "
+                     "under DIR are claimed atomically, run through the "
+                     "same admission control as HTTP, and answered with "
+                     ".rejected.json/.result.json sidecars")
+    srv.add_argument("--dropbox-poll-s", type=float, default=1.0,
+                     metavar="SEC", help="drop-box scan period")
+    srv.add_argument("--max-jobs", type=int, default=None, metavar="N",
+                     help="drain N jobs to a terminal state then shut "
+                     "down cleanly (bench/CI mode; default: serve "
+                     "forever)")
+    srv.add_argument("--feed-cache-mb", type=int, default=256,
+                     help="process-wide decoded-block cache budget "
+                     "(MiB) shared by every job — the server owns the "
+                     "cache configuration")
+    srv.add_argument("--decode-workers", type=int, default=0,
+                     help="shared feed-decode threads: 0 = auto, "
+                     "1 = serial, N = N threads")
+    srv.add_argument("--ingest-store-mb", type=int, default=0,
+                     help="shared persistent ingest store budget (MiB): "
+                     "decoded blocks from every job spill to one store "
+                     "under the server workdir, so a warm job over "
+                     "already-ingested stacks skips TIFF decode "
+                     "entirely; 0 = off")
+    srv.add_argument("--ingest-store-dir", default=None, metavar="DIR",
+                     help="store directory override (default "
+                     "WORKDIR/ingest_store)")
+    srv.add_argument("--tune-store-dir", default=None, metavar="DIR",
+                     help="shared tuning store (lt tune's output): every "
+                     "job's 'auto' knobs resolve through it, so the "
+                     "whole replica runs tuned; per-job explicit knobs "
+                     "still win (README §Autotuning)")
+    srv.add_argument("--no-telemetry", action="store_true",
+                     help="disable the server events/metrics stream AND "
+                     "per-job run telemetry (on by default in serve "
+                     "mode — the observability is the point)")
+    srv.add_argument("--metrics-port", type=int, default=None,
+                     metavar="PORT",
+                     help="serve the lt_serve_* registry's live "
+                     "/metrics on PORT (0 = ephemeral); the job API "
+                     "serves GET /metrics regardless")
+    srv.add_argument("--metrics-host", default="", metavar="HOST",
+                     help="bind address for --metrics-port (the scrape "
+                     "endpoint is read-only and may be non-loopback)")
+    srv.add_argument("--metrics-interval-s", type=float, default=5.0,
+                     metavar="SEC", help="metrics.prom refresh period")
+    srv.add_argument("--fault-schedule", default=None, metavar="SPEC",
+                     help="deterministic fault injection for soak runs "
+                     "(one process-wide plan shared by every job, incl. "
+                     "the serve.submit/serve.job seams); production "
+                     "servers leave this unset")
+    srv.add_argument("--no-debug-endpoints", action="store_true",
+                     help="disable the live /debug surface "
+                     "(/debug/flight, /debug/stacks, /debug/jobs, POST "
+                     "/debug/profile — loopback-only like the job API; "
+                     "on by default)")
+    srv.add_argument("--flight-ring-events", type=int, default=2048,
+                     metavar="N",
+                     help="flight-recorder ring capacity in events: the "
+                     "/debug/flight window over server AND job events, "
+                     "dumped to WORKDIR/flight.jsonl at shutdown; 0 "
+                     "disables the ring and the resource sampler")
+    srv.add_argument("--sampler-interval-s", type=float, default=5.0,
+                     metavar="SEC",
+                     help="flight resource-sampler period (flight_sample "
+                     "events: RSS, fds, threads, queue depth, backlogs, "
+                     "cache occupancy)")
+    srv.add_argument("--request-ring", type=int, default=64, metavar="N",
+                     help="request-tracing recency bound: how many "
+                     "recent terminal requests (trace id + latency "
+                     "split) GET /debug/requests serves slowest-first; "
+                     "0 disables the ring")
+    srv.add_argument("--publish", action="store_true",
+                     help="fleet telemetry plane: publish this replica's "
+                     "snapshot under TELEMETRY_DIR, fold every snapshot "
+                     "there into one pod view each beat, retain the "
+                     "timeline in the on-disk history ring, and evaluate "
+                     "the alert rules over it (alert events, lt_alerts_* "
+                     "metrics, active alerts on /healthz and lt top)")
+    srv.add_argument("--publish-interval-s", type=float, default=5.0,
+                     metavar="SEC",
+                     help="fleet beat period (snapshot + fold + alert "
+                     "evaluation)")
+    srv.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                     help="shared telemetry directory for --publish "
+                     "(default WORKDIR/telemetry); point N replicas at "
+                     "one DIR to aggregate the fleet")
+    srv.add_argument("--alert-rules", default=None, metavar="FILE",
+                     help="alert-rules JSON for the fleet loop "
+                     "(land_trendr_tpu_torch.obs.alerts); default: built-in "
+                     "host-staleness + SLO-burn rules")
+    srv.add_argument("--batch", default="auto",
+                     choices=("auto", "on", "off"),
+                     help="cross-job continuous batching: coalesce "
+                     "queued same-affinity jobs behind one shared "
+                     "launch and demux byte-identical artifacts to "
+                     "each (README §Continuous batching); 'auto' "
+                     "resolves through --tune-store-dir, defaulting on")
+    srv.add_argument("--batch-window-ms", type=float, default=50.0,
+                     metavar="MS",
+                     help="how long the dispatcher holds a batch window "
+                     "open for same-affinity stragglers; closes early "
+                     "when a non-matching job reaches the queue front "
+                     "or the queue is empty (0 = batch only what is "
+                     "already queued)")
+    srv.add_argument("--batch-max-tiles", type=int, default=0,
+                     metavar="N",
+                     help="batch size bound in total coalesced tiles "
+                     "(jobs x tiles per job); members past the bound "
+                     "run solo in their normal queue turn (0 = "
+                     "unbounded)")
 
     tun = sub.add_parser(
         "tune",
@@ -682,6 +846,91 @@ def main(argv: "list[str] | None" = None) -> int:
     if args.cmd == "tune":
         return _run_tune(args)
 
+    if args.cmd == "serve":
+        from land_trendr_tpu_torch.serve import SegmentationServer, ServeConfig
+
+        try:
+            scfg = ServeConfig(
+                workdir=args.workdir,
+                serve_port=args.serve_port,
+                serve_host=args.serve_host,
+                serve_queue_depth=args.serve_queue_depth,
+                tenant_max_inflight=args.tenant_max_inflight,
+                job_timeout_s=args.job_timeout_s,
+                dropbox_dir=args.dropbox_dir,
+                dropbox_poll_s=args.dropbox_poll_s,
+                max_jobs=args.max_jobs,
+                feed_cache_mb=args.feed_cache_mb,
+                decode_workers=args.decode_workers,
+                ingest_store_mb=args.ingest_store_mb,
+                ingest_store_dir=args.ingest_store_dir,
+                tune_store_dir=args.tune_store_dir,
+                telemetry=not args.no_telemetry,
+                metrics_port=args.metrics_port,
+                metrics_host=args.metrics_host,
+                metrics_interval_s=args.metrics_interval_s,
+                fault_schedule=args.fault_schedule,
+                debug_endpoints=not args.no_debug_endpoints,
+                flight_ring_events=args.flight_ring_events,
+                sampler_interval_s=args.sampler_interval_s,
+                request_ring=args.request_ring,
+                publish=args.publish,
+                publish_interval_s=args.publish_interval_s,
+                telemetry_dir=args.telemetry_dir,
+                alert_rules=args.alert_rules,
+                batch=(
+                    "auto" if args.batch == "auto"
+                    else args.batch == "on"
+                ),
+                batch_window_ms=args.batch_window_ms,
+                batch_max_tiles=args.batch_max_tiles,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        # probe the API port NOW (REUSEADDR-matched, like the
+        # --metrics-port preflight): the real bind happens inside the
+        # server constructor, where a busy port is a raw OSError
+        if scfg.serve_port:
+            import socket
+
+            try:
+                with socket.socket() as s:
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                    s.bind((scfg.serve_host, scfg.serve_port))
+            except OSError as e:
+                print(
+                    f"error: --serve-port {scfg.serve_port} unusable: {e}",
+                    file=sys.stderr,
+                )
+                return 2
+        try:
+            # the server owns its whole teardown: serve_forever's finally
+            # runs _shutdown_shared on every exit path (Ctrl-C included)
+            # and a failed constructor unwinds itself, so no stop() call
+            # exists at this layer by design
+            # lt: noqa[LT008]
+            server = SegmentationServer(scfg, device=args.device)
+        except (OSError, RuntimeError, ValueError) as e:
+            print(f"error: server startup failed: {e}", file=sys.stderr)
+            return 2
+        # machine-readable startup line (the ephemeral-port contract):
+        # clients read the bound port from here
+        print(
+            json.dumps(
+                {"serving": True, "port": server.port,
+                 "workdir": scfg.workdir}
+            ),
+            flush=True,
+        )
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            # Ctrl-C is the documented way to stop an unbounded server:
+            # drain state is already durable, exit clean
+            pass
+        return 0
+
     if args.cmd == "synth":
         from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
 
@@ -796,6 +1045,9 @@ def main(argv: "list[str] | None" = None) -> int:
             flight=args.flight,
             flight_ring_events=args.flight_ring_events,
             sampler_interval_s=args.sampler_interval_s,
+            publish=args.publish,
+            publish_interval_s=args.publish_interval_s,
+            telemetry_dir=args.telemetry_dir,
             tune_store_dir=args.tune_store_dir,
         )
         mesh = None

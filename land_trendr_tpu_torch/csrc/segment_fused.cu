@@ -16,6 +16,16 @@
 // memory: 1.31 ms against 1.66 at 128; 512 runs in 1.15 ms but fits only
 // NY <= 56) and 128 in float64 (so that NY = 64 fits).
 //
+// Two capacities.  Both kernels are instantiated twice (`Cap`): the
+// narrow one, which every stack of up to 64 years with at most 16
+// candidates (max_segments + 1 + vertex_count_overshoot) takes, keeps a
+// vertex set and the valid-year mask in one 64-bit word; the wide one
+// holds up to 128 years in two words and 32 candidates in its per-thread
+// arrays, at half the block (128 threads in float32, 64 in float64) so
+// that NY = 128 still fits a block's shared memory.  The wrapper picks
+// the instantiation from NY and the candidate count.  The arithmetic and
+// its order are the same in both: only the capacity differs.
+//
 // * Pixel-major I/O through shared memory.  A block's pixels are
 //   contiguous rows of the caller's (PX, NY) values and bool mask, so one
 //   thread issues two bulk asynchronous copies (cp.async.bulk, completion
@@ -95,16 +105,29 @@
 
 namespace {
 
+// Capacity of one instantiation: vertex sets and the valid-year mask are
+// WORDS 64-bit words (up to 64 * WORDS years), the per-thread arrays hold
+// NC candidates (max_segments + 1 + overshoot) and NM = NC - 1 members.
+template <int WORDS_, int NC_>
+struct Cap {
+  static constexpr int WORDS = WORDS_;
+  static constexpr int NY = 64 * WORDS_;
+  static constexpr int NC = NC_;
+  static constexpr int NM = NC_ - 1;
+};
+using Narrow = Cap<1, 16>;  // every stack of up to 64 years, 16 candidates
+using Wide = Cap<2, 32>;    // up to 128 years, 32 candidates
+
 // Threads per block.  CUDA_BLOCK is the chunk granule (every block size
-// is a multiple of it) and the float64 block; float32, the timed path,
-// runs blocks of 256 (the fastest block of the sweep that holds NY = 64),
-// float64 keeps 128 so that NY = 64 fits in a block's shared memory.
+// divides or is a multiple of it).  The narrow float32 kernel, the timed
+// path, runs blocks of 256 (the fastest block of the sweep that holds
+// NY = 64), float64 keeps 128 so that NY = 64 fits in a block's shared
+// memory; the wide kernel halves both so that NY = 128 fits.
 constexpr int CUDA_BLOCK = 128;
-template <typename T>
-constexpr int block_of() { return std::is_same<T, float>::value ? 2 * CUDA_BLOCK : CUDA_BLOCK; }
-constexpr int MAX_NY = 64;   // years: one 64-bit word per vertex set
-constexpr int MAX_NC = 16;   // candidate capacity (max_segments + 1 + overshoot)
-constexpr int MAX_NM = MAX_NC - 1;
+template <typename T, class C = Narrow>
+constexpr int block_of() {
+  return (std::is_same<T, float>::value ? 2 * CUDA_BLOCK : CUDA_BLOCK) / C::WORDS;
+}
 constexpr long long SMEM_LIMIT = 232448;  // shared bytes one block may use on sm_90
 
 constexpr double CF_EPS = 1e-15;
@@ -213,15 +236,84 @@ struct StageCycles {
 //   [mbarrier, 16 B][year axis, NY * E rounded up to 16 B]
 //   [y columns, NY * B * E]: the mask slab lands here first;
 //   [t columns, W * B * E]: the value slab lands here first, and the
-//    output staging tile reuses it at the end (W = max(NY, MAX_NC) | 1,
-//    an odd row stride, so a warp's row writes fall in 32 banks).
+//    output staging tile reuses it at the end (W = max(NY, NC) | 1 for the
+//    instantiation's candidate capacity NC, an odd row stride, so a warp's
+//    row writes fall in 32 banks).
 // A thread's column holds position i at [i * B + threadIdx.x]: whatever
 // position each lane reads, it reads its own bank.
-__host__ __device__ constexpr int stage_width(int ny) { return (ny > MAX_NC ? ny : MAX_NC) | 1; }
-__host__ __device__ constexpr long long smem_bytes(int ny, int elem, int block) {
+__host__ __device__ constexpr int stage_width(int ny, int nc) { return (ny > nc ? ny : nc) | 1; }
+__host__ __device__ constexpr long long smem_bytes(int ny, int elem, int block, int nc) {
   return 16 + ((long long)ny * elem + 15) / 16 * 16 +
-         (long long)block * (ny + stage_width(ny)) * elem;
+         (long long)block * (ny + stage_width(ny, nc)) * elem;
 }
+
+// A set of year indices or compacted positions: W 64-bit words, bit j of
+// the set in word j / 64.  The one-word forms are the plain 64-bit
+// expressions, so the narrow instantiation compiles as a single word.
+template <int W>
+struct Bits {
+  uint64_t w[W];
+  __device__ __forceinline__ static Bits none() {
+    Bits b;
+    for (int q = 0; q < W; ++q) b.w[q] = 0;
+    return b;
+  }
+  __device__ __forceinline__ void set(int j) {
+    if constexpr (W == 1) {
+      w[0] |= 1ull << j;
+    } else {
+      for (int q = 0; q < W; ++q) {  // constant indices: the words stay in registers
+        if (q == (j >> 6)) w[q] |= 1ull << (j & 63);
+      }
+    }
+  }
+  __device__ __forceinline__ bool test(int j) const {
+    if constexpr (W == 1) {
+      return (w[0] >> j) & 1ull;
+    } else {
+      uint64_t x = 0;
+      for (int q = 0; q < W; ++q) {
+        if (q == (j >> 6)) x = w[q];
+      }
+      return (x >> (j & 63)) & 1ull;
+    }
+  }
+  __device__ __forceinline__ int count() const {
+    int c = 0;
+    for (int q = 0; q < W; ++q) c += __popcll((long long)w[q]);
+    return c;
+  }
+  // members below j
+  __device__ __forceinline__ int count_below(int j) const {
+    if constexpr (W == 1) {
+      return __popcll((long long)(w[0] & ((1ull << j) - 1ull)));
+    } else {
+      const int q = j >> 6;
+      int c = 0;
+      for (int i = 0; i < W; ++i) {
+        if (i < q) c += __popcll((long long)w[i]);
+      }
+      for (int i = 0; i < W; ++i) {
+        if (i == q) c += __popcll((long long)(w[i] & ((1ull << (j & 63)) - 1ull)));
+      }
+      return c;
+    }
+  }
+  // the largest member (the set is not empty)
+  __device__ __forceinline__ int highest() const {
+    for (int q = W - 1; q > 0; --q) {
+      if (w[q]) return 64 * q + 63 - __clzll((long long)w[q]);
+    }
+    return 63 - __clzll((long long)w[0]);
+  }
+  // calls f(j) for each member j, ascending
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    for (int q = 0; q < W; ++q) {
+      for (uint64_t x = w[q]; x; x &= x - 1) f(64 * q + __ffsll((long long)x) - 1);
+    }
+  }
+};
 
 template <typename T, int B>
 struct Block {
@@ -281,10 +373,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // 0..n-1 in year order, then the raw values of the other years in year
 // order.  Fills the year axis and the t columns; returns the thread's
 // valid-year word.  Every thread of the block must call it.
-template <typename T, int B>
-__device__ uint64_t load_compact(const Block<T, B>& blk, const T* __restrict__ years,
-                                 const T* __restrict__ vals, const uint8_t* __restrict__ mask,
-                                 int npx, int ny) {
+template <typename T, int B, int W>
+__device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ years,
+                                const T* __restrict__ vals, const uint8_t* __restrict__ mask,
+                                int npx, int ny) {
   const int r = threadIdx.x;
   T* vland = blk.region;
   uint8_t* mland = reinterpret_cast<uint8_t*>(blk.ycol);
@@ -316,20 +408,20 @@ __device__ uint64_t load_compact(const Block<T, B>& blk, const T* __restrict__ y
   // of a warp (rows NY apart) fall in different banks
   const int j0 = live ? r % ny : 0;
   const T* vrow = vland + r * ny;
-  uint64_t valid = 0;
+  Bits<W> valid = Bits<W>::none();
   if (live) {
     const uint8_t* mrow = mland + r * ny;
     for (int c = 0, j = j0; c < ny; ++c) {
-      if (mrow[j] && isfinite(vrow[j])) valid |= 1ull << j;
+      if (mrow[j] && isfinite(vrow[j])) valid.set(j);
       if (++j == ny) j = 0;
     }
   }
   __syncthreads();  // the mask slab is read: its bytes become the y columns
-  const int n = __popcll((long long)valid);
+  const int n = valid.count();
   if (live) {
     for (int c = 0, j = j0; c < ny; ++c) {
-      const int below = __popcll((long long)(valid & ((1ull << j) - 1ull)));
-      const int pos = ((valid >> j) & 1ull) ? below : n + (j - below);
+      const int below = valid.count_below(j);
+      const int pos = valid.test(j) ? below : n + (j - below);
       blk.ycol[pos * B + r] = vrow[j];
       if (++j == ny) j = 0;
     }
@@ -337,7 +429,7 @@ __device__ uint64_t load_compact(const Block<T, B>& blk, const T* __restrict__ y
   __syncthreads();  // the value slab is read: its bytes become the t columns
   if (live) {
     int i = 0;
-    for (uint64_t w = valid; w; w &= w - 1) blk.region[(i++) * B + r] = blk.ts[__ffsll((long long)w) - 1];
+    valid.each([&](int j) { blk.region[(i++) * B + r] = blk.ts[j]; });
   }
   return valid;
 }
@@ -349,14 +441,28 @@ __device__ __forceinline__ int nth_bit(uint64_t w, int i) {
   return i < c ? (int)__fns(lo, 0, i + 1) : 32 + (int)__fns((uint32_t)(w >> 32), 0, i - c + 1);
 }
 
-// Positions of the set bits of `vm`, ascending; returns the count.
-__device__ __forceinline__ int bit_positions(uint64_t vm, int* vp) {
-  int k = 0;
-  while (vm) {
-    int b = __ffsll((long long)vm) - 1;
-    vp[k++] = b;
-    vm &= vm - 1;
+// Index of the i-th (from 0) member of `b`.
+template <int W>
+__device__ __forceinline__ int nth_bit(const Bits<W>& b, int i) {
+  if constexpr (W == 1) {
+    return nth_bit(b.w[0], i);
+  } else {
+    int base = 0;
+    for (int q = 0; q < W - 1; ++q) {
+      const int c = __popcll((long long)b.w[q]);
+      if (i < c) return base + nth_bit(b.w[q], i);
+      i -= c;
+      base += 64;
+    }
+    return base + nth_bit(b.w[W - 1], i);
   }
+}
+
+// Members of `vm`, ascending, into vp; returns the count.
+template <int W>
+__device__ __forceinline__ int bit_positions(const Bits<W>& vm, int* vp) {
+  int k = 0;
+  vm.each([&](int b) { vp[k++] = b; });
   return k;
 }
 
@@ -441,19 +547,19 @@ __device__ void despike(Series<T, B>& s, const Params& p, O& ops) {
 // Candidate and cull state of one pixel: the live vertices (compacted
 // positions, ascending) and, once the cull starts, the arctangent of each
 // segment's slope in the frame normalised by (t_lo, t_rng, y_lo, y_rng).
-template <typename T>
+template <typename T, class C>
 struct Verts {
   int k;
-  int vp[MAX_NC];
-  int si[MAX_NC];    // candidate search: where segment g's largest deviation lies
+  int vp[C::NC];
+  int si[C::NC];    // candidate search: where segment g's largest deviation lies
   union {
-    T sdev[MAX_NC];  // candidate search: segment g's largest deviation
-    T sa[MAX_NC];    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
+    T sdev[C::NC];  // candidate search: segment g's largest deviation
+    T sa[C::NC];    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
   };
   T t_lo, t_rng, y_lo, y_rng;
-  __device__ __forceinline__ uint64_t word() const {
-    uint64_t w = 0;
-    for (int j = 0; j < k; ++j) w |= 1ull << vp[j];
+  __device__ __forceinline__ Bits<C::WORDS> word() const {
+    Bits<C::WORDS> w = Bits<C::WORDS>::none();
+    for (int j = 0; j < k; ++j) w.set(vp[j]);
     return w;
   }
 };
@@ -482,8 +588,8 @@ __device__ void seg_best(const Series<T, B>& s, int a, int b, T& dev_best, int& 
 // segments it splits.  The pick is the first of the largest over segments
 // in order, which is the first of the largest over all positions — the
 // full rescan's answer.
-template <typename T, int B, class O>
-__device__ void find_candidates(const Series<T, B>& s, Verts<T>& v, const Params& p, O& ops) {
+template <typename T, int B, class C, class O>
+__device__ void find_candidates(const Series<T, B>& s, Verts<T, C>& v, const Params& p, O& ops) {
   for (int g = 0; g + 1 < v.k; ++g) seg_best(s, v.vp[g], v.vp[g + 1], v.sdev[g], v.si[g], ops);
   for (int trip = 0; trip < p.nc - 2; ++trip) {
     T best = (T)-1;
@@ -511,8 +617,8 @@ __device__ void find_candidates(const Series<T, B>& s, Verts<T>& v, const Params
 // Arctangent of the slope of segment (a, b) in the normalised frame.  The
 // angle at vertex j is |sa[j] - sa[j - 1]|: the same expression as a full
 // rebuild computes, so an incremental update gives the same bits.
-template <typename T, int B, class O>
-__device__ __forceinline__ T seg_atan(const Series<T, B>& s, const Verts<T>& v, int a, int b,
+template <typename T, int B, class C, class O>
+__device__ __forceinline__ T seg_atan(const Series<T, B>& s, const Verts<T, C>& v, int a, int b,
                                       O& ops) {
   ops.add(12);
   const T xa = (s.t(a) - v.t_lo) / v.t_rng, ya = (s.y(a) - v.y_lo) / v.y_rng;
@@ -520,8 +626,8 @@ __device__ __forceinline__ T seg_atan(const Series<T, B>& s, const Verts<T>& v, 
   return f_atan((yb - ya) / (xb - xa));
 }
 
-template <typename T, int B, class O>
-__device__ void cull_init(const Series<T, B>& s, Verts<T>& v, O& ops) {
+template <typename T, int B, class C, class O>
+__device__ void cull_init(const Series<T, B>& s, Verts<T, C>& v, O& ops) {
   if (v.k < 3) return;  // no interior vertex: nothing is ever removed
   for (int g = 0; g + 1 < v.k; ++g) v.sa[g] = seg_atan(s, v, v.vp[g], v.vp[g + 1], ops);
 }
@@ -529,8 +635,8 @@ __device__ void cull_init(const Series<T, B>& s, Verts<T>& v, O& ops) {
 // Drop the min-angle interior vertex (the first of the smallest) while the
 // count exceeds keep_above (>= 2); only the merged segment's arctangent is
 // recomputed.
-template <typename T, int B, class O>
-__device__ void remove_weakest(const Series<T, B>& s, Verts<T>& v, int keep_above, O& ops) {
+template <typename T, int B, class C, class O>
+__device__ void remove_weakest(const Series<T, B>& s, Verts<T, C>& v, int keep_above, O& ops) {
   const int k = v.k;
   if (k <= keep_above) return;
   ops.add(3LL * (k - 2));
@@ -553,7 +659,7 @@ __device__ void remove_weakest(const Series<T, B>& s, Verts<T>& v, int keep_abov
 // Returns the SSE over the vertex span; the REFIT instantiation also
 // writes the fitted value at each vertex to `vf` (the chosen model's
 // refit), and only it keeps the per-segment anchors and rates.
-template <bool REFIT, typename T, int B, class O>
+template <bool REFIT, class C, typename T, int B, class O>
 __device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_range,
                        const Params& p, T* vf, O& ops) {
   // regression: 6 per year per pass (two passes after segment 0's OLS);
@@ -570,7 +676,7 @@ __device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_ra
     T r = s.y(i) - (c0 + c1c * s.t(i));
     sse_reg = sse_reg + r * r;
   }
-  T vreg[REFIT ? MAX_NC : 1];
+  T vreg[REFIT ? C::NC : 1];
   if constexpr (REFIT) vreg[0] = c0 + c1c * s.t(vp[0]);
   T anchor_t = s.t(vp[1]);
   T anchor_y = c0 + c1c * anchor_t;
@@ -598,7 +704,7 @@ __device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_ra
   }
   // --- point-to-point fallback: segment by segment, in year order ---
   bool p2p_ok = true;
-  T rate[REFIT ? MAX_NC : 1];
+  T rate[REFIT ? C::NC : 1];
   const T rt = (T)p.rt, eps = (T)EPS_RATE;
   T sse_p2p = 0;
   for (int g = 0; g + 1 < k; ++g) {
@@ -794,19 +900,19 @@ __device__ __forceinline__ double select_thresh<double>(double best, const Param
 }
 
 // What one pixel's thread carries from its compute into the output phase.
-template <typename T>
+template <typename T, class C>
 struct PixelResult {
   bool mv;
   int k;            // vertices of the chosen model (0 for the flat model)
-  int vp[MAX_NC];   // their compacted positions
-  T vf[MAX_NC];     // their fitted values
+  int vp[C::NC];    // their compacted positions
+  T vf[C::NC];      // their fitted values
   T mean, rmse, pof;
 };
 
 // Stages 1-5 of one pixel: despike, candidates + cull, the model family,
 // scoring + selection, and the chosen member's refit (or the flat model).
-template <typename T, int B, class O>
-__device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelResult<T>& res,
+template <typename T, int B, class C, class O>
+__device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelResult<T, C>& res,
                               O& ops) {
   const int n = s.n;
   const bool enough = n >= p.min_obs;
@@ -825,7 +931,7 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
     const T y_range = t_max(y_hi - y_lo, (T)0);
     if (y_range > (T)0) {
       // Stage 2 — candidates + angle cull
-      Verts<T> v;
+      Verts<T, C> v;
       v.t_lo = s.t(0);
       const T t_hi = s.t(n - 1);
       v.t_rng = t_hi > v.t_lo ? t_hi - v.t_lo : (T)1;
@@ -840,11 +946,11 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
       for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
       ops.mark(CULL);
       // Stage 4 — model family: vertex word + SSE per member
-      uint64_t fam_vm[MAX_NM];
-      T fam_sse[MAX_NM];
+      Bits<C::WORDS> fam_vm[C::NM];
+      T fam_sse[C::NM];
       for (int m = 0; m < p.nm; ++m) {
         fam_vm[m] = v.word();
-        fam_sse[m] = fit_model<false>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops);
+        fam_sse[m] = fit_model<false, C>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops);
         if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
       }
       ops.mark(FAMILY);
@@ -858,10 +964,10 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         T d = s.y(i) - mean0;
         ss0 = ss0 + d * d;
       }
-      T fam_p[MAX_NM], fam_score[MAX_NM];
+      T fam_p[C::NM], fam_score[C::NM];
       T best = 0;
       for (int m = 0; m < p.nm; ++m) {
-        T ms = (T)(__popcll((long long)fam_vm[m]) - 1);
+        T ms = (T)(fam_vm[m].count() - 1);
         f_test(ss0, fam_sse[m], n_f, ms, p, fam_p[m], fam_score[m], ops);
         best = m == 0 ? fam_score[0] : t_min(best, fam_score[m]);
       }
@@ -882,7 +988,7 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         // bound leaves it out.
         res.k = bit_positions(fam_vm[chosen], res.vp);
         NoOps refit_ops;
-        const T sse_c = fit_model<true>(s, res.vp, res.k, y_range, p, res.vf, refit_ops);
+        const T sse_c = fit_model<true, C>(s, res.vp, res.k, y_range, p, res.vf, refit_ops);
         ops.add(10LL * ny + 4LL * p.nm + 2);
         res.mv = true;
         res.rmse = f_sqrt(sse_c / n_safe);
@@ -935,7 +1041,7 @@ __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* 
   __syncthreads();
 }
 
-template <typename T, class O, int B>
+template <typename T, class O, int B, class C>
 __global__ void __launch_bounds__(B)
 segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
                      const uint8_t* __restrict__ mask, long long px, int ny, Outs<T> o,
@@ -947,13 +1053,13 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   const int npx = (int)(px - base < B ? px - base : B);
   const int r = threadIdx.x;
   const bool live = r < npx;
-  const uint64_t valid =
-      load_compact<T, B>(blk, years, values + base * ny, mask + base * ny, npx, ny);
-  const int n = __popcll((long long)valid);
+  const Bits<C::WORDS> valid =
+      load_compact<T, B, C::WORDS>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  const int n = valid.count();
   Series<T, B> s{blk.ycol + r, blk.region + r, n};
   ops.mark(LOAD);
 
-  PixelResult<T> res;
+  PixelResult<T, C> res;
   res.mv = false;
   res.k = 0;
   if (live) segment_pixel(s, ny, p, res, ops);
@@ -963,9 +1069,9 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   void* stage = blk.region;
   const T* ts = blk.ts;
   const int k = res.k;
-  int vyi[MAX_NC];  // year index of each vertex
+  int vyi[C::NC];  // year index of each vertex
   for (int j = 0; j < k; ++j) vyi[j] = nth_bit(valid, res.vp[j]);
-  const T t_hi = n > 0 ? ts[63 - __clzll((long long)valid)] : (T)0;
+  const T t_hi = n > 0 ? ts[valid.highest()] : (T)0;
   // vertex slot i's year; dead slots repeat t_hi
   auto xv = [&](int i) { return i < k ? ts[vyi[i]] : t_hi; };
 
@@ -973,7 +1079,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   // (a fitted model) or the mean (the flat model)
   emit<T, B>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
     for (int j = 0, c = 0, d = 0; j < ny; ++j) {
-      if ((valid >> j) & 1ull) {
+      if (valid.test(j)) {
         row[j] = s.y(c++);
       } else {
         row[j] = res.mv ? s.y(n + d) : res.mean;
@@ -1060,7 +1166,7 @@ struct FamilyOuts {
 };
 
 // Stages 1-4a for every pixel: despiked series, family vertex sets, SSEs.
-template <typename T, class O, int B>
+template <typename T, class O, int B, class C>
 __global__ void __launch_bounds__(B)
 family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
                     const uint8_t* __restrict__ mask, long long px, int ny, FamilyOuts<T> o,
@@ -1070,18 +1176,18 @@ family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
   const Block<T, B> blk(smem, ny);
   const long long base = (long long)blockIdx.x * B;
   const int npx = (int)(px - base < B ? px - base : B);
-  const uint64_t valid =
-      load_compact<T, B>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  const Bits<C::WORDS> valid =
+      load_compact<T, B, C::WORDS>(blk, years, values + base * ny, mask + base * ny, npx, ny);
   if ((int)threadIdx.x >= npx) return;
   const long long pix = base + threadIdx.x;
   const long long ld = o.ld;
-  Series<T, B> s{blk.ycol + threadIdx.x, blk.region + threadIdx.x, __popcll((long long)valid)};
+  Series<T, B> s{blk.ycol + threadIdx.x, blk.region + threadIdx.x, valid.count()};
   const int n = s.n;
 
   // Stage 1 — despike (a no-op below three valid years)
   despike(s, p, ops);
   T y_range = 0;
-  Verts<T> v;
+  Verts<T, C> v;
   v.k = 0;
   v.t_lo = 0;
   v.t_rng = 1;
@@ -1110,18 +1216,20 @@ family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
   for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
   // Stage 4a — model family, written member by member
   for (int m = 0; m < p.nm; ++m) {
-    uint64_t year_word = 0;  // the member's vertex set on the year axis
-    for (int j = 0; j < v.k; ++j) year_word |= 1ull << nth_bit(valid, v.vp[j]);
+    // the member's vertex set on the year axis
+    Bits<C::WORDS> year_word = Bits<C::WORDS>::none();
+    for (int j = 0; j < v.k; ++j) year_word.set(nth_bit(valid, v.vp[j]));
     uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
-    for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)((year_word >> j) & 1ull);
+    for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)year_word.test(j);
     // below two vertices (fewer than two valid years) the fit is the
     // series itself: SSE 0, as in the plain version
-    const T sse = v.k >= 2 ? fit_model<false>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops) : (T)0;
+    const T sse =
+        v.k >= 2 ? fit_model<false, C>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops) : (T)0;
     o.sses[m * ld + pix] = sse;
     if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
   }
   for (int j = 0, c = 0; j < ny; ++j) {
-    o.despiked[j * ld + pix] = ((valid >> j) & 1ull) ? s.y(c++) : (T)0;
+    o.despiked[j * ld + pix] = valid.test(j) ? s.y(c++) : (T)0;
   }
   if (stats != nullptr) ops.write(stats, pix);
 }
@@ -1143,8 +1251,9 @@ Params make_params(int max_segments, int overshoot, double spike, double rt, int
   return p;
 }
 
+template <class C>
 bool bad_shape(int ny, const Params& p, long long px) {
-  return ny < 1 || ny > MAX_NY || p.nc > MAX_NC || p.nm < 1 || p.overshoot < 0 || px < 0;
+  return ny < 1 || ny > C::NY || p.nc > C::NC || p.nm < 1 || p.overshoot < 0 || px < 0;
 }
 
 // Raise the kernel's dynamic shared-memory ceiling to `bytes`.
@@ -1165,23 +1274,23 @@ int start(K kernel, long long px, int block, long long bytes, cudaStream_t st, A
   return (int)cudaGetLastError();
 }
 
-// One launch of the fused kernel with policy O at block size B (O's
-// per-pixel record, if any, goes to `stats`).
-template <typename T, class O, int B = block_of<T>()>
+// One launch of the fused kernel of capacity C with policy O at block
+// size B (O's per-pixel record, if any, goes to `stats`).
+template <typename T, class O, class C = Narrow, int B = block_of<T, C>()>
 int launch_fused(const void* years, const void* values, const void* mask, long long px, int ny,
                  const Outs<T>& o, const Params& p, void* stream, long long* stats) {
-  if (bad_shape(ny, p, px)) return (int)cudaErrorInvalidValue;
-  return start(segment_fused_kernel<T, O, B>, px, B, smem_bytes(ny, (int)sizeof(T), B),
-               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
-               ny, o, p, stats);
+  if (bad_shape<C>(ny, p, px)) return (int)cudaErrorInvalidValue;
+  return start(segment_fused_kernel<T, O, B, C>, px, B,
+               smem_bytes(ny, (int)sizeof(T), B, C::NC), (cudaStream_t)stream, (const T*)years,
+               (const T*)values, (const uint8_t*)mask, px, ny, o, p, stats);
 }
 
-template <typename T, class O>
+template <typename T, class O, class C = Narrow>
 int launch_family(const void* years, const void* values, const void* mask, long long px, int ny,
                   const FamilyOuts<T>& o, const Params& p, void* stream, long long* stats) {
-  constexpr int B = block_of<T>();
-  if (bad_shape(ny, p, px)) return (int)cudaErrorInvalidValue;
-  return start(family_stats_kernel<T, O, B>, px, B, smem_bytes(ny, (int)sizeof(T), B),
+  constexpr int B = block_of<T, C>();
+  if (bad_shape<C>(ny, p, px)) return (int)cudaErrorInvalidValue;
+  return start(family_stats_kernel<T, O, B, C>, px, B, smem_bytes(ny, (int)sizeof(T), B, C::NC),
                (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
                ny, o, p, stats);
 }
@@ -1205,6 +1314,22 @@ int with_sweep_block(int block, F f) {
     case 512: return f(std::integral_constant<int, 512>());
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Resident blocks per SM (CUDA occupancy calculator) of a production
+// kernel of capacity C at `ny` years and its own block size: which = 0
+// fused, 1 family.  Returns a CUDA error code.
+template <class C>
+int occupancy_of(int which, int f64, int ny, int block, int* blocks) {
+  constexpr int B4 = block_of<float, C>(), B8 = block_of<double, C>();
+  if (block != (f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
+  const long long b4 = smem_bytes(ny, 4, B4, C::NC), b8 = smem_bytes(ny, 8, B8, C::NC);
+  if (which == 0) {
+    return f64 ? occupancy(segment_fused_kernel<double, NoOps, B8, C>, B8, b8, blocks)
+               : occupancy(segment_fused_kernel<float, NoOps, B4, C>, B4, b4, blocks);
+  }
+  return f64 ? occupancy(family_stats_kernel<double, NoOps, B8, C>, B8, b8, blocks)
+             : occupancy(family_stats_kernel<float, NoOps, B4, C>, B4, b4, blocks);
 }
 
 template <typename T>
@@ -1255,27 +1380,43 @@ FamilyOuts<T> make_family_outs(void* despiked, void* vmasks, void* sses, long lo
 
 extern "C" {
 
-// Capacity bounds the Python wrapper checks before a launch.
-int lt_segment_max_ny() { return MAX_NY; }
-int lt_segment_max_nc() { return MAX_NC; }
+// Capacity bounds the Python wrapper checks before a launch, one query
+// per instantiation (narrow, wide).
+int lt_segment_max_ny() { return Narrow::NY; }
+int lt_segment_max_nc() { return Narrow::NC; }
 int lt_segment_block(int elem_bytes) {
   return elem_bytes == 4 ? block_of<float>() : block_of<double>();
+}
+int lt_segment_wide_max_ny() { return Wide::NY; }
+int lt_segment_wide_max_nc() { return Wide::NC; }
+int lt_segment_wide_block(int elem_bytes) {
+  return elem_bytes == 4 ? block_of<float, Wide>() : block_of<double, Wide>();
 }
 int lt_segment_nstage() { return NSTAGE; }
 
 // Dynamic shared-memory bytes of one block of `block` threads at `ny`
-// years and `elem_bytes`-byte values (both kernels use the same plan).
-long long lt_segment_smem_bytes(int ny, int elem_bytes, int block) {
-  return smem_bytes(ny, elem_bytes, block);
+// years and `elem_bytes`-byte values of the narrow (wide = 0) or wide
+// instantiation (both kernels use the same plan).
+long long lt_segment_smem_bytes(int ny, int elem_bytes, int block, int wide) {
+  return smem_bytes(ny, elem_bytes, block, wide ? Wide::NC : Narrow::NC);
 }
 
 int lt_segment_fused_f32(LT_ARGS) { return launch_fused<float, NoOps>(LT_CALL(float), nullptr); }
 int lt_segment_fused_f64(LT_ARGS) { return launch_fused<double, NoOps>(LT_CALL(double), nullptr); }
+int lt_segment_fused_wide_f32(LT_ARGS) {
+  return launch_fused<float, NoOps, Wide>(LT_CALL(float), nullptr);
+}
+int lt_segment_fused_wide_f64(LT_ARGS) {
+  return launch_fused<double, NoOps, Wide>(LT_CALL(double), nullptr);
+}
 
 // The float32 kernel with its per-pixel operation tally written to
 // `op_count` (PX int64) — the roofline bound's operation count.
 int lt_segment_fused_f32_opcount(LT_ARGS, void *op_count) {
   return launch_fused<float, CountOps>(LT_CALL(float), (long long *)op_count);
+}
+int lt_segment_fused_wide_f32_opcount(LT_ARGS, void *op_count) {
+  return launch_fused<float, CountOps, Wide>(LT_CALL(float), (long long *)op_count);
 }
 
 // The float32 kernel with each pixel's clock64() cycles per stage and
@@ -1288,45 +1429,45 @@ int lt_segment_fused_f32_stagecycles(LT_ARGS, void *cycles) {
 // threads).
 int lt_segment_fused_f32_block(LT_ARGS, int block) {
   return with_sweep_block(block, [&](auto b) {
-    return launch_fused<float, NoOps, decltype(b)::value>(LT_CALL(float), nullptr);
+    return launch_fused<float, NoOps, Narrow, decltype(b)::value>(LT_CALL(float), nullptr);
   });
 }
 
-// Resident blocks per SM (CUDA occupancy calculator) of a production
-// kernel at `ny` years and its own block size: which = 0 fused, 1 family;
-// the float32 fused kernel also at the sweep's block sizes.  Returns a
-// CUDA error code.
-int lt_segment_occupancy(int which, int f64, int ny, int block, int *blocks) {
+// As occupancy_of for the narrow (wide = 0) or wide instantiation; the
+// narrow float32 fused kernel also at the sweep's block sizes.
+int lt_segment_occupancy(int which, int f64, int ny, int block, int wide, int *blocks) {
+  if (wide) return occupancy_of<Wide>(which, f64, ny, block, blocks);
   if (which == 0 && !f64) {
     return with_sweep_block(block, [&](auto b) {
       constexpr int B = decltype(b)::value;
-      return occupancy(segment_fused_kernel<float, NoOps, B>, B, smem_bytes(ny, 4, B), blocks);
+      return occupancy(segment_fused_kernel<float, NoOps, B, Narrow>, B,
+                       smem_bytes(ny, 4, B, Narrow::NC), blocks);
     });
   }
-  constexpr int B4 = block_of<float>(), B8 = block_of<double>();
-  if (block != (f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
-  const long long b4 = smem_bytes(ny, 4, B4), b8 = smem_bytes(ny, 8, B8);
-  if (which == 0) return occupancy(segment_fused_kernel<double, NoOps, B8>, B8, b8, blocks);
-  return f64 ? occupancy(family_stats_kernel<double, NoOps, B8>, B8, b8, blocks)
-             : occupancy(family_stats_kernel<float, NoOps, B4>, B4, b4, blocks);
+  return occupancy_of<Narrow>(which, f64, ny, block, blocks);
 }
 
 #define LT_FAMILY_ARGS                                                                       \
   const void *years, const void *values, const void *mask, long long px, int ny,            \
       void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments,          \
       int overshoot, double spike, double rt, int prevent, void *stream
-#define LT_FAMILY(T, O, stats)                                                                \
-  launch_family<T, O>(years, values, mask, px, ny,                                           \
+#define LT_FAMILY(T, O, C, stats)                                                             \
+  launch_family<T, O, C>(years, values, mask, px, ny,                                        \
                       make_family_outs<T>(despiked, vmasks, sses, out_ld),                   \
                       make_params(max_segments, overshoot, spike, rt, prevent, 0.0, 1.0, 0, 0), \
                       stream, stats)
 
-int lt_family_stats_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, nullptr); }
-int lt_family_stats_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, nullptr); }
+int lt_family_stats_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, Narrow, nullptr); }
+int lt_family_stats_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, Narrow, nullptr); }
+int lt_family_stats_wide_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, Wide, nullptr); }
+int lt_family_stats_wide_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, Wide, nullptr); }
 
 // The float32 family kernel with its per-pixel operation tally.
 int lt_family_stats_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return LT_FAMILY(float, CountOps, (long long *)op_count);
+  return LT_FAMILY(float, CountOps, Narrow, (long long *)op_count);
+}
+int lt_family_stats_wide_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
+  return LT_FAMILY(float, CountOps, Wide, (long long *)op_count);
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@ Prometheus metrics registry with file and HTTP exporters, the flight
 recorder and resource sampler, the straggler detector and span helpers,
 and the :class:`Telemetry` bundle.  Event names, fields and metric names
 are the JAX package's, so its tools read this package's streams.  The
-fleet modules (``aggregate``, ``alerts``, ``history``, ``publish``,
-``reqtrace``) come with the serving layer.
+fleet telemetry plane (``publish`` → ``aggregate`` → ``history`` →
+``alerts``) is here too; ``reqtrace`` comes with the fleet router.
 """
 
 from land_trendr_tpu_torch.obs.events import (
@@ -27,6 +27,12 @@ from land_trendr_tpu_torch.obs.flight import (
     flight_path,
     thread_stacks,
 )
+from land_trendr_tpu_torch.obs.spans import (
+    SPAN_STAGES,
+    StragglerDetector,
+    assemble_pod_trace,
+    critical_path,
+)
 from land_trendr_tpu_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -35,12 +41,15 @@ from land_trendr_tpu_torch.obs.metrics import (
     MetricsRegistry,
     PromFileExporter,
 )
-from land_trendr_tpu_torch.obs.spans import (
-    SPAN_STAGES,
-    StragglerDetector,
-    assemble_pod_trace,
-    critical_path,
+from land_trendr_tpu_torch.obs.aggregate import (
+    fold_dir,
+    merge_instruments,
+    pod_sample,
+    render_prom,
 )
+from land_trendr_tpu_torch.obs.alerts import AlertEngine, AlertRule, load_rules
+from land_trendr_tpu_torch.obs.history import HistoryRing, counter_rate
+from land_trendr_tpu_torch.obs.publish import TelemetryPublisher, telemetry_dir
 from land_trendr_tpu_torch.obs.telemetry import Telemetry, metrics_path
 
 __all__ = [
@@ -66,7 +75,18 @@ __all__ = [
     "SPAN_STAGES",
     "StragglerDetector",
     "Telemetry",
+    "AlertEngine",
+    "AlertRule",
+    "HistoryRing",
+    "TelemetryPublisher",
     "assemble_pod_trace",
+    "counter_rate",
     "critical_path",
+    "fold_dir",
+    "load_rules",
+    "merge_instruments",
     "metrics_path",
+    "pod_sample",
+    "render_prom",
+    "telemetry_dir",
 ]

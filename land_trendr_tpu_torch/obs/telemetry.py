@@ -4,9 +4,7 @@ Copy of ``land_trendr_tpu/obs/telemetry.py``: the event names, fields and
 ``lt_*`` metric names are the JAX package's, so its consumers
 (``tools/check_events_schema.py``, ``tools/lt_top.py``,
 ``tools/obs_report.py``) read this package's ``events.jsonl`` and
-``metrics.prom`` unchanged.  The fleet snapshot publisher
-(``obs/publish``) is not ported yet, so the bundle takes no
-``publish_*`` arguments.
+``metrics.prom`` unchanged.
 
 One :class:`Telemetry` per ``run_stack`` call ties the two halves of
 :mod:`land_trendr_tpu_torch.obs` together and owns their lifecycles:
@@ -70,8 +68,20 @@ class Telemetry:
         job_id: str | None = None,
         trace_id: str | None = None,
         flight=None,
+        publish_dir: str | None = None,
+        publish_interval_s: float = 5.0,
+        publish_probes=None,
     ) -> None:
         os.makedirs(workdir, exist_ok=True)
+        # fleet publish (obs/publish): with ``publish_dir``, a daemon
+        # thread snapshots this registry + the host's ``publish_probes``
+        # state into <publish_dir>/<host>.<pid>.snap.json every
+        # ``publish_interval_s`` — the per-process feed the pod
+        # aggregate (obs/aggregate, tools/lt_fleet.py) folds
+        self._publish_dir = publish_dir
+        self._publish_interval_s = publish_interval_s
+        self._publish_probes = publish_probes
+        self._publisher = None
         # serve mode threads the job id — and the fleet-wide trace id
         # minted at router/serve admission — onto EVERY event of this
         # run's scope (EventLog common fields, schema-optional
@@ -388,6 +398,30 @@ class Telemetry:
                 self._server.stop()
                 self._server = None
             raise
+        if self._publish_dir:
+            from land_trendr_tpu_torch.obs.publish import TelemetryPublisher
+
+            try:
+                self._publisher = TelemetryPublisher(
+                    self._publish_dir,
+                    self.registry,
+                    probes=self._publish_probes,
+                    interval_s=self._publish_interval_s,
+                    kind="run",
+                ).start()
+            except BaseException:
+                # publisher construction failing (unwritable telemetry
+                # dir) after the exporter/server exist: release them
+                # HERE (locality, like the exporter guard) so __init__'s
+                # guard only owns the event fd; telescoped so an
+                # exporter-stop failure cannot skip the server release
+                try:
+                    self._exporter.stop()
+                finally:
+                    if self._server is not None:
+                        self._server.stop()
+                        self._server = None
+                raise
 
     # -- paths the run summary reports -------------------------------------
     @property
@@ -401,6 +435,11 @@ class Telemetry:
     @property
     def metrics_port(self) -> int | None:
         return self._server.port if self._server is not None else None
+
+    @property
+    def publish_file(self) -> str | None:
+        """The fleet snapshot this process refreshes (None = publish off)."""
+        return self._publisher.path if self._publisher is not None else None
 
     # -- driver hooks ------------------------------------------------------
     def run_start(self, **fields: Any) -> dict:
@@ -1002,11 +1041,19 @@ class Telemetry:
         metrics flush raises.
         """
         try:
-            if self._server is not None:
-                self._server.stop()
-                self._server = None
+            # the publisher stops FIRST (its final snapshot reads the
+            # registry, which outlives it; a publisher-stop failure must
+            # not skip the exporter/server/event-fd releases below)
+            if self._publisher is not None:
+                self._publisher.stop()
+                self._publisher = None
         finally:
             try:
-                self._exporter.stop()
+                if self._server is not None:
+                    self._server.stop()
+                    self._server = None
             finally:
-                self.events.close()
+                try:
+                    self._exporter.stop()
+                finally:
+                    self.events.close()

@@ -13,6 +13,12 @@ despiked series, family vertex sets, SSEs).
   (``land_trendr_tpu_torch/_build/``, named by the source's hash, so an
   edited source is rebuilt) and loaded with :mod:`ctypes`.  Nothing is
   built or imported when this module is imported.
+* **Two capacities.**  Each kernel is built twice: the narrow
+  instantiation (up to :data:`NARROW_NY` years and :data:`NARROW_NC`
+  candidates, ``max_segments + 1 + vertex_count_overshoot``), which every
+  40-year stack takes, and the wide one (up to :data:`MAX_NY` years and
+  :data:`MAX_NC` candidates, half the block).  :func:`instantiation` picks
+  one from NY and the params, and refuses above the wide caps.
 * **Launch.**  The kernel runs on PyTorch's current stream of the input's
   device, one thread per pixel.  It reads the caller's pixel-major
   ``(PX, NY)`` values and bool mask as they are (no transposed or cleaned
@@ -21,8 +27,10 @@ despiked series, family vertex sets, SSEs).
   kernel wrote.  Each block brings its contiguous slab into shared memory
   (:func:`smem_bytes` is its plan).  The C entry returns
   ``cudaGetLastError()`` and the wrapper raises on a non-zero code.  Every
-  launch of the fused kernel adds one to :data:`LAUNCHES`, every launch of
-  the family kernel one to :data:`FAMILY_LAUNCHES`, and nothing else does.
+  launch of the narrow fused kernel adds one to :data:`LAUNCHES`, of the
+  wide one to :data:`WIDE_LAUNCHES`, of the narrow and wide family kernel
+  to :data:`FAMILY_LAUNCHES` and :data:`WIDE_FAMILY_LAUNCHES`, and nothing
+  else does.
   Each launch is an NVTX range (``lt_segment_fused``, ``lt_family_stats``).
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
@@ -56,14 +64,21 @@ from land_trendr_tpu_torch.utils.profiling import nvtx_range
 
 __all__ = [
     "BLOCKS",
+    "CAPS",
     "CUDA_BLOCK",
     "FAMILY_LAUNCHES",
     "LAUNCHES",
     "MAX_NC",
     "MAX_NY",
+    "NARROW_NC",
+    "NARROW_NY",
     "SMEM_LIMIT",
     "STAGES",
     "SWEEP",
+    "WIDE_BLOCKS",
+    "WIDE_FAMILY_LAUNCHES",
+    "WIDE_LAUNCHES",
+    "block_of",
     "build_info",
     "cuda_family_op_counts",
     "cuda_family_stats",
@@ -71,6 +86,7 @@ __all__ = [
     "cuda_segment_pixels",
     "cuda_segment_pixels_chunked",
     "cuda_segment_stage_cycles",
+    "instantiation",
     "load_library",
     "occupancy",
     "smem_bytes",
@@ -80,18 +96,25 @@ __all__ = [
 #: (the counterpart of the Pallas block of the JAX package), and every
 #: kernel block is a multiple of it
 CUDA_BLOCK = 128
-#: threads per block of both kernels by value dtype: float32, the timed
-#: path, at the fastest block of the sweep that holds NY = 64 in shared
-#: memory; float64 at 128, for the same reason
+#: threads per block of both narrow kernels by value dtype: float32, the
+#: timed path, at the fastest block of the sweep that holds NY = 64 in
+#: shared memory; float64 at 128, for the same reason
 BLOCKS = {torch.float32: 256, torch.float64: 128}
+#: threads per block of both wide kernels: half the narrow blocks, so that
+#: NY = 128 fits a block's shared memory (64 still divides the chunk granule)
+WIDE_BLOCKS = {torch.float32: 128, torch.float64: 64}
 #: block sizes of the float32 fused kernel's block-size sweep: the
 #: float64 block, the float32 block, and the largest that holds NY = 40
 SWEEP = (128, 256, 512)
 #: shared-memory bytes one block may use on sm_90
 SMEM_LIMIT = 232_448
-#: compile-time capacity bounds of the kernel (checked before a launch)
-MAX_NY = 64
-MAX_NC = 16
+#: compile-time capacity bounds (years, candidates) of each instantiation,
+#: checked before a launch: the narrow one holds a vertex set in one 64-bit
+#: word, the wide one in two
+CAPS = {"narrow": (64, 16), "wide": (128, 32)}
+NARROW_NY, NARROW_NC = CAPS["narrow"]
+#: the most any instantiation holds
+MAX_NY, MAX_NC = CAPS["wide"]
 
 #: the fused kernel's stages, in the order of the columns of
 #: :func:`cuda_segment_stage_cycles`
@@ -100,11 +123,14 @@ STAGES = (
     "refit_output",
 )
 
-#: fused-kernel launches made by this process — one per launch, counted
-#: where the kernel is launched and nowhere else
+#: narrow fused-kernel launches made by this process — one per launch,
+#: counted where the kernel is launched and nowhere else
 LAUNCHES = 0
-#: family-kernel launches made by this process, counted the same way
+#: wide fused-kernel launches, counted the same way
+WIDE_LAUNCHES = 0
+#: narrow and wide family-kernel launches, counted the same way
 FAMILY_LAUNCHES = 0
+WIDE_FAMILY_LAUNCHES = 0
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "segment_fused.cu"
@@ -188,44 +214,60 @@ def load_library() -> ctypes.CDLL:
     """The kernel library, built from the repo's source at first use."""
     path, _info = _built()
     lib = ctypes.CDLL(path)
-    for name in ("lt_segment_fused_f32", "lt_segment_fused_f64"):
+    for name in ("lt_segment_fused_f32", "lt_segment_fused_f64",
+                 "lt_segment_fused_wide_f32", "lt_segment_fused_wide_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    for name in ("lt_segment_fused_f32_opcount", "lt_segment_fused_f32_stagecycles"):
+    for name in ("lt_segment_fused_f32_opcount", "lt_segment_fused_wide_f32_opcount",
+                 "lt_segment_fused_f32_stagecycles"):
         getattr(lib, name).argtypes = [*_ARGTYPES, _P]
         getattr(lib, name).restype = ctypes.c_int
     lib.lt_segment_fused_f32_block.argtypes = [*_ARGTYPES, _I]
     lib.lt_segment_fused_f32_block.restype = ctypes.c_int
-    lib.lt_segment_occupancy.argtypes = [_I, _I, _I, _I, _P]
+    lib.lt_segment_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
     lib.lt_segment_occupancy.restype = ctypes.c_int
-    lib.lt_segment_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lt_segment_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lt_segment_smem_bytes.restype = ctypes.c_longlong
-    for name in ("lt_family_stats_f32", "lt_family_stats_f64"):
+    for name in ("lt_family_stats_f32", "lt_family_stats_f64",
+                 "lt_family_stats_wide_f32", "lt_family_stats_wide_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _FAMILY_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.lt_family_stats_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P]
-    lib.lt_family_stats_f32_opcount.restype = ctypes.c_int
-    for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_nstage"):
+    for name in ("lt_family_stats_f32_opcount", "lt_family_stats_wide_f32_opcount"):
+        getattr(lib, name).argtypes = [*_FAMILY_ARGTYPES, _P]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_wide_max_ny",
+                 "lt_segment_wide_max_nc", "lt_segment_nstage"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
-    lib.lt_segment_block.restype = ctypes.c_int
-    lib.lt_segment_block.argtypes = [_I]
-    caps = (lib.lt_segment_max_ny(), lib.lt_segment_max_nc(), lib.lt_segment_nstage(),
-            lib.lt_segment_block(4), lib.lt_segment_block(8))
-    want = (MAX_NY, MAX_NC, len(STAGES), BLOCKS[torch.float32], BLOCKS[torch.float64])
+    for name in ("lt_segment_block", "lt_segment_wide_block"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [_I]
+    caps = (
+        (lib.lt_segment_max_ny(), lib.lt_segment_max_nc(),
+         lib.lt_segment_block(4), lib.lt_segment_block(8)),
+        (lib.lt_segment_wide_max_ny(), lib.lt_segment_wide_max_nc(),
+         lib.lt_segment_wide_block(4), lib.lt_segment_wide_block(8)),
+        lib.lt_segment_nstage(),
+    )
+    want = tuple(
+        (*CAPS[cap], block_of(torch.float32, cap), block_of(torch.float64, cap))
+        for cap in ("narrow", "wide")
+    ) + (len(STAGES),)
     if caps != want:
         raise RuntimeError(f"kernel capacities {caps} != wrapper's {want}")
-    for ny in (1, 2, 40, MAX_NY):
-        for elem in (4, 8):
-            for block in SWEEP:
-                got = lib.lt_segment_smem_bytes(ny, elem, block)
-                if got != _smem_plan(ny, elem, block):
-                    raise RuntimeError(
-                        f"kernel's shared-memory plan {got} B (ny={ny}, {elem}-byte values, "
-                        f"block {block}) != wrapper's {_smem_plan(ny, elem, block)} B"
-                    )
+    for wide, cap in enumerate(("narrow", "wide")):
+        for ny in (1, 2, 40, CAPS[cap][0]):
+            for elem in (4, 8):
+                for block in (*SWEEP, *WIDE_BLOCKS.values()):
+                    got = lib.lt_segment_smem_bytes(ny, elem, block, wide)
+                    plan = _smem_plan(ny, elem, block, cap)
+                    if got != plan:
+                        raise RuntimeError(
+                            f"kernel's shared-memory plan {got} B (ny={ny}, {elem}-byte "
+                            f"values, block {block}, {cap}) != wrapper's {plan} B"
+                        )
     return lib
 
 
@@ -244,27 +286,55 @@ def build_info(force: bool = False) -> dict:
     return dict(_built()[1])
 
 
-def _smem_plan(ny: int, elem: int, block: int) -> int:
+def instantiation(ny: int, params: LTParams) -> str:
+    """The kernels' instantiation that holds ``ny`` years and ``params``'
+    candidates: ``"narrow"`` up to :data:`NARROW_NY` years and
+    :data:`NARROW_NC` candidates, else ``"wide"``; raises
+    :class:`ValueError`, naming the cap, above :data:`MAX_NY` years or
+    :data:`MAX_NC` candidates."""
+    nc = params.max_candidates
+    if ny > MAX_NY:
+        raise ValueError(
+            f"NY={ny} exceeds the kernel's {MAX_NY}-year capacity"
+        )
+    if nc > MAX_NC:
+        raise ValueError(
+            f"max_segments + 1 + vertex_count_overshoot = {nc} exceeds the kernel's "
+            f"candidate capacity {MAX_NC}"
+        )
+    return "narrow" if ny <= NARROW_NY and nc <= NARROW_NC else "wide"
+
+
+def block_of(dtype: torch.dtype, cap: str = "narrow") -> int:
+    """Threads per block of both kernels of instantiation ``cap``."""
+    return (WIDE_BLOCKS if cap == "wide" else BLOCKS)[dtype]
+
+
+def _smem_plan(ny: int, elem: int, block: int, cap: str = "narrow") -> int:
     """Dynamic shared-memory bytes of one block (``smem_bytes`` in the
     source): a 16-byte mbarrier, the year axis rounded up to 16 bytes, the
     y columns (NY per thread; the mask slab lands there), and the t
-    columns (W = max(NY, MAX_NC) | 1 per thread; the value slab lands
-    there and the output staging tile reuses them)."""
-    width = max(ny, MAX_NC) | 1
+    columns (W = max(NY, NC) | 1 per thread for the instantiation's
+    candidate capacity NC; the value slab lands there and the output
+    staging tile reuses them)."""
+    width = max(ny, CAPS[cap][1]) | 1
     return 16 + (ny * elem + 15) // 16 * 16 + block * (ny + width) * elem
 
 
-def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" = None) -> int:
-    """Dynamic shared-memory bytes per block of both kernels at ``ny``
-    years for ``dtype`` values and ``block`` threads (default: the
-    dtype's block, :data:`BLOCKS`); raises :class:`ValueError` when a block
-    may not hold that much on sm_90 (more than :data:`SMEM_LIMIT` bytes)."""
+def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" = None,
+               cap: str = "narrow") -> int:
+    """Dynamic shared-memory bytes per block of both kernels of
+    instantiation ``cap`` at ``ny`` years for ``dtype`` values and
+    ``block`` threads (default: the instantiation's block for the dtype,
+    :func:`block_of`); raises :class:`ValueError` when a block may not
+    hold that much on sm_90 (more than :data:`SMEM_LIMIT` bytes)."""
     if dtype not in BLOCKS:
         raise TypeError(f"values must be float32 or float64; got {dtype}")
-    block = BLOCKS[dtype] if block is None else block
-    if not 1 <= ny <= MAX_NY:
-        raise ValueError(f"NY={ny} outside the kernel's 1..{MAX_NY}-year capacity")
-    n = _smem_plan(ny, 8 if dtype == torch.float64 else 4, block)
+    block = block_of(dtype, cap) if block is None else block
+    max_ny = CAPS[cap][0]
+    if not 1 <= ny <= max_ny:
+        raise ValueError(f"NY={ny} outside the {cap} kernel's 1..{max_ny}-year capacity")
+    n = _smem_plan(ny, 8 if dtype == torch.float64 else 4, block, cap)
     if n > SMEM_LIMIT:
         raise ValueError(
             f"a block of {block} threads at NY={ny} ({dtype}) needs {n:,} B of shared "
@@ -290,13 +360,7 @@ def _check(years: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"years must be ({ny},); got {tuple(years.shape)}")
     if not (values.is_contiguous() and mask.is_contiguous()):
         raise ValueError("values and mask must be contiguous")
-    if ny > MAX_NY:
-        raise ValueError(f"NY={ny} exceeds the kernel's {MAX_NY}-year capacity")
-    if params.max_candidates > MAX_NC:
-        raise ValueError(
-            f"max_segments + 1 + vertex_count_overshoot = {params.max_candidates} "
-            f"exceeds the kernel's candidate capacity {MAX_NC}"
-        )
+    instantiation(ny, params)
     if values.device != mask.device:
         raise ValueError(f"values on {values.device}, mask on {mask.device}")
 
@@ -317,7 +381,8 @@ class _Launch:
         self.params = params
         px, ny = values.shape
         self.px, self.ny = px, ny
-        self.smem = smem_bytes(ny, values.dtype)
+        self.cap = instantiation(ny, params)
+        self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nv, nm = params.max_vertices, params.max_segments
@@ -338,20 +403,24 @@ class _Launch:
         pixel's floating-point operation tally there, with ``cycles``
         (int64, PX x (len(STAGES) + 1)) each pixel's cycles per stage and
         their total; ``block`` (one of :data:`SWEEP`) runs the float32
-        kernel built for that block size.  Those three are float32 only."""
-        global LAUNCHES
+        kernel built for that block size.  Those three are float32 only,
+        and stage cycles and the sweep narrow only."""
+        global LAUNCHES, WIDE_LAUNCHES
         if self.dtype != torch.float32 and (
                 op_count is not None or cycles is not None or block is not None):
             raise ValueError(
                 f"op counts, stage cycles and the block sweep are float32 kernels; "
                 f"values are {self.dtype}")
+        if self.cap == "wide" and (cycles is not None or block is not None):
+            raise ValueError("stage cycles and the block sweep are narrow kernels")
         if block is not None and block not in SWEEP:
             raise ValueError(f"block {block} is not one of the sweep's {SWEEP}")
         lib = load_library()
-        fn = lib.lt_segment_fused_f64 if self.dtype == torch.float64 else lib.lt_segment_fused_f32
+        wide = "_wide" if self.cap == "wide" else ""
+        fn = getattr(lib, f"lt_segment_fused{wide}_{'f64' if self.dtype == torch.float64 else 'f32'}")
         extra = ()
         if op_count is not None:
-            fn = lib.lt_segment_fused_f32_opcount
+            fn = getattr(lib, f"lt_segment_fused{wide}_f32_opcount")
             extra = (_at(op_count, start),)
         elif cycles is not None:
             fn = lib.lt_segment_fused_f32_stagecycles
@@ -373,8 +442,11 @@ class _Launch:
                 stream, *extra,
             )
         if rc != 0:
-            raise RuntimeError(f"segment_fused launch failed: CUDA error {rc}")
-        LAUNCHES += 1
+            raise RuntimeError(f"segment_fused ({self.cap}) launch failed: CUDA error {rc}")
+        if wide:
+            WIDE_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
 
     def result(self) -> SegOutputs:
         """The tensors the kernel wrote, as they are."""
@@ -411,8 +483,9 @@ def cuda_segment_pixels(
 
     ``values`` is float32 (the production path) or float64 (for holding
     the kernel's decisions exactly against the plain version), ``mask``
-    bool, both contiguous; NY is at most 64.  CUDA tensors launch the
-    kernel; CPU tensors run the plain PyTorch version.
+    bool, both contiguous; NY and the candidates within the wide caps
+    (:func:`instantiation` picks the narrow or wide kernel).  CUDA tensors
+    launch the kernel; CPU tensors run the plain PyTorch version.
     """
     _check(years, values, mask, params)
     if values.device.type != "cuda":
@@ -499,25 +572,27 @@ def cuda_segment_stage_cycles(
 
 
 def occupancy(kernel: str = "fused", dtype: torch.dtype = torch.float32, ny: int = 40,
-              block: "int | None" = None) -> dict:
+              block: "int | None" = None, cap: str = "narrow") -> dict:
     """Resident blocks and warps per SM of ``kernel`` ("fused" or
-    "family") at ``ny`` years (CUDA occupancy calculator), with the block
-    size and its dynamic shared-memory bytes.  ``block`` defaults to the
-    dtype's (:data:`BLOCKS`); others: the float32 fused kernel of the
-    sweep only."""
+    "family") of instantiation ``cap`` at ``ny`` years (CUDA occupancy
+    calculator), with the block size and its dynamic shared-memory bytes.
+    ``block`` defaults to the instantiation's (:func:`block_of`); others:
+    the narrow float32 fused kernel of the sweep only."""
     lib = load_library()
-    block = BLOCKS[dtype] if block is None else block
+    block = block_of(dtype, cap) if block is None else block
     blocks = ctypes.c_int(0)
     which = {"fused": 0, "family": 1}[kernel]
     f64 = int(dtype == torch.float64)
-    rc = lib.lt_segment_occupancy(which, f64, ny, block, ctypes.addressof(blocks))
+    rc = lib.lt_segment_occupancy(which, f64, ny, block, int(cap == "wide"),
+                                  ctypes.addressof(blocks))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
     return {
         "kernel": kernel,
+        "cap": cap,
         "dtype": str(dtype).replace("torch.", ""),
         "block": block,
-        "smem_bytes": smem_bytes(ny, dtype, block),
+        "smem_bytes": smem_bytes(ny, dtype, block, cap),
         "blocks_per_sm": blocks.value,
         "warps_per_sm": blocks.value * block // 32,
     }
@@ -533,7 +608,8 @@ class _FamilyLaunch:
         self.params = params
         px, ny = values.shape
         self.px, self.ny = px, ny
-        self.smem = smem_bytes(ny, values.dtype)
+        self.cap = instantiation(ny, params)
+        self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nm = params.max_segments
@@ -547,12 +623,13 @@ class _FamilyLaunch:
         """Launch the family kernel on every pixel; with ``op_count``
         (int64, PX) the float32 kernel also writes each pixel's
         floating-point operation tally there."""
-        global FAMILY_LAUNCHES
+        global FAMILY_LAUNCHES, WIDE_FAMILY_LAUNCHES
         lib = load_library()
-        fn = lib.lt_family_stats_f64 if self.dtype == torch.float64 else lib.lt_family_stats_f32
+        wide = "_wide" if self.cap == "wide" else ""
+        fn = getattr(lib, f"lt_family_stats{wide}_{'f64' if self.dtype == torch.float64 else 'f32'}")
         extra = ()
         if op_count is not None:
-            fn = lib.lt_family_stats_f32_opcount
+            fn = getattr(lib, f"lt_family_stats{wide}_f32_opcount")
             extra = (op_count.data_ptr(),)
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
@@ -567,8 +644,11 @@ class _FamilyLaunch:
                 stream, *extra,
             )
         if rc != 0:
-            raise RuntimeError(f"family_stats launch failed: CUDA error {rc}")
-        FAMILY_LAUNCHES += 1
+            raise RuntimeError(f"family_stats ({self.cap}) launch failed: CUDA error {rc}")
+        if wide:
+            WIDE_FAMILY_LAUNCHES += 1
+        else:
+            FAMILY_LAUNCHES += 1
 
     def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(despiked (PX, NY), vmasks (PX, NM, NY) bool, sses (PX, NM))``

@@ -38,9 +38,13 @@ each block is uploaded to, computed on and fetched from its own device,
 and the blocks are joined on the host in pixel order before the manifest
 write.
 
-Not ported yet (the serving slice brings them): fleet publish
-(``publish``, ``publish_interval_s``, ``telemetry_dir``) and the serving
-layer's ``programs`` and ``shared_store``.
+On a CUDA device the run refuses, before it touches the workdir, a stack
+or params beyond the kernels' capacity
+(:func:`~land_trendr_tpu_torch.ops.segment_cuda.instantiation`).  A
+serving layer passes its :class:`~land_trendr_tpu_torch.serve.programs.
+ProgramCache` (``programs``): a miss pays one fully masked dummy tile
+through the upload → dispatch → fetch chain before tile 0 (the kernel
+library's load and the tile program's first launch), a hit skips it.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from land_trendr_tpu_torch.io.geotiff import GeoTiffStreamWriter
 from land_trendr_tpu_torch.obs.spans import StragglerDetector
 from land_trendr_tpu_torch.ops import indices as idx
 from land_trendr_tpu_torch.ops.change import ChangeFilter
-from land_trendr_tpu_torch.ops.segment_cuda import CUDA_BLOCK
+from land_trendr_tpu_torch.ops.segment_cuda import CUDA_BLOCK, instantiation
 from land_trendr_tpu_torch.ops.tile import process_tile_dn, resolve_impl
 from land_trendr_tpu_torch.parallel.mesh import make_mesh
 from land_trendr_tpu_torch.parallel.multihost import host_share, process_count, process_index
@@ -213,9 +217,9 @@ class _StallWatchdog:
 class RunConfig:
     """Everything that defines a segmentation run over one stack.
 
-    The JAX package's fields (all but fleet publish), with the same
-    names, defaults and meanings; see ``land_trendr_tpu/runtime/driver.py``
-    for the full discussion of each.  Only the run-defining fields enter
+    The JAX package's fields, with the same names, defaults and meanings;
+    see ``land_trendr_tpu/runtime/driver.py`` for the full discussion of
+    each.  Only the run-defining fields enter
     :meth:`fingerprint`; the rest are execution facts.  The tunable knobs
     (``tile_size``, ``chunk_px``, ``fetch_depth``, ``upload_depth``,
     ``feed_workers``, ``decode_workers``, ``feed_cache_mb``) also take
@@ -362,6 +366,17 @@ class RunConfig:
     flight_ring_events: int = 2048
     #: flight resource-sampler period, seconds
     sampler_interval_s: float = 5.0
+    #: with ``telemetry``: fleet telemetry publish (:mod:`land_trendr_tpu_torch.
+    #: obs.publish`) — periodically snapshot this process's metrics registry
+    #: and live progress/straggler/quarantine state into an atomic
+    #: ``<telemetry_dir>/<host>.<pid>.snap.json``, the per-process feed the
+    #: pod aggregate folds.  An execution fact, never fingerprinted; a failed
+    #: beat is a skipped beat, never a failed run.
+    publish: bool = False
+    #: fleet snapshot refresh period, seconds
+    publish_interval_s: float = 5.0
+    #: shared telemetry directory override (default ``<workdir>/telemetry``)
+    telemetry_dir: "str | None" = None
     #: tuning store (:mod:`land_trendr_tpu_torch.tune`, written by ``lt
     #: tune``) the "auto" knobs resolve through at Run construction; a key
     #: miss or ``None`` gives the defaults above
@@ -470,6 +485,19 @@ class RunConfig:
             )
         if self.sampler_interval_s <= 0:
             raise ValueError(f"sampler_interval_s={self.sampler_interval_s} must be > 0")
+        if self.publish and not self.telemetry:
+            raise ValueError(
+                "publish requires telemetry=True (the fleet snapshot is "
+                "a dump of the telemetry registry; there is nothing to "
+                "publish without one)"
+            )
+        if self.publish_interval_s <= 0:
+            raise ValueError(f"publish_interval_s={self.publish_interval_s} must be > 0")
+        if self.telemetry_dir is not None and not self.publish:
+            raise ValueError(
+                "telemetry_dir requires publish=True (there is no "
+                "snapshot to place without a publisher)"
+            )
         if not isinstance(self.max_retries, int) or self.max_retries < 0:
             raise ValueError(f"max_retries={self.max_retries!r} must be an integer >= 0")
         if self.retry_backoff_s < 0:
@@ -673,8 +701,10 @@ class Run:
 
     ``on_tile_durable(tile, arrays, meta)`` is called on the writer thread
     once a tile's artifact is durable; its errors are logged, never the
-    tile's.  ``programs`` and ``shared_store`` are the serving layer's and
-    must be ``None`` until it is ported.
+    tile's.  ``programs`` (a :class:`~land_trendr_tpu_torch.serve.programs.
+    ProgramCache`) admits warm programs across runs; ``shared_store`` is a
+    serving layer's long-lived ingest store (used, never closed; implies
+    ``shared_cache``).
 
     ``mesh`` (a list of devices of ``device``'s type, see
     :func:`~land_trendr_tpu_torch.parallel.make_mesh`) shards every tile's
@@ -705,12 +735,10 @@ class Run:
         flight=None,
         on_tile_durable=None,
     ) -> None:
-        if programs is not None or shared_store is not None:
-            raise ValueError(
-                "programs and shared_store belong to the serving layer, "
-                "which this package does not have yet; pass None"
-            )
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the kernels' capacity, refused before the workdir is touched
+            instantiation(stack.n_years, cfg.params)
         self.mesh = make_mesh(mesh) if mesh is not None else None
         if self.mesh is not None and self.mesh[0].type != self.device.type:
             raise ValueError(
@@ -733,12 +761,13 @@ class Run:
         self.cancel = cancel
         self.programs = programs
         self.shared_store = shared_store
-        self.shared_cache = bool(shared_cache)
-        if self.shared_cache and cfg.ingest_store_mb:
+        self.shared_cache = bool(shared_cache or shared_store is not None)
+        if self.shared_cache and shared_store is None and cfg.ingest_store_mb:
             raise ValueError(
                 "ingest_store_mb is set but the process cache is caller-"
-                "owned (shared_cache=True): drop ingest_store_mb from this "
-                "run's config"
+                "owned (shared_cache=True): pass the caller's store via "
+                "shared_store, or drop ingest_store_mb from this run's "
+                "config"
             )
         self.flight = flight
         self.owns_flight = False
@@ -782,6 +811,8 @@ class Run:
         self.quarantined: "list[int]" = []
         self.fault_plan = None
         self.summary: "dict | None" = None
+        #: this run's warm-program verdict (``programs`` runs only)
+        self.program_stats: "dict | None" = None
         #: high watermark of the device allocator's live bytes at tile
         #: completions — the ``lt_device_bytes_peak`` gauge's value on
         #: telemetry runs (None on the CPU)
@@ -847,6 +878,18 @@ class Run:
         if dev is not None:
             out["device_bytes_in_use"] = dev
         return out
+
+    def _publish_probes(self) -> dict:
+        """The ``state`` block of this run's fleet snapshot: the live
+        progress dict plus the straggler/quarantine verdicts (read-only:
+        the snapshot observes, the sampler judges)."""
+        return {
+            "progress": dict(self.progress),
+            "stragglers": self.straggler.stats()["stragglers"],
+            "tiles_quarantined": len(self.quarantined),
+            "job_id": self.job_id,
+            **({"tune": self.tune_info} if self.tune_info else {}),
+        }
 
     def _dump_flight(self) -> "str | None":
         """Dump an OWNED ring to ``<workdir>/flight.jsonl``, best-effort."""
@@ -1349,8 +1392,8 @@ class Run:
         # the feed-path decode subsystem (process-wide): decoded-block LRU +
         # shared decode pool + readahead, and with ingest_store_mb the
         # persistent store behind it — acceleration only, byte-identical
-        store = None
-        owns_store = bool(cfg.ingest_store_mb)
+        store = self.shared_store
+        owns_store = store is None and bool(cfg.ingest_store_mb)
 
         def _release_setup() -> None:
             feeder.shutdown(wait=False, cancel_futures=True)
@@ -1385,6 +1428,7 @@ class Run:
 
         if cfg.telemetry:
             from land_trendr_tpu_torch.obs import Telemetry
+            from land_trendr_tpu_torch.obs import publish as obs_publish
 
             try:
                 # per-process port fan-out (port + process_index), like the
@@ -1403,6 +1447,14 @@ class Run:
                     job_id=self.job_id,
                     trace_id=self.trace_id,
                     flight=self.flight,
+                    # the per-process snapshot feed the pod aggregate folds
+                    # (stopped in close(), success and abort alike)
+                    publish_dir=(
+                        (cfg.telemetry_dir or obs_publish.telemetry_dir(cfg.workdir))
+                        if cfg.publish else None
+                    ),
+                    publish_interval_s=cfg.publish_interval_s,
+                    publish_probes=self._publish_probes,
                 )
             except BaseException:
                 _release_setup()
@@ -1609,8 +1661,67 @@ class Run:
                 watchdog.tick()
             time.sleep(min(0.5, max(cfg.lease_ttl_s / 8.0, 0.05)))
 
+        def _warm_programs() -> dict:
+            # serve-mode warm program cache: on a MISS the run pays the
+            # kernel library's load and the tile program's first launch NOW,
+            # on one fully masked dummy tile pushed through the upload ->
+            # dispatch -> fetch chain; on a HIT the dummy is skipped.  The
+            # key names the card and the kernel instantiation.
+            ny = int(stack.n_years)
+            key = self.programs.key_for(
+                fingerprint=manifest.fingerprint,
+                device=(torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+                impl=impl_resolved,
+                kernel=instantiation(ny, cfg.params) if impl_resolved == "cuda" else None,
+                mesh_devices=n_mesh,
+                feed_px=int(feed_px),
+                ny=ny,
+                chunk=chunk,
+                fetch_packed=bool(fetcher.packed),
+                upload_packed=bool(uploader.packed),
+                dtypes={
+                    name: str(np.dtype(stack.dn_bands[name].dtype)) for name in bands
+                } | {"qa": str(np.dtype(stack.qa.dtype))},
+            )
+            t0_warm = time.perf_counter()
+            hit = self.programs.admit(key)
+            probe_ok = True
+            if not hit:
+                try:
+                    dummy_dn = {
+                        name: np.zeros((feed_px, ny), dtype=stack.dn_bands[name].dtype)
+                        for name in bands
+                    }
+                    # QA fill bit everywhere: every pixel is masked
+                    dummy_qa = np.full((feed_px, ny), 1, dtype=stack.qa.dtype)
+                    w_dn, w_qa = uploader.start(dummy_dn, dummy_qa).arrays()
+                    work, w_err = _dispatch(w_dn, w_qa)
+                    if w_err is not None:
+                        raise w_err
+                    w_handle, w_evs = work
+                    for ev in w_evs:
+                        fetchmod.wait_event(ev)
+                    w_handle.wait()
+                    _note_fetch_ok()
+                except Exception as e:
+                    # a failed probe is not a failed run: tile 0 pays the
+                    # first launch inline, and the key stays unregistered
+                    probe_ok = False
+                    log.warning("program warm probe failed (%s); first tile warms inline", e)
+            if watchdog is not None:
+                watchdog.tick()  # the probe was progress
+            compile_s = 0.0 if hit else time.perf_counter() - t0_warm
+            self.programs.record(key, hit=hit, compile_s=compile_s, ok=probe_ok)
+            return {"hits": int(hit), "misses": int(not hit), "compile_s": round(compile_s, 6)}
+
+        program_stats = None
         run_ok = False
         try:
+            if self.programs is not None:
+                # inside the guarded try: an interrupt mid-probe unwinds
+                # through the normal abort path
+                self.progress["phase"] = "warmup"
+                program_stats = self.program_stats = _warm_programs()
             self.progress["phase"] = "pipeline"
             next_i = 0
             if lease_q is not None:
@@ -1748,6 +1859,8 @@ class Run:
                         telemetry.upload(uploader.summary())
                         if store is not None:
                             telemetry.ingest_store(store.stats_delta(store_base))
+                        if program_stats is not None:
+                            telemetry.program_cache(program_stats)
                         lease_stats = lease_q.stats() if lease_q is not None else None
                         if lease_stats is not None:
                             telemetry.lease_summary(lease_stats)
@@ -1823,6 +1936,8 @@ class Run:
         summary["upload"] = uploader.summary()
         if store is not None:
             summary["ingest_store"] = store.stats_delta(store_base)
+        if program_stats is not None:
+            summary["program_cache"] = program_stats
         try:
             if telemetry is not None:
                 if cfg.feed_cache_mb:
@@ -1831,6 +1946,8 @@ class Run:
                 telemetry.upload(summary["upload"])
                 if store is not None:
                     telemetry.ingest_store(summary["ingest_store"])
+                if program_stats is not None:
+                    telemetry.program_cache(program_stats)
                 if lease_q is not None:
                     telemetry.lease_summary(summary["lease"])
                 try:
@@ -1853,6 +1970,8 @@ class Run:
                     }
                     if telemetry.metrics_port is not None:
                         summary["telemetry"]["metrics_port"] = telemetry.metrics_port
+                    if telemetry.publish_file is not None:
+                        summary["telemetry"]["snapshot"] = telemetry.publish_file
                     telemetry.close()
                     faults.set_observer(None)
                     flight_file = self._dump_flight()

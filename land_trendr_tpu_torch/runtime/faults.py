@@ -11,11 +11,9 @@ never cost the other 10k; the plans below are how every "must never"
 becomes a unit test.
 
 Seams (the public contract — hosts call :func:`check` / :func:`fired` /
-:func:`corrupt` with these names).  This package hosts the feed, decode,
-cache, store, upload, dispatch, compute, fetch and manifest seams; the
-others (leases, merge, serve, debug, publish, history, router, replica,
-tune, loadgen, batch, journal, recover) are declared so schedules stay
-interchangeable, and fire once their subsystems are ported:
+:func:`corrupt` with these names).  Every seam is declared so schedules
+stay interchangeable; those of subsystems this package does not have yet
+(router, replica, loadgen, journal, recover) never fire:
 
 =================== =======================================================
 ``feed``            driver feed job (any stack; ``runtime/driver.py``)
@@ -416,14 +414,17 @@ _active: "FaultPlan | None" = None
 
 def activate(plan: FaultPlan) -> FaultPlan:
     """Install ``plan`` as the process's active schedule and register
-    the io-layer hook (:func:`land_trendr_tpu_torch.io.blockcache.
-    set_fault_plan` for the decode-path seams) so that layer sees it
-    without importing ``runtime/``."""
+    the layer hooks (:func:`land_trendr_tpu_torch.io.blockcache.
+    set_fault_plan` for the decode-path seams, :func:`land_trendr_tpu_torch.
+    obs.publish.set_fault_plan` for the fleet-telemetry seams) so those
+    layers see it without importing ``runtime/``."""
     global _active
     _active = plan
     from land_trendr_tpu_torch.io import blockcache
+    from land_trendr_tpu_torch.obs import publish as obs_publish
 
     blockcache.set_fault_plan(plan)
+    obs_publish.set_fault_plan(plan)
     return plan
 
 
@@ -431,8 +432,10 @@ def deactivate() -> None:
     global _active
     _active = None
     from land_trendr_tpu_torch.io import blockcache
+    from land_trendr_tpu_torch.obs import publish as obs_publish
 
     blockcache.set_fault_plan(None)
+    obs_publish.set_fault_plan(None)
 
 
 def active() -> "FaultPlan | None":

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``tools/tpu_probe.py`` (its ``stages``
 and ``scaling`` subcommands)::
 
-    python -m land_trendr_tpu_torch.tools.probe stages  [--px 262144] [--device cuda]
+    python -m land_trendr_tpu_torch.tools.probe stages  [--px 262144] [--ny 40] [--device cuda]
     python -m land_trendr_tpu_torch.tools.probe scaling [--px-list 4096,65536,262144]
     python -m land_trendr_tpu_torch.tools.probe kernel  [--px 262144] [--reps 20]
 
@@ -56,8 +56,8 @@ __all__ = ["kernel", "kernel_report", "main", "scaling", "stages"]
 NY = 40
 
 
-def _inputs(px: int, dev: torch.device):
-    years, vals, mask = make_population(np.random.default_rng(7), px, NY)
+def _inputs(px: int, dev: torch.device, ny: int = NY):
+    years, vals, mask = make_population(np.random.default_rng(7), px, ny)
     return (
         torch.from_numpy(years).to(dev),
         torch.from_numpy(vals.astype(np.float32)).to(dev),
@@ -102,14 +102,15 @@ def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def stages(px: int = 262_144, device: str = "cuda", reps: int = 5) -> dict:
-    """Time the four variants at ``px`` pixels; the probe's result dict."""
+def stages(px: int = 262_144, device: str = "cuda", reps: int = 5, ny: int = NY) -> dict:
+    """Time the four variants at ``px`` pixels of ``ny`` years (above 64 the
+    kernels' wide instantiation); the probe's result dict."""
     dev = resolve_device(device)
-    years, vals, mask = _inputs(px, dev)
+    years, vals, mask = _inputs(px, dev, ny)
     out = {
         "probe": "stages",
         "px": px,
-        "ny": NY,
+        "ny": ny,
         "reps": reps,
         "device": str(dev),
         "device_name": _device_name(dev),
@@ -207,6 +208,7 @@ def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe", choices=["stages", "scaling", "kernel"])
     ap.add_argument("--px", type=int, default=262_144)
+    ap.add_argument("--ny", type=int, default=NY, help="years of the stages population")
     ap.add_argument("--px-list", type=lambda s: [int(x) for x in s.split(",")],
                     default=[4096, 65536, 262144])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -214,7 +216,7 @@ def main(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--out", type=str, default=None, help="also write the JSON line here")
     args = ap.parse_args(argv)
     if args.probe == "stages":
-        res = stages(args.px, args.device, args.reps)
+        res = stages(args.px, args.device, args.reps, args.ny)
     elif args.probe == "kernel":
         res = kernel(args.px, args.reps)
     else:

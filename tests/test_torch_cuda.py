@@ -80,15 +80,29 @@ def test_rejects_non_contiguous(rng):
 
 
 def test_rejects_more_than_64_years(rng):
+    # 65 years take the wide kernel (the plain version here); 129 are
+    # beyond every instantiation
     years, vals, mask = _inputs(rng, ny=65)
-    with pytest.raises(ValueError, match="64-year"):
+    assert sc.instantiation(65, LTParams()) == "wide"
+    got = sc.cuda_segment_pixels(years, vals, mask)
+    ref = torch_segment_pixels(years, vals, mask)
+    for name, a, b in zip(got._fields, got, ref):
+        assert torch.equal(a, b), name
+    years, vals, mask = _inputs(rng, ny=129)
+    with pytest.raises(ValueError, match="128-year"):
         sc.cuda_segment_pixels(years, vals, mask)
 
 
 def test_rejects_params_beyond_capacity(rng):
     years, vals, mask = _inputs(rng)
     params = LTParams(max_segments=10, vertex_count_overshoot=6)  # 17 candidates
-    with pytest.raises(ValueError, match="candidate capacity"):
+    assert sc.instantiation(40, params) == "wide"
+    got = sc.cuda_segment_pixels(years, vals, mask, params)
+    ref = torch_segment_pixels(years, vals, mask, params)
+    for name, a, b in zip(got._fields, got, ref):
+        assert torch.equal(a, b), name
+    params = LTParams(max_segments=26, vertex_count_overshoot=6)  # 33 candidates
+    with pytest.raises(ValueError, match="candidate capacity 32"):
         sc.cuda_segment_pixels(years, vals, mask, params)
 
 
@@ -229,6 +243,65 @@ def test_family_kernel_op_counts_on_card(rng, card):
     years, vals, mask = (x.to(card) for x in _inputs(rng, px=512))
     ops = sc.cuda_family_op_counts(years, vals, mask)
     assert ops.shape == (512,) and int(ops.min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "ny,over",
+    [
+        (65, {}),
+        (128, {}),
+        (40, {"max_segments": 10, "vertex_count_overshoot": 6}),   # 17 candidates
+        (64, {"max_segments": 25, "vertex_count_overshoot": 6}),   # 32 candidates
+    ],
+)
+def test_wide_kernels_match_plain_on_card(rng, card, dtype, ny, over):
+    # beyond the narrow caps the wrapper takes the wide instantiation of
+    # both kernels; 1000 px leave a ragged last block at either block size
+    params = LTParams(**over)
+    assert sc.instantiation(ny, params) == "wide"
+    years, vals, mask = (x.to(card) for x in _inputs(rng, px=1000, ny=ny, dtype=dtype))
+    before = (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES)
+    got = sc.cuda_segment_pixels(years, vals, mask, params)
+    desp, vm, sse = sc.cuda_family_stats(years, vals, mask, params)
+    torch.cuda.synchronize()
+    assert (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES) == (
+        before[0], before[1] + 1, before[2], before[3] + 1)
+    ref = torch_segment_pixels(years, vals, mask, params)
+    agree = _decisions(got, ref)
+    rdesp, rvm, rsse = torch_family_stats(years, vals, mask, params)
+    fagree = (vm == rvm).all(dim=(1, 2))
+    if dtype == torch.float64:
+        assert bool(agree.all()) and bool(fagree.all())
+    else:
+        assert float(agree.float().mean()) >= 0.999
+        assert float(fagree.float().mean()) >= 0.999
+    atol = 1e-8 if dtype == torch.float64 else 1e-5
+    pairs = [(getattr(got, n)[agree], getattr(ref, n)[agree]) for n in got._fields]
+    pairs += [(desp[fagree], rdesp[fagree]), (sse[fagree], rsse[fagree])]
+    for x, y in pairs:
+        if not x.dtype.is_floating_point:
+            assert torch.equal(x, y)
+            continue
+        assert torch.equal(x.isfinite(), y.isfinite())
+        assert torch.equal(x.isnan(), y.isnan())
+        fin = x.isfinite()
+        if bool(fin.any()):
+            assert float((x[fin] - y[fin]).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,over", [(129, {}), (40, {"max_segments": 26, "vertex_count_overshoot": 6})])
+def test_beyond_the_wide_caps_is_refused_on_card(rng, card, ny, over):
+    params = LTParams(**over)
+    years, vals, mask = (x.to(card) for x in _inputs(rng, px=256, ny=ny))
+    before = (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES)
+    with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
+        sc.cuda_segment_pixels(years, vals, mask, params)
+    with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
+        sc.cuda_family_stats(years, vals, mask, params)
+    assert (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------

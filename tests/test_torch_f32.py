@@ -204,3 +204,76 @@ def test_lentz_iters_rule(ny, iters):
     from land_trendr_tpu.ops.segment import _lentz_iters
 
     assert lentz_iters(ny) == _lentz_iters(ny) == iters
+
+
+def _scene_nbr(spec: dict):
+    """A synthetic scene's NBR series as the port's tile program makes them
+    (float32 reflectance from DNs, QA and range masks), as float64 numpy."""
+    from land_trendr_tpu.io.synthetic import SceneSpec, make_stack
+    from land_trendr_tpu_torch.ops import indices as idx
+
+    st = make_stack(SceneSpec(**spec))
+    ny, px = len(st.years), spec["width"] * spec["height"]
+    sr = {
+        b: idx.scale_sr(torch.from_numpy(np.ascontiguousarray(st.dn(b).reshape(ny, px).T)),
+                        2.75e-5, -0.2)
+        for b in ("nir", "swir2")
+    }
+    qa = torch.from_numpy(np.ascontiguousarray(st.qa.reshape(ny, px).T.astype(np.uint16)))
+    mask = (idx.qa_valid_mask(qa, idx.DEFAULT_QA_REJECT) & idx.sr_valid_mask(sr)).numpy()
+    vals = idx.compute_index("nbr", sr).numpy().astype(np.float64)
+    return st.years.astype(np.float64), vals, mask
+
+
+@pytest.mark.parametrize(
+    "scene,spec,over",
+    [
+        # the 9-year, 4-segment job of tests/test_torch_serve.py
+        ("serve_9yr", dict(width=40, height=40, year_start=2000, year_end=2008, seed=3),
+         dict(max_segments=4, vertex_count_overshoot=2)),
+        ("default_40yr", dict(width=40, height=40, seed=3), {}),
+    ],
+)
+def test_f32_fit_tail_against_float64_on_scenes(scene, spec, over, capsys):
+    """The float32 tail of the fitted vertex values against the float64
+    truth, the port's beside the JAX XLA kernel's, on two synthetic scenes
+    (the numbers of ROADMAP section 3.2; run with ``-s`` to print them).
+
+    Decisions agree exactly in float64 and on >= 99.9% in float32, and the
+    JAX package's tail stays inside its own 1e-5 contract.  The port's tail
+    is the open fault of ROADMAP 3.2 (about twice the JAX package's); it is
+    held to that fault's measured envelope, p99.9 <= 2e-5, so that it does
+    not grow unseen; a fix brings it under 1e-5."""
+    years, vals, mask = _scene_nbr(spec)
+    params = LTParams(**over)
+    jp = JLTParams(**params.to_dict())
+    out = {}
+    for dt in (np.float32, np.float64):
+        t = torch_segment_pixels(torch.from_numpy(years.astype(dt)),
+                                 torch.from_numpy(vals.astype(dt)), torch.from_numpy(mask), params)
+        j = jax_segment_pixels(years.astype(dt), vals.astype(dt), mask, jp)
+        out[dt] = ({k: v.numpy() for k, v in t._asdict().items()},
+                   {k: np.asarray(v) for k, v in j._asdict().items()})
+    (t32, j32), (t64, j64) = out[np.float32], out[np.float64]
+    for k in ("vertex_indices", "n_vertices", "model_valid"):
+        np.testing.assert_array_equal(t64[k], j64[k], err_msg=k)
+
+    def same(a, b):
+        return ((a["model_valid"] == b["model_valid"]) & (a["n_vertices"] == b["n_vertices"])
+                & (a["vertex_indices"] == b["vertex_indices"]).all(axis=1))
+
+    agree = same(t32, j64) & same(j32, j64)
+    assert agree.mean() >= 0.999, agree.mean()
+
+    def diff(a, b):
+        d = np.abs(a["vertex_fit_vals"].astype(np.float64) - b["vertex_fit_vals"])[agree]
+        return d[np.isfinite(d)]
+
+    port, jax_, cross = diff(t32, j64), diff(j32, j64), diff(t32, j32)
+    with capsys.disabled():
+        print(f"\n{scene}: vertex_fit_vals against float64, p99.9 port "
+              f"{np.quantile(port, 0.999):.3g} / JAX {np.quantile(jax_, 0.999):.3g}, max "
+              f"{port.max():.3g} / {jax_.max():.3g}; port against JAX float32: "
+              f"{(cross > 1e-5).mean():.2%} beyond 1e-5, max {cross.max():.3g}")
+    assert np.quantile(jax_, 0.999) <= 1e-5
+    assert np.quantile(port, 0.999) <= 2e-5

@@ -188,9 +188,10 @@ def test_cuda_family_stats_checks_inputs():
     with pytest.raises(TypeError, match="float32 or float64"):
         sc.cuda_family_stats(torch.from_numpy(years), torch.from_numpy(vals).half(),
                              torch.from_numpy(mask))
-    with pytest.raises(ValueError, match="64-year"):
-        sc.cuda_family_stats(torch.arange(70), torch.zeros((8, 70)),
-                             torch.ones((8, 70), dtype=torch.bool))
+    # 70 years take the wide kernel now; 129 are beyond every instantiation
+    with pytest.raises(ValueError, match="128-year"):
+        sc.cuda_family_stats(torch.arange(129), torch.zeros((8, 129)),
+                             torch.ones((8, 129), dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA"):
         sc.cuda_family_op_counts(torch.from_numpy(years),
                                  torch.from_numpy(vals).float(), torch.from_numpy(mask))

@@ -82,6 +82,16 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.tune.store",
     "land_trendr_tpu_torch.tune.probes",
     "land_trendr_tpu_torch.tune.autotune",
+    "land_trendr_tpu_torch.obs.publish",
+    "land_trendr_tpu_torch.obs.history",
+    "land_trendr_tpu_torch.obs.alerts",
+    "land_trendr_tpu_torch.obs.aggregate",
+    "land_trendr_tpu_torch.serve",
+    "land_trendr_tpu_torch.serve.programs",
+    "land_trendr_tpu_torch.serve.jobs",
+    "land_trendr_tpu_torch.serve.config",
+    "land_trendr_tpu_torch.serve.batching",
+    "land_trendr_tpu_torch.serve.server",
 ]
 
 
@@ -103,6 +113,7 @@ def test_main_path_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert "land_trendr_tpu_torch.runtime.driver" in res["port"]
+    assert "land_trendr_tpu_torch.serve.server" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -111,7 +122,10 @@ def test_main_path_loads_no_jax():
      "obs/flight.py", "io/blockcache.py", "io/blockstore.py", "runtime/faults.py",
      "models/oracle.py", "ops/composite.py", "utils/profiling.py",
      "runtime/leases.py", "parallel/mesh.py", "parallel/multihost.py",
-     "tune/store.py", "tune/probes.py", "tune/autotune.py"],
+     "tune/store.py", "tune/probes.py", "tune/autotune.py",
+     "obs/publish.py", "obs/history.py", "obs/alerts.py", "obs/aggregate.py",
+     "serve/__init__.py", "serve/programs.py", "serve/jobs.py", "serve/config.py",
+     "serve/batching.py", "serve/server.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module

@@ -68,6 +68,85 @@ def test_block_sizes_are_multiples_of_the_chunk_granule():
     assert sc.BLOCKS == {torch.float32: 256, torch.float64: 128}
     assert all(b % sc.CUDA_BLOCK == 0 for b in sc.BLOCKS.values())
     assert set(sc.BLOCKS.values()) <= set(sc.SWEEP)
+    # the wide blocks are half the narrow ones and divide the granule, so a
+    # chunk still splits into whole blocks of either instantiation
+    assert sc.WIDE_BLOCKS == {torch.float32: 128, torch.float64: 64}
+    assert all(sc.CUDA_BLOCK % b == 0 for b in sc.WIDE_BLOCKS.values())
+    for dtype in (torch.float32, torch.float64):
+        assert sc.block_of(dtype, "narrow") == sc.BLOCKS[dtype]
+        assert sc.block_of(dtype, "wide") == sc.WIDE_BLOCKS[dtype]
+
+
+# the wide plan: the same layout with the staging width max(NY, 32) | 1, at
+# the wide blocks (128 float32, 64 float64); NY = 128 fits both
+@pytest.mark.parametrize(
+    "dtype,ny,want",
+    [
+        (torch.float32, 1, 17_440),
+        (torch.float32, 65, 66_848),
+        (torch.float32, 72, 74_544),
+        (torch.float32, 128, 132_112),
+        (torch.float64, 1, 17_440),
+        (torch.float64, 65, 67_104),
+        (torch.float64, 128, 132_624),
+    ],
+)
+def test_wide_smem_bytes_per_block(dtype, ny, want):
+    assert sc.smem_bytes(ny, dtype, cap="wide") == want
+    assert want <= sc.SMEM_LIMIT
+
+
+def test_wide_plan_rejects_the_narrow_block_at_128_years():
+    # a 256-thread float32 block at NY = 128 would need 263,696 B
+    with pytest.raises(ValueError, match="263,696"):
+        sc.smem_bytes(128, torch.float32, 256, cap="wide")
+    with pytest.raises(ValueError, match="1..128-year"):
+        sc.smem_bytes(129, torch.float32, cap="wide")
+    with pytest.raises(ValueError, match="1..64-year"):
+        sc.smem_bytes(65, torch.float32)
+
+
+def _cands(nc: int) -> LTParams:
+    return LTParams(max_segments=nc - 4, vertex_count_overshoot=3)
+
+
+@pytest.mark.parametrize(
+    "ny,nc,want",
+    [
+        (64, 16, "narrow"),
+        (65, 16, "wide"),
+        (128, 16, "wide"),
+        (129, 16, None),
+        (40, 17, "wide"),
+        (64, 32, "wide"),
+        (128, 32, "wide"),
+        (40, 33, None),
+    ],
+)
+def test_instantiation_from_years_and_candidates(ny, nc, want):
+    params = _cands(nc)
+    assert params.max_candidates == nc
+    if want is None:
+        with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
+            sc.instantiation(ny, params)
+        return
+    assert sc.instantiation(ny, params) == want
+    # the launch plan follows the instantiation
+    years, vals, mask = _inputs(9, 8, ny)
+    job = sc._Launch(years, vals, mask, params)
+    fjob = sc._FamilyLaunch(years, vals, mask, params)
+    assert job.cap == fjob.cap == want
+    assert job.smem == fjob.smem == sc.smem_bytes(ny, torch.float32, cap=want)
+
+
+@pytest.mark.parametrize("kw", ["cycles", "block"])
+def test_wide_jobs_reject_the_narrow_only_entries(kw):
+    years, vals, mask = _inputs(4, 32, 72)
+    job = sc._Launch(years, vals, mask, LTParams())
+    assert job.cap == "wide"
+    arg = 256 if kw == "block" else torch.zeros((32, 7), dtype=torch.int64)
+    with pytest.raises(ValueError, match="narrow kernels"):
+        job.run(0, 32, **{kw: arg})
 
 
 # ---------------------------------------------------------------------------

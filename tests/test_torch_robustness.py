@@ -251,10 +251,24 @@ def test_backoff_capped_after_jitter(stack, tmp_path, monkeypatch):
 
 
 def test_serving_only_parameters_are_none_only(stack, tmp_path):
-    with pytest.raises(ValueError, match="serving layer"):
-        Run(stack, make_cfg(str(tmp_path)), device="cpu", programs=object())
-    with pytest.raises(ValueError, match="serving layer"):
-        Run(stack, make_cfg(str(tmp_path)), device="cpu", shared_store=object())
+    # the serving layer's parameters, None-only until serve/ was ported, are
+    # wired as the JAX package's: a ProgramCache admits warm programs (a
+    # miss pays the warm-up tile, a hit none), a shared store implies a
+    # caller-owned cache, and ingest_store_mb against a caller-owned cache
+    # without the caller's store is a config conflict
+    from land_trendr_tpu_torch.serve import ProgramCache
+
+    pc = ProgramCache()
+    seen = []
+    for i in range(2):
+        run = Run(stack, make_cfg(str(tmp_path / f"r{i}")), device="cpu", programs=pc)
+        stats = run.execute()["program_cache"]
+        seen.append({k: stats[k] for k in ("hits", "misses")})
+    assert seen == [{"hits": 0, "misses": 1}, {"hits": 1, "misses": 0}]
+    assert pc.stats()["keys"] == 1
+    assert Run(stack, make_cfg(str(tmp_path)), device="cpu", shared_store=object()).shared_cache
+    with pytest.raises(ValueError, match="shared_store"):
+        Run(stack, make_cfg(str(tmp_path), ingest_store_mb=8), device="cpu", shared_cache=True)
 
 
 def test_quarantined_tile_recorded_failed_in_manifest(stack, tmp_path):
