@@ -1,7 +1,6 @@
 """Command-line driver for the PyTorch/CUDA package.
 
-Counterpart of ``land_trendr_tpu/cli.py`` for the commands this package
-ports so far:
+Counterpart of ``land_trendr_tpu/cli.py``:
 
 ``segment``   stack directory → segment rasters (the main pipeline), with
               optional FTV rasters (``--ftv``) and fused change maps
@@ -16,6 +15,13 @@ ports so far:
               bounded job queue over a loopback HTTP JSON API and a
               filesystem drop-box, admission control, cancel and
               timeouts, cross-job batching and the fleet telemetry loop
+``route``     the serving-fleet router: one loopback front door over N
+              ``serve`` replicas (spawned or adopted), warm-affinity
+              routing, tenant quotas and fair share, re-routing on a
+              replica's death, a write-ahead admission journal and
+              SLO-driven autoscaling
+``load``      drive a running router with a seeded trace (open- or
+              closed-loop) and report every request's trace id
 ``tune``      probe the execution knobs on the device and persist the
               winning profile to a tuning store (a stored key reloads with
               zero probes)
@@ -33,9 +39,8 @@ PyTorch version; for tests and debugging only).  ``--device cuda`` on a
 machine without a usable card fails with a clear error; it never carries
 on on the CPU (``change`` runs its selector there too, ``--composite``
 its selection).  The device also decides the segmentation implementation,
-so there is no ``--impl``.  The fleet router and load generator
-(``route``, ``load``), which this package does not implement yet, are
-rejected as unknown commands.
+so there is no ``--impl``.  ``route`` spawns its replicas with the
+card as their device unless ``--replica-args`` passes ``--device cpu``.
 
 Exit codes of ``segment``: 2 config/usage error, 3 a tile exhausted its
 retries or was quarantined (a re-run resumes exactly the missing tiles),
@@ -48,6 +53,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 
 from land_trendr_tpu_torch.config import LTParams
@@ -55,6 +61,13 @@ from land_trendr_tpu_torch.ops.indices import DEFAULT_QA_REJECT, INDEX_NAMES
 from land_trendr_tpu_torch.runtime.manifest import ARTIFACT_COMPRESS
 
 __all__ = ["main", "build_parser", "run"]
+
+
+def _sigterm_to_interrupt(signum, frame):
+    """SIGTERM → KeyboardInterrupt: the long-running servers drain on
+    an orchestrator stop exactly like Ctrl-C (``route`` writes its
+    journal clean-shutdown marker on this path)."""
+    raise KeyboardInterrupt
 
 
 def _auto_int(s: str):
@@ -469,6 +482,190 @@ def build_parser() -> argparse.ArgumentParser:
                      "run solo in their normal queue turn (0 = "
                      "unbounded)")
 
+    rte = sub.add_parser(
+        "route",
+        help="serving-fleet router: one loopback front door over N "
+        "serve replicas of this package (spawned or adopted) with "
+        "warm-affinity routing, per-tenant quotas + weighted fair share, "
+        "retry-on-replica-death re-routing, and SLO-burn-driven "
+        "autoscaling",
+    )
+    rte.add_argument("--workdir", default="lt_route",
+                     help="router root: its events/metrics stream, the "
+                     "pinned per-job jobs/<id>/{work,out} dirs every "
+                     "replica resumes from, and spawned replica workdirs")
+    rte.add_argument("--route-port", type=int, default=0, metavar="PORT",
+                     help="loopback HTTP JSON API port of the front door "
+                     "(0 = ephemeral, reported in the startup line)")
+    rte.add_argument("--route-host", default="127.0.0.1", metavar="HOST",
+                     help="bind address — loopback ONLY (the router "
+                     "submits arbitrary work to the whole fleet; front "
+                     "it with an authenticated proxy)")
+    rte.add_argument("--replica", action="append", default=[],
+                     metavar="BASE", dest="replicas",
+                     help="ADOPT an already-running replica by base URL "
+                     "(http://127.0.0.1:PORT; repeatable) — "
+                     "health-checked and routed to, never spawned or "
+                     "killed")
+    rte.add_argument("--spawn-replicas", type=int, default=0, metavar="N",
+                     help="SPAWN N replicas via the lt-serve CLI under "
+                     "WORKDIR/replicas (ephemeral ports; the "
+                     "autoscaler's pool)")
+    rte.add_argument("--replica-args", default="", metavar="FLAGS",
+                     help="extra lt-serve flags for every spawned "
+                     "replica, space-separated (e.g. "
+                     "'--ingest-store-mb 256'); '--device cpu' runs "
+                     "them on the CPU (default: the card)")
+    rte.add_argument("--replica-inflight", type=int, default=2,
+                     help="per-replica in-flight bound at the router "
+                     "(queued+running routed jobs one replica holds "
+                     "before the router looks elsewhere)")
+    rte.add_argument("--route-queue-depth", type=int, default=64,
+                     help="router-wide queue bound: submissions past it "
+                     "are throttled 429 + Retry-After")
+    rte.add_argument("--tenant-quota", type=int, default=16,
+                     help="per-tenant bound on queued+routed jobs; at "
+                     "the quota the tenant is throttled 429 + "
+                     "Retry-After while others' traffic proceeds")
+    rte.add_argument("--tenant-weights", default=None, metavar="SPEC",
+                     help="weighted fair share, 'tenant=weight,...' — "
+                     "deficit round-robin gives each tenant bandwidth "
+                     "proportional to its weight (unnamed tenants "
+                     "weigh 1)")
+    rte.add_argument("--no-affinity", action="store_true",
+                     help="disable warm-affinity routing (pure "
+                     "least-loaded — the fleet_bench baseline)")
+    rte.add_argument("--route-retries", type=int, default=2,
+                     help="re-routes per job after a dead replica or "
+                     "failed forward before the job goes terminal")
+    rte.add_argument("--health-interval-s", type=float, default=1.0,
+                     metavar="SEC",
+                     help="health-probe + job-poll period")
+    rte.add_argument("--unhealthy-after", type=int, default=3,
+                     help="consecutive failed health probes before a "
+                     "replica is marked unready (its accepted jobs are "
+                     "never failed by a probe)")
+    rte.add_argument("--autoscale", action="store_true",
+                     help="SLO-driven autoscaling of the SPAWNED pool: "
+                     "fold the shared telemetry dir for the pod "
+                     "lt_slo_burn_rate and scale between "
+                     "--min-replicas/--max-replicas with hold-down and "
+                     "drain-before-kill")
+    rte.add_argument("--min-replicas", type=int, default=1,
+                     help="autoscaler floor (spawned replicas)")
+    rte.add_argument("--max-replicas", type=int, default=4,
+                     help="autoscaler ceiling (spawned replicas)")
+    rte.add_argument("--scale-up-burn", type=float, default=0.5,
+                     metavar="RATE",
+                     help="scale up when the pod burn rate holds at or "
+                     "above RATE")
+    rte.add_argument("--scale-down-burn", type=float, default=0.05,
+                     metavar="RATE",
+                     help="scale down when the pod burn rate holds at "
+                     "or below RATE and the router queue is empty")
+    rte.add_argument("--scale-for-s", type=float, default=0.0,
+                     metavar="SEC",
+                     help="the burn condition must hold SEC before a "
+                     "scale action (transients don't scale)")
+    rte.add_argument("--scale-hold-s", type=float, default=30.0,
+                     metavar="SEC",
+                     help="hold-down between scale actions (no "
+                     "flapping)")
+    rte.add_argument("--no-telemetry", action="store_true",
+                     help="disable the router events/metrics stream "
+                     "(on by default)")
+    rte.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                     help="shared fleet telemetry directory (default "
+                     "WORKDIR/telemetry): spawned replicas publish "
+                     "here, the autoscaler folds it, lt_fleet/lt top "
+                     "--dir render it")
+    rte.add_argument("--metrics-interval-s", type=float, default=5.0,
+                     metavar="SEC",
+                     help="router metrics.prom refresh period")
+    rte.add_argument("--request-ring", type=int, default=64, metavar="N",
+                     help="request-tracing recency bound: how many "
+                     "recent terminal requests (trace id, router blame "
+                     "split, hops) GET /debug/requests serves "
+                     "slowest-first; 0 disables the ring")
+    rte.add_argument("--no-journal", action="store_true",
+                     help="disable the write-ahead admission journal "
+                     "(WORKDIR/journal/): no crash recovery, no "
+                     "idempotent resubmission — bench baselines only")
+    rte.add_argument("--journal-segment-mb", type=int, default=4,
+                     metavar="MB",
+                     help="journal segment rotation size; rotation "
+                     "compacts the fully-terminal segment prefix so "
+                     "replay cost stays bounded by the live working set")
+    rte.add_argument("--decision-log", action="store_true",
+                     help="record every dispatcher/autoscaler decision "
+                     "to WORKDIR/decisions.jsonl — the capacity "
+                     "planner's offline-replay source (soak/bench runs; "
+                     "grows with traffic)")
+    rte.add_argument("--fault-schedule", default=None, metavar="SPEC",
+                     help="deterministic fault injection for soak runs "
+                     "(router.forward / replica.health seams); "
+                     "production routers leave this unset")
+
+    lod = sub.add_parser(
+        "load",
+        help="load-generation rig: drive a running lt-route front door "
+        "with a seeded deterministic trace — open- or closed-loop "
+        "arrivals, heavy-tailed tenant mix, diurnal rate schedule — "
+        "and report every request's pinned trace id",
+    )
+    lod.add_argument("--router-url", required=True, metavar="BASE",
+                     help="front-door base URL of the running router "
+                     "(http://127.0.0.1:PORT)")
+    lod.add_argument("--stack-dir", required=True, metavar="DIR",
+                     help="Landsat stack directory every submitted job "
+                     "segments (lt synth writes one)")
+    lod.add_argument("--tile-size", type=int, default=32,
+                     help="tile size of the submitted jobs")
+    lod.add_argument("--mode", default="closed",
+                     choices=["open", "closed"],
+                     help="arrival process: open (seeded Poisson "
+                     "schedule, offered rate independent of "
+                     "completions) or closed (submit → await terminal "
+                     "→ think → repeat)")
+    lod.add_argument("--duration-s", type=float, default=10.0,
+                     metavar="SEC", help="run length")
+    lod.add_argument("--qps", type=float, default=2.0, metavar="RATE",
+                     help="open-loop mean offered rate, requests/s "
+                     "(the diurnal wave modulates around it)")
+    lod.add_argument("--requests", type=int, default=0, metavar="N",
+                     help="total request budget; 0 = unbounded within "
+                     "--duration-s")
+    lod.add_argument("--workers", type=int, default=2, metavar="N",
+                     help="closed-loop virtual clients / open-loop "
+                     "dispatch width")
+    lod.add_argument("--seed", type=int, default=0,
+                     help="trace seed: the same seed+config "
+                     "regenerates the same arrivals, tenants and "
+                     "trace ids byte for byte")
+    lod.add_argument("--tenants", type=int, default=3, metavar="N",
+                     help="tenant population size (t0..tN-1)")
+    lod.add_argument("--tenant-skew", type=float, default=1.0,
+                     metavar="EXP",
+                     help="heavy-tail exponent of the tenant mix "
+                     "(weight of the k-th tenant is 1/k**EXP; 0 = "
+                     "uniform)")
+    lod.add_argument("--wave-amp", type=float, default=0.0,
+                     metavar="AMP",
+                     help="diurnal-wave amplitude in [0,1): rate is "
+                     "qps*(1+AMP*sin(2*pi*t/period)); 0 = flat")
+    lod.add_argument("--wave-period-s", type=float, default=60.0,
+                     metavar="SEC", help="diurnal-wave period")
+    lod.add_argument("--think-s", type=float, default=0.0, metavar="SEC",
+                     help="closed-loop think time between a completion "
+                     "and the next submission")
+    lod.add_argument("--timeout-s", type=float, default=120.0,
+                     metavar="SEC",
+                     help="per-request patience: a job not terminal "
+                     "after SEC counts failed")
+    lod.add_argument("--out", default=None, metavar="PATH",
+                     help="also write the full per-request outcome "
+                     "report JSON here")
+
     tun = sub.add_parser(
         "tune",
         help="autotune the execution knobs: run short calibration probes "
@@ -690,8 +887,6 @@ def _run_pixel(args: argparse.Namespace) -> int:
 
 def _run_info(args) -> int:
     """Header-only raster inspection; one JSON document for all paths."""
-    import os
-
     import numpy as np
 
     from land_trendr_tpu_torch.io.geotiff import read_geotiff_info, read_geotiff_window
@@ -931,6 +1126,162 @@ def main(argv: "list[str] | None" = None) -> int:
             pass
         return 0
 
+    if args.cmd == "route":
+        from land_trendr_tpu_torch.fleet import FleetRouter, RouterConfig
+
+        try:
+            rcfg = RouterConfig(
+                workdir=args.workdir,
+                route_port=args.route_port,
+                route_host=args.route_host,
+                replicas=tuple(args.replicas),
+                spawn_replicas=args.spawn_replicas,
+                replica_args=tuple(args.replica_args.split()),
+                replica_inflight=args.replica_inflight,
+                route_queue_depth=args.route_queue_depth,
+                tenant_quota=args.tenant_quota,
+                tenant_weights=args.tenant_weights,
+                affinity=not args.no_affinity,
+                route_retries=args.route_retries,
+                health_interval_s=args.health_interval_s,
+                unhealthy_after=args.unhealthy_after,
+                autoscale=args.autoscale,
+                min_replicas=args.min_replicas,
+                max_replicas=args.max_replicas,
+                scale_up_burn=args.scale_up_burn,
+                scale_down_burn=args.scale_down_burn,
+                scale_for_s=args.scale_for_s,
+                scale_hold_s=args.scale_hold_s,
+                telemetry=not args.no_telemetry,
+                telemetry_dir=args.telemetry_dir,
+                metrics_interval_s=args.metrics_interval_s,
+                request_ring=args.request_ring,
+                journal=not args.no_journal,
+                journal_segment_mb=args.journal_segment_mb,
+                decision_log=args.decision_log,
+                fault_schedule=args.fault_schedule,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        # probe the front-door port NOW (the serve-port preflight)
+        if rcfg.route_port:
+            import socket
+
+            try:
+                with socket.socket() as s:
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                    s.bind((rcfg.route_host, rcfg.route_port))
+            except OSError as e:
+                print(
+                    f"error: --route-port {rcfg.route_port} unusable: {e}",
+                    file=sys.stderr,
+                )
+                return 2
+        try:
+            # the router owns its whole teardown: serve_forever's
+            # finally runs _shutdown on every exit path (Ctrl-C
+            # included) and a failed constructor unwinds itself
+            # lt: noqa[LT008]
+            router = FleetRouter(rcfg)
+        except (OSError, RuntimeError) as e:
+            print(f"error: router startup failed: {e}", file=sys.stderr)
+            return 2
+        print(
+            json.dumps(
+                {"routing": True, "port": router.port,
+                 "workdir": rcfg.workdir,
+                 "replicas": len(router.pool)}
+            ),
+            flush=True,
+        )
+        # SIGTERM (the orchestrator's stop signal) drains exactly like
+        # Ctrl-C: serve_forever's finally runs _shutdown, which writes
+        # the journal's clean marker after a full drain — a SIGTERM'd
+        # router restarts without reconciliation probes
+        import signal as _signal
+
+        _signal.signal(_signal.SIGTERM, _sigterm_to_interrupt)
+        try:
+            router.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
+
+    if args.cmd == "load":
+        from land_trendr_tpu_torch.loadgen import (
+            HttpClient,
+            LoadConfig,
+            LoadRunner,
+        )
+        from land_trendr_tpu_torch.loadgen.trace import SHAPE_PARAMS
+
+        try:
+            lcfg = LoadConfig(
+                mode=args.mode,
+                duration_s=args.duration_s,
+                qps=args.qps,
+                requests=args.requests,
+                workers=args.workers,
+                seed=args.seed,
+                tenants=args.tenants,
+                tenant_skew=args.tenant_skew,
+                wave_amp=args.wave_amp,
+                wave_period_s=args.wave_period_s,
+                think_s=args.think_s,
+                timeout_s=args.timeout_s,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+        def _load_payload(req) -> dict:
+            return {
+                "stack_dir": args.stack_dir,
+                "tile_size": args.tile_size,
+                "tenant": req.tenant,
+                "params": dict(SHAPE_PARAMS[req.shape]),
+                "trace_id": req.trace_id,
+                "run_overrides": {"retry_backoff_s": 0.0},
+            }
+
+        runner = LoadRunner(
+            lcfg, HttpClient(args.router_url), _load_payload
+        )
+        report = runner.run(phase="load")
+        summary = {
+            "mode": report.mode,
+            "offered": report.offered,
+            "done": report.done,
+            "failed": report.failed,
+            "rejected": report.rejected,
+            "wall_s": round(report.wall_s, 3),
+            "trace_ids": report.trace_ids,
+        }
+        if args.out:
+            payload = {
+                **summary,
+                "outcomes": [
+                    {
+                        "trace_id": o.trace_id,
+                        "tenant": o.tenant,
+                        "shape": o.shape,
+                        "outcome": o.outcome,
+                        "reason": o.reason,
+                        "latency_s": o.latency_s,
+                    }
+                    for o in report.outcomes
+                ],
+            }
+            # tmp + os.replace: a SIGKILL mid-dump must not tear the
+            # report an operator's tooling then reads
+            tmp = args.out + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f, indent=2)
+            os.replace(tmp, args.out)
+        print(json.dumps(summary))
+        return 0 if report.failed == 0 else 1
+
     if args.cmd == "synth":
         from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
 
@@ -1129,8 +1480,6 @@ def run() -> int:
     try:
         return main()
     except BrokenPipeError:
-        import os
-
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
         return 0
 

@@ -16,15 +16,19 @@
 // memory: 1.31 ms against 1.66 at 128; 512 runs in 1.15 ms but fits only
 // NY <= 56) and 128 in float64 (so that NY = 64 fits).
 //
-// Two capacities.  Both kernels are instantiated twice (`Cap`): the
-// narrow one, which every stack of up to 64 years with at most 16
+// Three forms.  Both kernels are instantiated three times: the narrow
+// one (`Cap`), which every stack of up to 64 years with at most 16
 // candidates (max_segments + 1 + vertex_count_overshoot) takes, keeps a
 // vertex set and the valid-year mask in one 64-bit word; the wide one
 // holds up to 128 years in two words and 32 candidates in its per-thread
 // arrays, at half the block (128 threads in float32, 64 in float64) so
-// that NY = 128 still fits a block's shared memory.  The wrapper picks
-// the instantiation from NY and the candidate count.  The arithmetic and
-// its order are the same in both: only the capacity differs.
+// that NY = 128 still fits a block's shared memory; the global one
+// (`Global`) has no cap: NY and the candidate count are runtime values,
+// and the series, the sets and the per-thread arrays live in a scratch
+// in device memory, laid out [position][pixel] (`Plane`).  The wrapper
+// picks the form from NY and the candidate count.  The arithmetic and its
+// order are the same in all three (`Store` gives each its storage), so
+// each is bit-identical to the plain version.
 //
 // * Pixel-major I/O through shared memory.  A block's pixels are
 //   contiguous rows of the caller's (PX, NY) values and bool mask, so one
@@ -110,6 +114,7 @@ namespace {
 // NC candidates (max_segments + 1 + overshoot) and NM = NC - 1 members.
 template <int WORDS_, int NC_>
 struct Cap {
+  static constexpr bool GLOBAL = false;
   static constexpr int WORDS = WORDS_;
   static constexpr int NY = 64 * WORDS_;
   static constexpr int NC = NC_;
@@ -117,15 +122,27 @@ struct Cap {
 };
 using Narrow = Cap<1, 16>;  // every stack of up to 64 years, 16 candidates
 using Wide = Cap<2, 32>;    // up to 128 years, 32 candidates
+// The global form: NY and the candidate count are runtime values.  The
+// series columns, the sets and the per-thread arrays live in a global
+// scratch the launch allocates (`Plane`), so only device memory bounds
+// them; no shared memory is used.  WORDS and NC are placeholders.
+struct Global {
+  static constexpr bool GLOBAL = true;
+  static constexpr int WORDS = 1;
+  static constexpr int NY = 0x7fffffff;
+  static constexpr int NC = 1;
+};
 
 // Threads per block.  CUDA_BLOCK is the chunk granule (every block size
 // divides or is a multiple of it).  The narrow float32 kernel, the timed
 // path, runs blocks of 256 (the fastest block of the sweep that holds
 // NY = 64), float64 keeps 128 so that NY = 64 fits in a block's shared
-// memory; the wide kernel halves both so that NY = 128 fits.
+// memory; the wide kernel halves both so that NY = 128 fits.  The global
+// form holds nothing in shared memory and runs CUDA_BLOCK in both.
 constexpr int CUDA_BLOCK = 128;
 template <typename T, class C = Narrow>
 constexpr int block_of() {
+  if constexpr (C::GLOBAL) return CUDA_BLOCK;
   return (std::is_same<T, float>::value ? 2 * CUDA_BLOCK : CUDA_BLOCK) / C::WORDS;
 }
 constexpr long long SMEM_LIMIT = 232448;  // shared bytes one block may use on sm_90
@@ -258,6 +275,9 @@ struct Bits {
     for (int q = 0; q < W; ++q) b.w[q] = 0;
     return b;
   }
+  __device__ __forceinline__ void clear() {
+    for (int q = 0; q < W; ++q) w[q] = 0;
+  }
   __device__ __forceinline__ void set(int j) {
     if constexpr (W == 1) {
       w[0] |= 1ull << j;
@@ -312,6 +332,171 @@ struct Bits {
     for (int q = 0; q < W; ++q) {
       for (uint64_t x = w[q]; x; x &= x - 1) f(64 * q + __ffsll((long long)x) - 1);
     }
+  }
+};
+
+// ---- storage of the global form -------------------------------------------
+// A set of the global form: nw words in the scratch, word q at w[q * ld]
+// (ld = the launch's pixels, so adjacent threads touch adjacent words).
+// The same members as Bits<W>, over a runtime word count.
+struct GBits {
+  uint64_t* w;
+  int nw;
+  long long ld;
+  __device__ __forceinline__ uint64_t& word(int q) const { return w[q * ld]; }
+  __device__ __forceinline__ void clear() const {
+    for (int q = 0; q < nw; ++q) word(q) = 0;
+  }
+  __device__ __forceinline__ void set(int j) const { word(j >> 6) |= 1ull << (j & 63); }
+  __device__ __forceinline__ bool test(int j) const { return (word(j >> 6) >> (j & 63)) & 1ull; }
+  __device__ __forceinline__ int count() const {
+    int c = 0;
+    for (int q = 0; q < nw; ++q) c += __popcll((long long)word(q));
+    return c;
+  }
+  __device__ __forceinline__ int count_below(int j) const {
+    const int q = j >> 6;
+    int c = 0;
+    for (int i = 0; i < q; ++i) c += __popcll((long long)word(i));
+    return c + __popcll((long long)(word(q) & ((1ull << (j & 63)) - 1ull)));
+  }
+  __device__ __forceinline__ int highest() const {
+    for (int q = nw - 1; q > 0; --q) {
+      const uint64_t x = word(q);
+      if (x) return 64 * q + 63 - __clzll((long long)x);
+    }
+    return 63 - __clzll((long long)word(0));
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    for (int q = 0; q < nw; ++q) {
+      for (uint64_t x = word(q); x; x &= x - 1) f(64 * q + __ffsll((long long)x) - 1);
+    }
+  }
+};
+
+// A per-thread array of N values (registers or local memory) ...
+template <typename U, int N>
+struct Local {
+  U a[N];
+  __device__ __forceinline__ U& operator[](int i) { return a[i]; }
+  __device__ __forceinline__ const U& operator[](int i) const { return a[i]; }
+};
+// ... and its global form: a thread's column of the scratch, element i at
+// p[i * ld].
+template <typename U>
+struct Strided {
+  U* p;
+  long long ld;
+  __device__ __forceinline__ U& operator[](int i) const { return p[i * ld]; }
+};
+
+// NM sets of one thread, in registers or in the scratch.
+template <int W, int N>
+struct LocalSets {
+  Bits<W> a[N];
+  __device__ __forceinline__ Bits<W>& operator[](int m) { return a[m]; }
+  __device__ __forceinline__ const Bits<W>& operator[](int m) const { return a[m]; }
+};
+struct GSets {
+  uint64_t* w;
+  int nw;
+  long long ld;
+  __device__ __forceinline__ GBits operator[](int m) const {
+    return GBits{w + (long long)m * nw * ld, nw, ld};
+  }
+};
+
+// The storage types of capacity C: fixed-size arrays for Cap, views of the
+// scratch for Global.
+template <class C>
+struct Store {
+  using Set = Bits<C::WORDS>;
+  using Sets = LocalSets<C::WORDS, C::NM>;
+  template <typename U>
+  using Arr = Local<U, C::NC>;  // one per candidate
+  template <typename U>
+  using MArr = Local<U, C::NM>;  // one per family member
+};
+template <>
+struct Store<Global> {
+  using Set = GBits;
+  using Sets = GSets;
+  template <typename U>
+  using Arr = Strided<U>;
+  template <typename U>
+  using MArr = Strided<U>;
+};
+
+// The global form's scratch: one plane per per-pixel array, each plane
+// laid out [position][pixel] over the launch's `ld` pixels and rounded up
+// to 16 bytes.  Rows per pixel and element bytes of each plane:
+enum Plane {
+  P_Y,         // ny values: the y column (valid years, then the raw others)
+  P_T,         // ny values: the t column
+  P_VALID,     // nw words: the valid-year set
+  P_FAMVM,     // nm * nw words: the family's vertex sets
+  P_YEARWORD,  // nw words: the family kernel's member set on the year axis
+  P_VP,        // nc ints: live vertices
+  P_SI,        // nc ints: each segment's farthest point
+  P_SDEV,      // nc values: each segment's deviation, then its arctangent
+  P_FSSE,      // nm values: the family's SSEs,
+  P_FP,        // nm values: p-values,
+  P_FSCORE,    // nm values: scores
+  P_RVP,       // nc ints: the chosen model's vertices
+  P_RVF,       // nc values: their fitted values
+  P_VREG,      // nc values: the refit's regression anchors
+  P_RATE,      // nc values: the refit's point-to-point rates
+  P_VYI,       // nc ints: each vertex's year index
+  NPLANE
+};
+__host__ __device__ constexpr int words_of(int ny) { return (ny + 63) / 64; }
+__host__ __device__ constexpr long long plane_rows(int plane, int ny, int nc, int nm) {
+  return plane == P_Y || plane == P_T ? ny
+       : plane == P_VALID || plane == P_YEARWORD ? words_of(ny)
+       : plane == P_FAMVM ? (long long)nm * words_of(ny)
+       : plane == P_FSSE || plane == P_FP || plane == P_FSCORE ? nm
+       : nc;
+}
+__host__ __device__ constexpr int plane_elem(int plane, int elem) {
+  return plane == P_VALID || plane == P_FAMVM || plane == P_YEARWORD ? 8
+       : plane == P_VP || plane == P_SI || plane == P_RVP || plane == P_VYI ? 4
+       : elem;
+}
+// Byte offset of `plane` (NPLANE: the scratch's size) for `ld` pixels.
+__host__ __device__ inline long long plane_offset(int plane, int ny, int nc, int nm, int elem,
+                                                  long long ld) {
+  long long off = 0;
+  for (int q = 0; q < plane; ++q) {
+    off += (plane_rows(q, ny, nc, nm) * plane_elem(q, elem) * ld + 15) / 16 * 16;
+  }
+  return off;
+}
+
+// One thread's views of the scratch (nothing for a fixed capacity).
+template <typename T, class C>
+struct Mem {
+  __device__ Mem(unsigned char*, long long, long long, int, const Params&) {}
+};
+template <typename T>
+struct Mem<T, Global> {
+  unsigned char* base;
+  long long ld, x;  // the launch's pixels; this thread's pixel among them
+  int ny, nc, nm;
+  __device__ Mem(unsigned char* scratch, long long px, long long pix, int ny_, const Params& p)
+      : base(scratch), ld(px), x(pix), ny(ny_), nc(p.nc), nm(p.nm) {}
+  __device__ __forceinline__ unsigned char* plane(int q) const {
+    return base + plane_offset(q, ny, nc, nm, (int)sizeof(T), ld);
+  }
+  template <typename U>
+  __device__ __forceinline__ Strided<U> arr(int q) const {
+    return Strided<U>{reinterpret_cast<U*>(plane(q)) + x, ld};
+  }
+  __device__ __forceinline__ GBits set(int q) const {
+    return GBits{reinterpret_cast<uint64_t*>(plane(q)) + x, words_of(ny), ld};
+  }
+  __device__ __forceinline__ GSets sets(int q) const {
+    return GSets{reinterpret_cast<uint64_t*>(plane(q)) + x, words_of(ny), ld};
   }
 };
 
@@ -434,6 +619,31 @@ __device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ ye
   return valid;
 }
 
+// The global form's load: the thread reads its own row of the caller's
+// values and mask and compacts it into its scratch columns, as
+// load_compact does into shared memory; returns its valid-year set.
+template <typename T>
+__device__ GBits load_global(const Mem<T, Global>& mem, const T* __restrict__ years,
+                             const T* __restrict__ vrow, const uint8_t* __restrict__ mrow,
+                             int ny) {
+  const GBits valid = mem.set(P_VALID);
+  valid.clear();
+  for (int j = 0; j < ny; ++j) {
+    if (mrow[j] && isfinite(vrow[j])) valid.set(j);
+  }
+  const int n = valid.count();
+  const Strided<T> y = mem.template arr<T>(P_Y), t = mem.template arr<T>(P_T);
+  for (int j = 0, c = 0, d = 0; j < ny; ++j) {
+    if (valid.test(j)) {
+      y[c] = vrow[j];
+      t[c++] = years[j];
+    } else {
+      y[n + d++] = vrow[j];
+    }
+  }
+  return valid;
+}
+
 // Year index of the i-th (from 0) set bit of `w`.
 __device__ __forceinline__ int nth_bit(uint64_t w, int i) {
   const uint32_t lo = (uint32_t)w;
@@ -458,23 +668,47 @@ __device__ __forceinline__ int nth_bit(const Bits<W>& b, int i) {
   }
 }
 
+__device__ __forceinline__ int nth_bit(const GBits& b, int i) {
+  int base = 0;
+  for (int q = 0; q < b.nw - 1; ++q) {
+    const uint64_t x = b.word(q);
+    const int c = __popcll((long long)x);
+    if (i < c) return base + nth_bit(x, i);
+    i -= c;
+    base += 64;
+  }
+  return base + nth_bit(b.word(b.nw - 1), i);
+}
+
 // Members of `vm`, ascending, into vp; returns the count.
-template <int W>
-__device__ __forceinline__ int bit_positions(const Bits<W>& vm, int* vp) {
+template <class S, class A>
+__device__ __forceinline__ int bit_positions(const S& vm, A& vp) {
   int k = 0;
   vm.each([&](int b) { vp[k++] = b; });
   return k;
 }
 
-// One thread's view of its pixel's compacted series in its columns.
+// One thread's view of its pixel's compacted series in its columns: the
+// stride is the block B in shared memory, or (B = 0, the global form) the
+// launch's pixels `ld` in the scratch.
 template <typename T, int B>
 struct Series {
   T* yc;        // y at position i: yc[i * B] (despiked in place)
   const T* tc;  // t at position i: tc[i * B]
   int n;        // valid years
-  __device__ __forceinline__ T& y(int i) { return yc[i * B]; }
-  __device__ __forceinline__ T y(int i) const { return yc[i * B]; }
-  __device__ __forceinline__ T t(int i) const { return tc[i * B]; }
+  long long ld;
+  __device__ __forceinline__ T& y(int i) {
+    if constexpr (B > 0) return yc[i * B];
+    else return yc[i * ld];
+  }
+  __device__ __forceinline__ T y(int i) const {
+    if constexpr (B > 0) return yc[i * B];
+    else return yc[i * ld];
+  }
+  __device__ __forceinline__ T t(int i) const {
+    if constexpr (B > 0) return tc[i * B];
+    else return tc[i * ld];
+  }
 };
 
 template <typename T>
@@ -486,10 +720,12 @@ __device__ __forceinline__ T clamp_slope(T slope, T duration, T y_range, const P
   return active ? clamped : slope;
 }
 
-// OLS over compacted positions [a, b]: intercept, slope, tm, ym.
+// OLS over compacted positions [a, b]: slope, tm, ym.  The line is
+// ym + c1 * (t - tm), in the frame centred on the segment: an intercept at
+// year 0 would amplify the slope's last bit by tm (~2000).
 template <typename T, int B, class O>
-__device__ void ols(const Series<T, B>& s, int a, int b, T& c0, T& c1, T& tm, T& ym, O& ops) {
-  ops.add(9LL * (b - a + 1) + 7);
+__device__ void ols(const Series<T, B>& s, int a, int b, T& c1, T& tm, T& ym, O& ops) {
+  ops.add(9LL * (b - a + 1) + 5);
   T n = 0, st = 0, sy = 0;
   for (int i = a; i <= b; ++i) {
     n = n + (T)1;
@@ -507,7 +743,6 @@ __device__ void ols(const Series<T, B>& s, int a, int b, T& c0, T& c1, T& tm, T&
   }
   bool ok = (n >= (T)2) && (stt > (T)0);
   c1 = ok ? sty / stt : (T)0;
-  c0 = ym - c1 * tm;
 }
 
 // Stage 1: iteratively damp the largest interior spike (oracle despike).
@@ -549,18 +784,30 @@ __device__ void despike(Series<T, B>& s, const Params& p, O& ops) {
 // segment's slope in the frame normalised by (t_lo, t_rng, y_lo, y_rng).
 template <typename T, class C>
 struct Verts {
+  using IArr = typename Store<C>::template Arr<int>;
+  using TArr = typename Store<C>::template Arr<T>;
   int k;
-  int vp[C::NC];
-  int si[C::NC];    // candidate search: where segment g's largest deviation lies
+  IArr vp;
+  IArr si;      // candidate search: where segment g's largest deviation lies
   union {
-    T sdev[C::NC];  // candidate search: segment g's largest deviation
-    T sa[C::NC];    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
+    TArr sdev;  // candidate search: segment g's largest deviation
+    TArr sa;    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
   };
   T t_lo, t_rng, y_lo, y_rng;
-  __device__ __forceinline__ Bits<C::WORDS> word() const {
-    Bits<C::WORDS> w = Bits<C::WORDS>::none();
-    for (int j = 0; j < k; ++j) w.set(vp[j]);
-    return w;
+  // the global form's arrays are views of the scratch
+  template <class M>
+  __device__ __forceinline__ void bind(const M& mem) {
+    if constexpr (C::GLOBAL) {
+      vp = mem.template arr<int>(P_VP);
+      si = mem.template arr<int>(P_SI);
+      sdev = mem.template arr<T>(P_SDEV);
+    }
+  }
+  // the vertex set, into b
+  template <class S>
+  __device__ __forceinline__ void word_into(S&& b) const {
+    b.clear();
+    for (int j = 0; j < k; ++j) b.set(vp[j]);
   }
 };
 
@@ -571,11 +818,11 @@ __device__ void seg_best(const Series<T, B>& s, int a, int b, T& dev_best, int& 
   dev_best = (T)-1;
   i_best = -1;
   if (b - a < 2) return;
-  T c0, c1, tm, ym;
-  ols(s, a, b, c0, c1, tm, ym, ops);
-  ops.add(5LL * (b - a - 1));
+  T c1, tm, ym;
+  ols(s, a, b, c1, tm, ym, ops);
+  ops.add(6LL * (b - a - 1));
   for (int i = a + 1; i < b; ++i) {
-    T dev = f_abs(s.y(i) - (c0 + c1 * s.t(i)));
+    T dev = f_abs(s.y(i) - (ym + c1 * (s.t(i) - tm)));
     if (dev > dev_best) {
       dev_best = dev;
       i_best = i;
@@ -659,27 +906,33 @@ __device__ void remove_weakest(const Series<T, B>& s, Verts<T, C>& v, int keep_a
 // Returns the SSE over the vertex span; the REFIT instantiation also
 // writes the fitted value at each vertex to `vf` (the chosen model's
 // refit), and only it keeps the per-segment anchors and rates.
-template <bool REFIT, class C, typename T, int B, class O>
-__device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_range,
-                       const Params& p, T* vf, O& ops) {
-  // regression: 6 per year per pass (two passes after segment 0's OLS);
-  // p2p: 6 per year; ~24 per vertex for slopes, clamps, rates and anchors
-  ops.add(12LL * (vp[k - 1] - vp[1]) + 6LL * (vp[1] - vp[0] + 1) +
+template <bool REFIT, class C, typename T, int B, class VP, class VF, class M, class O>
+__device__ T fit_model(const Series<T, B>& s, const VP& vp, const int k, T y_range,
+                       const Params& p, VF& vf, const M& mem, O& ops) {
+  // per-vertex arrays of the refit, in the scratch in the global form
+  using Keep = std::conditional_t<C::GLOBAL, Strided<T>, Local<T, REFIT ? C::NC : 1>>;
+  // regression: 6 per year per pass (two passes after segment 0's OLS,
+  // whose residual pass is 7 per year in the centred frame); p2p: 6 per
+  // year; ~24 per vertex for slopes, clamps, rates and anchors
+  ops.add(12LL * (vp[k - 1] - vp[1]) + 7LL * (vp[1] - vp[0] + 1) +
           6LL * (vp[k - 1] - vp[0] + 1) + 24LL * k + 4);
   // --- segment 0: OLS over closed [v0, v1] ---
-  T c0, c1, tm, ym;
-  ols(s, vp[0], vp[1], c0, c1, tm, ym, ops);
+  T c1, tm, ym;
+  ols(s, vp[0], vp[1], c1, tm, ym, ops);
   T c1c = clamp_slope(c1, s.t(vp[1]) - s.t(vp[0]), y_range, p);
-  c0 = ym - c1c * tm;
   T sse_reg = 0;
   for (int i = vp[0]; i <= vp[1]; ++i) {
-    T r = s.y(i) - (c0 + c1c * s.t(i));
+    T r = s.y(i) - (ym + c1c * (s.t(i) - tm));
     sse_reg = sse_reg + r * r;
   }
-  T vreg[REFIT ? C::NC : 1];
-  if constexpr (REFIT) vreg[0] = c0 + c1c * s.t(vp[0]);
+  Keep vreg, rate;
+  if constexpr (REFIT && C::GLOBAL) {
+    vreg = mem.template arr<T>(P_VREG);
+    rate = mem.template arr<T>(P_RATE);
+  }
+  if constexpr (REFIT) vreg[0] = ym + c1c * (s.t(vp[0]) - tm);
   T anchor_t = s.t(vp[1]);
-  T anchor_y = c0 + c1c * anchor_t;
+  T anchor_y = ym + c1c * (anchor_t - tm);
   if constexpr (REFIT) vreg[1] = anchor_y;
   // --- segments 1..: slope-only regression through the anchor ---
   for (int g = 1; g + 1 < k; ++g) {
@@ -704,7 +957,6 @@ __device__ T fit_model(const Series<T, B>& s, const int* vp, const int k, T y_ra
   }
   // --- point-to-point fallback: segment by segment, in year order ---
   bool p2p_ok = true;
-  T rate[REFIT ? C::NC : 1];
   const T rt = (T)p.rt, eps = (T)EPS_RATE;
   T sse_p2p = 0;
   for (int g = 0; g + 1 < k; ++g) {
@@ -903,17 +1155,24 @@ __device__ __forceinline__ double select_thresh<double>(double best, const Param
 template <typename T, class C>
 struct PixelResult {
   bool mv;
-  int k;            // vertices of the chosen model (0 for the flat model)
-  int vp[C::NC];    // their compacted positions
-  T vf[C::NC];      // their fitted values
+  int k;                                  // vertices of the chosen model (0: the flat model)
+  typename Store<C>::template Arr<int> vp;  // their compacted positions
+  typename Store<C>::template Arr<T> vf;    // their fitted values
   T mean, rmse, pof;
+  template <class M>
+  __device__ __forceinline__ void bind(const M& mem) {
+    if constexpr (C::GLOBAL) {
+      vp = mem.template arr<int>(P_RVP);
+      vf = mem.template arr<T>(P_RVF);
+    }
+  }
 };
 
 // Stages 1-5 of one pixel: despike, candidates + cull, the model family,
 // scoring + selection, and the chosen member's refit (or the flat model).
-template <typename T, int B, class C, class O>
+template <typename T, int B, class C, class M, class O>
 __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelResult<T, C>& res,
-                              O& ops) {
+                              const M& mem, O& ops) {
   const int n = s.n;
   const bool enough = n >= p.min_obs;
   const T n_f = (T)n;
@@ -932,6 +1191,7 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
     if (y_range > (T)0) {
       // Stage 2 — candidates + angle cull
       Verts<T, C> v;
+      v.bind(mem);
       v.t_lo = s.t(0);
       const T t_hi = s.t(n - 1);
       v.t_rng = t_hi > v.t_lo ? t_hi - v.t_lo : (T)1;
@@ -946,11 +1206,18 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
       for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
       ops.mark(CULL);
       // Stage 4 — model family: vertex word + SSE per member
-      Bits<C::WORDS> fam_vm[C::NM];
-      T fam_sse[C::NM];
+      typename Store<C>::Sets fam_vm;
+      typename Store<C>::template MArr<T> fam_sse, fam_p, fam_score;
+      if constexpr (C::GLOBAL) {
+        fam_vm = mem.sets(P_FAMVM);
+        fam_sse = mem.template arr<T>(P_FSSE);
+        fam_p = mem.template arr<T>(P_FP);
+        fam_score = mem.template arr<T>(P_FSCORE);
+      }
+      T* const no_vf = nullptr;
       for (int m = 0; m < p.nm; ++m) {
-        fam_vm[m] = v.word();
-        fam_sse[m] = fit_model<false, C>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops);
+        v.word_into(fam_vm[m]);
+        fam_sse[m] = fit_model<false, C>(s, v.vp, v.k, y_range, p, no_vf, mem, ops);
         if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
       }
       ops.mark(FAMILY);
@@ -964,7 +1231,6 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         T d = s.y(i) - mean0;
         ss0 = ss0 + d * d;
       }
-      T fam_p[C::NM], fam_score[C::NM];
       T best = 0;
       for (int m = 0; m < p.nm; ++m) {
         T ms = (T)(fam_vm[m].count() - 1);
@@ -988,7 +1254,7 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         // bound leaves it out.
         res.k = bit_positions(fam_vm[chosen], res.vp);
         NoOps refit_ops;
-        const T sse_c = fit_model<true, C>(s, res.vp, res.k, y_range, p, res.vf, refit_ops);
+        const T sse_c = fit_model<true, C>(s, res.vp, res.k, y_range, p, res.vf, mem, refit_ops);
         ops.add(10LL * ny + 4LL * p.nm + 2);
         res.mv = true;
         res.rmse = f_sqrt(sse_c / n_safe);
@@ -1018,10 +1284,15 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
 // its row of `w` values in the staging tile (row stride w | 1, odd, so the
 // lanes of a warp write 32 different banks), then the block copies the
 // tile to `dst` (the block's first row) in coalesced runs.  Every thread of
-// the block must call it.
-template <typename U, int B, class F>
+// the block must call it.  The global form (DIRECT) has no staging tile:
+// each thread writes its own row.
+template <typename U, int B, bool DIRECT = false, class F>
 __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* stage, bool live,
                                      const F& fill) {
+  if constexpr (DIRECT) {
+    if (live) fill(dst + threadIdx.x * w);
+    return;
+  }
   U* st = reinterpret_cast<U*>(stage);
   const int W = w | 1;
   if (live) fill(st + threadIdx.x * W);
@@ -1041,11 +1312,35 @@ __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* 
   __syncthreads();
 }
 
+// The series of the thread's pixel: in its shared-memory columns (the
+// block's slab loaded first; every thread of the block must call it), or
+// in the global form in its scratch columns (live threads only).  Returns
+// the valid-year set.
+template <typename T, int B, class C, int S>
+__device__ __forceinline__ typename Store<C>::Set load_series(
+    const Block<T, B>& blk, const Mem<T, C>& mem, const T* __restrict__ years,
+    const T* __restrict__ values, const uint8_t* __restrict__ mask, int npx, int ny,
+    Series<T, S>& s) {
+  const int r = threadIdx.x;
+  if constexpr (C::GLOBAL) {
+    const GBits valid = load_global(mem, years, values + r * ny, mask + r * ny, ny);
+    s = Series<T, S>{mem.template arr<T>(P_Y).p, mem.template arr<T>(P_T).p, valid.count(),
+                     mem.ld};
+    return valid;
+  } else {
+    const Bits<C::WORDS> valid = load_compact<T, B, C::WORDS>(blk, years, values, mask, npx, ny);
+    s = Series<T, S>{blk.ycol + r, blk.region + r, valid.count()};
+    return valid;
+  }
+}
+
 template <typename T, class O, int B, class C>
 __global__ void __launch_bounds__(B)
 segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
                      const uint8_t* __restrict__ mask, long long px, int ny, Outs<T> o,
-                     Params p, long long* __restrict__ stats) {
+                     Params p, long long* __restrict__ stats, unsigned char* scratch) {
+  constexpr bool G = C::GLOBAL;
+  constexpr int S = G ? 0 : B;  // the series' column stride
   O ops;
   extern __shared__ __align__(16) unsigned char smem[];
   const Block<T, B> blk(smem, ny);
@@ -1053,23 +1348,29 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   const int npx = (int)(px - base < B ? px - base : B);
   const int r = threadIdx.x;
   const bool live = r < npx;
-  const Bits<C::WORDS> valid =
-      load_compact<T, B, C::WORDS>(blk, years, values + base * ny, mask + base * ny, npx, ny);
-  const int n = valid.count();
-  Series<T, B> s{blk.ycol + r, blk.region + r, n};
+  if constexpr (G) {
+    if (!live) return;  // the global form has no block-wide barrier
+  }
+  const Mem<T, C> mem(scratch, px, base + r, ny, p);
+  Series<T, S> s;
+  const typename Store<C>::Set valid =
+      load_series<T, B, C>(blk, mem, years, values + base * ny, mask + base * ny, npx, ny, s);
+  const int n = s.n;
   ops.mark(LOAD);
 
   PixelResult<T, C> res;
+  res.bind(mem);
   res.mv = false;
   res.k = 0;
-  if (live) segment_pixel(s, ny, p, res, ops);
+  if (live) segment_pixel(s, ny, p, res, mem, ops);
 
   // ---- output: every thread, one staged field at a time ----------------
-  __syncthreads();  // every t column is read: the region becomes the staging tile
+  if constexpr (!G) __syncthreads();  // every t column is read: the region becomes the staging tile
   void* stage = blk.region;
-  const T* ts = blk.ts;
+  const T* ts = G ? years : blk.ts;
   const int k = res.k;
-  int vyi[C::NC];  // year index of each vertex
+  typename Store<C>::template Arr<int> vyi;  // year index of each vertex
+  if constexpr (G) vyi = mem.template arr<int>(P_VYI);
   for (int j = 0; j < k; ++j) vyi[j] = nth_bit(valid, res.vp[j]);
   const T t_hi = n > 0 ? ts[valid.highest()] : (T)0;
   // vertex slot i's year; dead slots repeat t_hi
@@ -1077,7 +1378,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
 
   // despiked: the despiked series at valid years; elsewhere the raw value
   // (a fitted model) or the mean (the flat model)
-  emit<T, B>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
     for (int j = 0, c = 0, d = 0; j < ny; ++j) {
       if (valid.test(j)) {
         row[j] = s.y(c++);
@@ -1089,7 +1390,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   });
   // fitted trajectory over every year: np.interp through the vertices,
   // dead slots repeating (t_hi, last fit); the mean for the flat model
-  emit<T, B>(o.fitted + base * ny, ny, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.fitted + base * ny, ny, npx, stage, live, [&](T* row) {
     if (!res.mv) {
       for (int j = 0; j < ny; ++j) row[j] = res.mean;
       return;
@@ -1117,25 +1418,25 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
     }
   });
   const int nv = p.nv, nm = p.nm;
-  emit<int32_t, B>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
+  emit<int32_t, B, G>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? (int32_t)vyi[j] : -1;
   });
-  emit<T, B>(o.vyear + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.vyear + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? ts[vyi[j]] : (T)0;
   });
-  emit<T, B>(o.vsrc + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.vsrc + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? s.y(res.vp[j]) : (T)0;
   });
-  emit<T, B>(o.vfit + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.vfit + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? res.vf[j] : (T)0;
   });
-  emit<T, B>(o.smag + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.smag + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? res.vf[j + 1] - res.vf[j] : (T)0;
   });
-  emit<T, B>(o.sdur + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.sdur + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? xv(j + 1) - xv(j) : (T)0;
   });
-  emit<T, B>(o.srate + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B, G>(o.srate + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) {
       T rate = 0;
       if (j < k - 1) {
@@ -1170,24 +1471,30 @@ template <typename T, class O, int B, class C>
 __global__ void __launch_bounds__(B)
 family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
                     const uint8_t* __restrict__ mask, long long px, int ny, FamilyOuts<T> o,
-                    Params p, long long* __restrict__ stats) {
+                    Params p, long long* __restrict__ stats, unsigned char* scratch) {
+  constexpr bool G = C::GLOBAL;
   O ops;
   extern __shared__ __align__(16) unsigned char smem[];
   const Block<T, B> blk(smem, ny);
   const long long base = (long long)blockIdx.x * B;
   const int npx = (int)(px - base < B ? px - base : B);
-  const Bits<C::WORDS> valid =
-      load_compact<T, B, C::WORDS>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  if constexpr (G) {
+    if ((int)threadIdx.x >= npx) return;
+  }
+  const Mem<T, C> mem(scratch, px, base + threadIdx.x, ny, p);
+  Series<T, G ? 0 : B> s;
+  const typename Store<C>::Set valid =
+      load_series<T, B, C>(blk, mem, years, values + base * ny, mask + base * ny, npx, ny, s);
   if ((int)threadIdx.x >= npx) return;
   const long long pix = base + threadIdx.x;
   const long long ld = o.ld;
-  Series<T, B> s{blk.ycol + threadIdx.x, blk.region + threadIdx.x, valid.count()};
   const int n = s.n;
 
   // Stage 1 — despike (a no-op below three valid years)
   despike(s, p, ops);
   T y_range = 0;
   Verts<T, C> v;
+  v.bind(mem);
   v.k = 0;
   v.t_lo = 0;
   v.t_rng = 1;
@@ -1217,14 +1524,16 @@ family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
   // Stage 4a — model family, written member by member
   for (int m = 0; m < p.nm; ++m) {
     // the member's vertex set on the year axis
-    Bits<C::WORDS> year_word = Bits<C::WORDS>::none();
+    typename Store<C>::Set year_word;
+    if constexpr (G) year_word = mem.set(P_YEARWORD);
+    year_word.clear();
     for (int j = 0; j < v.k; ++j) year_word.set(nth_bit(valid, v.vp[j]));
     uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
     for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)year_word.test(j);
     // below two vertices (fewer than two valid years) the fit is the
     // series itself: SSE 0, as in the plain version
-    const T sse =
-        v.k >= 2 ? fit_model<false, C>(s, v.vp, v.k, y_range, p, (T*)nullptr, ops) : (T)0;
+    T* const no_vf = nullptr;
+    const T sse = v.k >= 2 ? fit_model<false, C>(s, v.vp, v.k, y_range, p, no_vf, mem, ops) : (T)0;
     o.sses[m * ld + pix] = sse;
     if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
   }
@@ -1253,7 +1562,16 @@ Params make_params(int max_segments, int overshoot, double spike, double rt, int
 
 template <class C>
 bool bad_shape(int ny, const Params& p, long long px) {
-  return ny < 1 || ny > C::NY || p.nc > C::NC || p.nm < 1 || p.overshoot < 0 || px < 0;
+  return ny < 1 || ny > C::NY || (!C::GLOBAL && p.nc > C::NC) || p.nm < 1 || p.overshoot < 0 ||
+         px < 0;
+}
+
+// Dynamic shared-memory bytes of one launch of capacity C (the global form
+// uses none).
+template <class C>
+long long smem_of(int ny, int elem, int block) {
+  if constexpr (C::GLOBAL) return 0;
+  return smem_bytes(ny, elem, block, C::NC);
 }
 
 // Raise the kernel's dynamic shared-memory ceiling to `bytes`.
@@ -1276,23 +1594,31 @@ int start(K kernel, long long px, int block, long long bytes, cudaStream_t st, A
 
 // One launch of the fused kernel of capacity C with policy O at block
 // size B (O's per-pixel record, if any, goes to `stats`).
+// `scratch`: the global form's scratch for `px` pixels (plane_offset of
+// NPLANE bytes); null for a fixed capacity.
 template <typename T, class O, class C = Narrow, int B = block_of<T, C>()>
 int launch_fused(const void* years, const void* values, const void* mask, long long px, int ny,
-                 const Outs<T>& o, const Params& p, void* stream, long long* stats) {
-  if (bad_shape<C>(ny, p, px)) return (int)cudaErrorInvalidValue;
-  return start(segment_fused_kernel<T, O, B, C>, px, B,
-               smem_bytes(ny, (int)sizeof(T), B, C::NC), (cudaStream_t)stream, (const T*)years,
-               (const T*)values, (const uint8_t*)mask, px, ny, o, p, stats);
+                 const Outs<T>& o, const Params& p, void* stream, long long* stats,
+                 void* scratch = nullptr) {
+  if (bad_shape<C>(ny, p, px) || (C::GLOBAL && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return start(segment_fused_kernel<T, O, B, C>, px, B, smem_of<C>(ny, (int)sizeof(T), B),
+               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
+               ny, o, p, stats, (unsigned char*)scratch);
 }
 
 template <typename T, class O, class C = Narrow>
 int launch_family(const void* years, const void* values, const void* mask, long long px, int ny,
-                  const FamilyOuts<T>& o, const Params& p, void* stream, long long* stats) {
+                  const FamilyOuts<T>& o, const Params& p, void* stream, long long* stats,
+                  void* scratch = nullptr) {
   constexpr int B = block_of<T, C>();
-  if (bad_shape<C>(ny, p, px)) return (int)cudaErrorInvalidValue;
-  return start(family_stats_kernel<T, O, B, C>, px, B, smem_bytes(ny, (int)sizeof(T), B, C::NC),
+  if (bad_shape<C>(ny, p, px) || (C::GLOBAL && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return start(family_stats_kernel<T, O, B, C>, px, B, smem_of<C>(ny, (int)sizeof(T), B),
                (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
-               ny, o, p, stats);
+               ny, o, p, stats, (unsigned char*)scratch);
 }
 
 // Resident blocks per SM of `kernel` as the production launch sets it up
@@ -1323,7 +1649,7 @@ template <class C>
 int occupancy_of(int which, int f64, int ny, int block, int* blocks) {
   constexpr int B4 = block_of<float, C>(), B8 = block_of<double, C>();
   if (block != (f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
-  const long long b4 = smem_bytes(ny, 4, B4, C::NC), b8 = smem_bytes(ny, 8, B8, C::NC);
+  const long long b4 = smem_of<C>(ny, 4, B4), b8 = smem_of<C>(ny, 8, B8);
   if (which == 0) {
     return f64 ? occupancy(segment_fused_kernel<double, NoOps, B8, C>, B8, b8, blocks)
                : occupancy(segment_fused_kernel<float, NoOps, B4, C>, B4, b4, blocks);
@@ -1381,7 +1707,7 @@ FamilyOuts<T> make_family_outs(void* despiked, void* vmasks, void* sses, long lo
 extern "C" {
 
 // Capacity bounds the Python wrapper checks before a launch, one query
-// per instantiation (narrow, wide).
+// per fixed instantiation (narrow, wide); the global form has none.
 int lt_segment_max_ny() { return Narrow::NY; }
 int lt_segment_max_nc() { return Narrow::NC; }
 int lt_segment_block(int elem_bytes) {
@@ -1392,13 +1718,23 @@ int lt_segment_wide_max_nc() { return Wide::NC; }
 int lt_segment_wide_block(int elem_bytes) {
   return elem_bytes == 4 ? block_of<float, Wide>() : block_of<double, Wide>();
 }
+int lt_segment_global_block(int elem_bytes) {
+  return elem_bytes == 4 ? block_of<float, Global>() : block_of<double, Global>();
+}
 int lt_segment_nstage() { return NSTAGE; }
 
 // Dynamic shared-memory bytes of one block of `block` threads at `ny`
-// years and `elem_bytes`-byte values of the narrow (wide = 0) or wide
-// instantiation (both kernels use the same plan).
-long long lt_segment_smem_bytes(int ny, int elem_bytes, int block, int wide) {
-  return smem_bytes(ny, elem_bytes, block, wide ? Wide::NC : Narrow::NC);
+// years and `elem_bytes`-byte values of the narrow (cap = 0), wide (1) or
+// global (2) instantiation (both kernels use the same plan).
+long long lt_segment_smem_bytes(int ny, int elem_bytes, int block, int cap) {
+  if (cap == 2) return smem_of<Global>(ny, elem_bytes, block);
+  return smem_bytes(ny, elem_bytes, block, cap ? Wide::NC : Narrow::NC);
+}
+
+// Bytes of the global form's scratch for `px` pixels at `ny` years, `nc`
+// candidates and `nm` family members (both kernels use the same plan).
+long long lt_segment_global_scratch_bytes(int ny, int nc, int nm, int elem_bytes, long long px) {
+  return plane_offset(NPLANE, ny, nc, nm, elem_bytes, px);
 }
 
 int lt_segment_fused_f32(LT_ARGS) { return launch_fused<float, NoOps>(LT_CALL(float), nullptr); }
@@ -1409,6 +1745,13 @@ int lt_segment_fused_wide_f32(LT_ARGS) {
 int lt_segment_fused_wide_f64(LT_ARGS) {
   return launch_fused<double, NoOps, Wide>(LT_CALL(double), nullptr);
 }
+// The global form: `scratch` holds lt_segment_global_scratch_bytes(px) bytes.
+int lt_segment_fused_global_f32(LT_ARGS, void *scratch) {
+  return launch_fused<float, NoOps, Global>(LT_CALL(float), nullptr, scratch);
+}
+int lt_segment_fused_global_f64(LT_ARGS, void *scratch) {
+  return launch_fused<double, NoOps, Global>(LT_CALL(double), nullptr, scratch);
+}
 
 // The float32 kernel with its per-pixel operation tally written to
 // `op_count` (PX int64) — the roofline bound's operation count.
@@ -1417,6 +1760,9 @@ int lt_segment_fused_f32_opcount(LT_ARGS, void *op_count) {
 }
 int lt_segment_fused_wide_f32_opcount(LT_ARGS, void *op_count) {
   return launch_fused<float, CountOps, Wide>(LT_CALL(float), (long long *)op_count);
+}
+int lt_segment_fused_global_f32_opcount(LT_ARGS, void *scratch, void *op_count) {
+  return launch_fused<float, CountOps, Global>(LT_CALL(float), (long long *)op_count, scratch);
 }
 
 // The float32 kernel with each pixel's clock64() cycles per stage and
@@ -1433,10 +1779,12 @@ int lt_segment_fused_f32_block(LT_ARGS, int block) {
   });
 }
 
-// As occupancy_of for the narrow (wide = 0) or wide instantiation; the
-// narrow float32 fused kernel also at the sweep's block sizes.
-int lt_segment_occupancy(int which, int f64, int ny, int block, int wide, int *blocks) {
-  if (wide) return occupancy_of<Wide>(which, f64, ny, block, blocks);
+// As occupancy_of for the narrow (cap = 0), wide (1) or global (2)
+// instantiation; the narrow float32 fused kernel also at the sweep's block
+// sizes.
+int lt_segment_occupancy(int which, int f64, int ny, int block, int cap, int *blocks) {
+  if (cap == 2) return occupancy_of<Global>(which, f64, ny, block, blocks);
+  if (cap == 1) return occupancy_of<Wide>(which, f64, ny, block, blocks);
   if (which == 0 && !f64) {
     return with_sweep_block(block, [&](auto b) {
       constexpr int B = decltype(b)::value;
@@ -1451,23 +1799,40 @@ int lt_segment_occupancy(int which, int f64, int ny, int block, int wide, int *b
   const void *years, const void *values, const void *mask, long long px, int ny,            \
       void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments,          \
       int overshoot, double spike, double rt, int prevent, void *stream
-#define LT_FAMILY(T, O, C, stats)                                                             \
+#define LT_FAMILY(T, O, C, stats, scratch)                                                    \
   launch_family<T, O, C>(years, values, mask, px, ny,                                        \
                       make_family_outs<T>(despiked, vmasks, sses, out_ld),                   \
                       make_params(max_segments, overshoot, spike, rt, prevent, 0.0, 1.0, 0, 0), \
-                      stream, stats)
+                      stream, stats, scratch)
 
-int lt_family_stats_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, Narrow, nullptr); }
-int lt_family_stats_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, Narrow, nullptr); }
-int lt_family_stats_wide_f32(LT_FAMILY_ARGS) { return LT_FAMILY(float, NoOps, Wide, nullptr); }
-int lt_family_stats_wide_f64(LT_FAMILY_ARGS) { return LT_FAMILY(double, NoOps, Wide, nullptr); }
+int lt_family_stats_f32(LT_FAMILY_ARGS) {
+  return LT_FAMILY(float, NoOps, Narrow, nullptr, nullptr);
+}
+int lt_family_stats_f64(LT_FAMILY_ARGS) {
+  return LT_FAMILY(double, NoOps, Narrow, nullptr, nullptr);
+}
+int lt_family_stats_wide_f32(LT_FAMILY_ARGS) {
+  return LT_FAMILY(float, NoOps, Wide, nullptr, nullptr);
+}
+int lt_family_stats_wide_f64(LT_FAMILY_ARGS) {
+  return LT_FAMILY(double, NoOps, Wide, nullptr, nullptr);
+}
+int lt_family_stats_global_f32(LT_FAMILY_ARGS, void *scratch) {
+  return LT_FAMILY(float, NoOps, Global, nullptr, scratch);
+}
+int lt_family_stats_global_f64(LT_FAMILY_ARGS, void *scratch) {
+  return LT_FAMILY(double, NoOps, Global, nullptr, scratch);
+}
 
 // The float32 family kernel with its per-pixel operation tally.
 int lt_family_stats_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return LT_FAMILY(float, CountOps, Narrow, (long long *)op_count);
+  return LT_FAMILY(float, CountOps, Narrow, (long long *)op_count, nullptr);
 }
 int lt_family_stats_wide_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return LT_FAMILY(float, CountOps, Wide, (long long *)op_count);
+  return LT_FAMILY(float, CountOps, Wide, (long long *)op_count, nullptr);
+}
+int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, void *op_count) {
+  return LT_FAMILY(float, CountOps, Global, (long long *)op_count, scratch);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ recorder and resource sampler, the straggler detector and span helpers,
 and the :class:`Telemetry` bundle.  Event names, fields and metric names
 are the JAX package's, so its tools read this package's streams.  The
 fleet telemetry plane (``publish`` → ``aggregate`` → ``history`` →
-``alerts``) is here too; ``reqtrace`` comes with the fleet router.
+``alerts``) is here too, and ``reqtrace``, which assembles a request's
+spans across the fleet router and its replicas.
 """
 
 from land_trendr_tpu_torch.obs.events import (

@@ -237,7 +237,9 @@ def _despike(cx: _Ctx, t: torch.Tensor, y: torch.Tensor, n: torch.Tensor) -> tor
 
 
 def _masked_ols(cx: _Ctx, t, y, member):
-    """``(intercept, slope, tm, ym)`` of the OLS line over ``member``.
+    """``(slope, tm, ym)`` of the OLS line over ``member``: the line is
+    ``ym + slope * (t - tm)``, in the frame centred on the member years (an
+    intercept at year 0 would amplify the slope's last bit by ``tm``).
 
     ``t``/``y`` broadcast against ``member`` (``(..., NY)``); the sums run
     in year order — the kernel's two passes over the member years.
@@ -269,8 +271,7 @@ def _masked_ols(cx: _Ctx, t, y, member):
     ).unbind(-1)
     ok = (n >= 2.0) & (stt > 0.0)
     slope = torch.where(ok, sty / torch.where(ok, stt, one), zero)
-    intercept = ym - slope * tm
-    return intercept, slope, tm, ym
+    return slope, tm, ym
 
 
 def _clamp_slope(cx: _Ctx, slope, duration, y_range):
@@ -301,12 +302,13 @@ def _fit_model(cx: _Ctx, t, y, valid, vmask, y_range):
 
     # --- segment 0: OLS over closed [v0, v1] ---
     member0 = (iota >= vpos[:, :1]) & (iota <= vpos[:, 1:2]) & valid
-    c0, c1, tm, ym = _masked_ols(cx, t, y, member0)
+    c1, tm, ym = _masked_ols(cx, t, y, member0)
     c1c = _clamp_slope(cx, c1, tv[:, 1] - tv[:, 0], y_range)
-    c0 = ym - c1c * tm
-    fitted = torch.where(member0, c0.unsqueeze(-1) + c1c.unsqueeze(-1) * t, zero)
+    fitted = torch.where(
+        member0, ym.unsqueeze(-1) + c1c.unsqueeze(-1) * (t - tm.unsqueeze(-1)), zero
+    )
     anchor_t = tv[:, 1]
-    anchor_y = c0 + c1c * anchor_t
+    anchor_y = ym + c1c * (anchor_t - tm)
 
     # --- segments 1..: slope-only regression through the anchor ---
     for k in range(1, nv - 1):
@@ -403,9 +405,9 @@ def _find_candidates(cx: _Ctx, t, y, valid, vmask):
             & (iota <= vpos[:, 1:].unsqueeze(-1))
             & active.unsqueeze(-1)
         )                                                  # (P, NC-1, NY)
-        c0, c1, _, _ = _masked_ols(cx, t.unsqueeze(1), y.unsqueeze(1), member)
+        c1, tm, ym = _masked_ols(cx, t.unsqueeze(1), y.unsqueeze(1), member)
         seg = (torch.cumsum(vmask.to(torch.int64), -1) - 1).clamp(0, nc - 2)
-        dev = torch.abs(y - (_take(c0, seg) + _take(c1, seg) * t))
+        dev = torch.abs(y - (_take(ym, seg) + _take(c1, seg) * (t - _take(tm, seg))))
         last = _take(vpos, (n_verts - 1).clamp(min=0)).unsqueeze(-1)
         eligible = valid & ~vmask & (iota > vpos[:, :1]) & (iota < last)
         dev = torch.where(eligible, dev, neg1)

@@ -13,24 +13,30 @@ despiked series, family vertex sets, SSEs).
   (``land_trendr_tpu_torch/_build/``, named by the source's hash, so an
   edited source is rebuilt) and loaded with :mod:`ctypes`.  Nothing is
   built or imported when this module is imported.
-* **Two capacities.**  Each kernel is built twice: the narrow
+* **Three forms.**  Each kernel is built three times: the narrow
   instantiation (up to :data:`NARROW_NY` years and :data:`NARROW_NC`
   candidates, ``max_segments + 1 + vertex_count_overshoot``), which every
-  40-year stack takes, and the wide one (up to :data:`MAX_NY` years and
-  :data:`MAX_NC` candidates, half the block).  :func:`instantiation` picks
-  one from NY and the params, and refuses above the wide caps.
+  40-year stack takes, the wide one (up to :data:`WIDE_NY` years and
+  :data:`WIDE_NC` candidates, half the block), and the global form, whose
+  NY and candidate count are runtime values: its series, sets and
+  per-thread arrays live in a global-memory scratch the wrapper allocates
+  per launch (:func:`global_scratch_bytes`), the launch cut to
+  :data:`GLOBAL_SCRATCH_BUDGET` bytes of it (:func:`global_chunk`).
+  :func:`instantiation` picks one from NY and the params; nothing is
+  refused for its size.
 * **Launch.**  The kernel runs on PyTorch's current stream of the input's
   device, one thread per pixel.  It reads the caller's pixel-major
   ``(PX, NY)`` values and bool mask as they are (no transposed or cleaned
   copy: the kernel tests ``isfinite`` itself) and the fused kernel writes
   its outputs pixel-major, so :class:`SegOutputs` holds the tensors the
-  kernel wrote.  Each block brings its contiguous slab into shared memory
-  (:func:`smem_bytes` is its plan).  The C entry returns
-  ``cudaGetLastError()`` and the wrapper raises on a non-zero code.  Every
-  launch of the narrow fused kernel adds one to :data:`LAUNCHES`, of the
-  wide one to :data:`WIDE_LAUNCHES`, of the narrow and wide family kernel
-  to :data:`FAMILY_LAUNCHES` and :data:`WIDE_FAMILY_LAUNCHES`, and nothing
-  else does.
+  kernel wrote.  Each block of the narrow and wide forms brings its
+  contiguous slab into shared memory (:func:`smem_bytes` is its plan).
+  The C entry returns ``cudaGetLastError()`` and the wrapper raises on a
+  non-zero code.  Every launch of the narrow fused kernel adds one to
+  :data:`LAUNCHES`, of the wide and global ones to :data:`WIDE_LAUNCHES`
+  and :data:`GLOBAL_LAUNCHES`, of the family kernel's three forms to
+  :data:`FAMILY_LAUNCHES`, :data:`WIDE_FAMILY_LAUNCHES` and
+  :data:`GLOBAL_FAMILY_LAUNCHES`, and nothing else does.
   Each launch is an NVTX range (``lt_segment_fused``, ``lt_family_stats``).
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
@@ -67,9 +73,11 @@ __all__ = [
     "CAPS",
     "CUDA_BLOCK",
     "FAMILY_LAUNCHES",
+    "GLOBAL_BLOCKS",
+    "GLOBAL_FAMILY_LAUNCHES",
+    "GLOBAL_LAUNCHES",
+    "GLOBAL_SCRATCH_BUDGET",
     "LAUNCHES",
-    "MAX_NC",
-    "MAX_NY",
     "NARROW_NC",
     "NARROW_NY",
     "SMEM_LIMIT",
@@ -78,6 +86,8 @@ __all__ = [
     "WIDE_BLOCKS",
     "WIDE_FAMILY_LAUNCHES",
     "WIDE_LAUNCHES",
+    "WIDE_NC",
+    "WIDE_NY",
     "block_of",
     "build_info",
     "cuda_family_op_counts",
@@ -86,7 +96,10 @@ __all__ = [
     "cuda_segment_pixels",
     "cuda_segment_pixels_chunked",
     "cuda_segment_stage_cycles",
+    "global_chunk",
+    "global_scratch_bytes",
     "instantiation",
+    "launch_counts",
     "load_library",
     "occupancy",
     "smem_bytes",
@@ -103,18 +116,23 @@ BLOCKS = {torch.float32: 256, torch.float64: 128}
 #: threads per block of both wide kernels: half the narrow blocks, so that
 #: NY = 128 fits a block's shared memory (64 still divides the chunk granule)
 WIDE_BLOCKS = {torch.float32: 128, torch.float64: 64}
+#: threads per block of both global forms, which hold nothing in shared
+#: memory: the chunk granule
+GLOBAL_BLOCKS = {torch.float32: 128, torch.float64: 128}
 #: block sizes of the float32 fused kernel's block-size sweep: the
 #: float64 block, the float32 block, and the largest that holds NY = 40
 SWEEP = (128, 256, 512)
 #: shared-memory bytes one block may use on sm_90
 SMEM_LIMIT = 232_448
-#: compile-time capacity bounds (years, candidates) of each instantiation,
-#: checked before a launch: the narrow one holds a vertex set in one 64-bit
-#: word, the wide one in two
-CAPS = {"narrow": (64, 16), "wide": (128, 32)}
+#: capacity bounds (years, candidates) of each instantiation: the narrow
+#: one holds a vertex set in one 64-bit word, the wide one in two; the
+#: global form has none (``None``: only the device memory bounds it)
+CAPS = {"narrow": (64, 16), "wide": (128, 32), "global": (None, None)}
 NARROW_NY, NARROW_NC = CAPS["narrow"]
-#: the most any instantiation holds
-MAX_NY, MAX_NC = CAPS["wide"]
+WIDE_NY, WIDE_NC = CAPS["wide"]
+#: bytes of global-memory scratch one launch of a global form may
+#: allocate; the launch loop cuts the pixels of a call to stay within it
+GLOBAL_SCRATCH_BUDGET = 1 << 30
 
 #: the fused kernel's stages, in the order of the columns of
 #: :func:`cuda_segment_stage_cycles`
@@ -128,9 +146,25 @@ STAGES = (
 LAUNCHES = 0
 #: wide fused-kernel launches, counted the same way
 WIDE_LAUNCHES = 0
-#: narrow and wide family-kernel launches, counted the same way
+#: global fused-kernel launches (one per scratch-sized piece of a call)
+GLOBAL_LAUNCHES = 0
+#: narrow, wide and global family-kernel launches, counted the same way
 FAMILY_LAUNCHES = 0
 WIDE_FAMILY_LAUNCHES = 0
+GLOBAL_FAMILY_LAUNCHES = 0
+
+
+
+def launch_counts() -> "dict[str, int]":
+    """This process's launches of each kernel form, by counter name (what
+    ``serve``'s ``GET /debug/kernels`` reports)."""
+    return {
+        "LAUNCHES": LAUNCHES, "WIDE_LAUNCHES": WIDE_LAUNCHES,
+        "GLOBAL_LAUNCHES": GLOBAL_LAUNCHES, "FAMILY_LAUNCHES": FAMILY_LAUNCHES,
+        "WIDE_FAMILY_LAUNCHES": WIDE_FAMILY_LAUNCHES,
+        "GLOBAL_FAMILY_LAUNCHES": GLOBAL_FAMILY_LAUNCHES,
+    }
+
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "segment_fused.cu"
@@ -220,9 +254,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     for name in ("lt_segment_fused_f32_opcount", "lt_segment_fused_wide_f32_opcount",
-                 "lt_segment_fused_f32_stagecycles"):
+                 "lt_segment_fused_f32_stagecycles",
+                 "lt_segment_fused_global_f32", "lt_segment_fused_global_f64"):
         getattr(lib, name).argtypes = [*_ARGTYPES, _P]
         getattr(lib, name).restype = ctypes.c_int
+    lib.lt_segment_fused_global_f32_opcount.argtypes = [*_ARGTYPES, _P, _P]
+    lib.lt_segment_fused_global_f32_opcount.restype = ctypes.c_int
     lib.lt_segment_fused_f32_block.argtypes = [*_ARGTYPES, _I]
     lib.lt_segment_fused_f32_block.restype = ctypes.c_int
     lib.lt_segment_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
@@ -234,14 +271,19 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _FAMILY_ARGTYPES
         fn.restype = ctypes.c_int
-    for name in ("lt_family_stats_f32_opcount", "lt_family_stats_wide_f32_opcount"):
+    for name in ("lt_family_stats_f32_opcount", "lt_family_stats_wide_f32_opcount",
+                 "lt_family_stats_global_f32", "lt_family_stats_global_f64"):
         getattr(lib, name).argtypes = [*_FAMILY_ARGTYPES, _P]
         getattr(lib, name).restype = ctypes.c_int
+    lib.lt_family_stats_global_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P, _P]
+    lib.lt_family_stats_global_f32_opcount.restype = ctypes.c_int
+    lib.lt_segment_global_scratch_bytes.argtypes = [_I, _I, _I, _I, _LL]
+    lib.lt_segment_global_scratch_bytes.restype = ctypes.c_longlong
     for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_wide_max_ny",
                  "lt_segment_wide_max_nc", "lt_segment_nstage"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
-    for name in ("lt_segment_block", "lt_segment_wide_block"):
+    for name in ("lt_segment_block", "lt_segment_wide_block", "lt_segment_global_block"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [_I]
     caps = (
@@ -249,25 +291,36 @@ def load_library() -> ctypes.CDLL:
          lib.lt_segment_block(4), lib.lt_segment_block(8)),
         (lib.lt_segment_wide_max_ny(), lib.lt_segment_wide_max_nc(),
          lib.lt_segment_wide_block(4), lib.lt_segment_wide_block(8)),
+        (lib.lt_segment_global_block(4), lib.lt_segment_global_block(8)),
         lib.lt_segment_nstage(),
     )
     want = tuple(
         (*CAPS[cap], block_of(torch.float32, cap), block_of(torch.float64, cap))
         for cap in ("narrow", "wide")
-    ) + (len(STAGES),)
+    ) + ((block_of(torch.float32, "global"), block_of(torch.float64, "global")), len(STAGES))
     if caps != want:
         raise RuntimeError(f"kernel capacities {caps} != wrapper's {want}")
-    for wide, cap in enumerate(("narrow", "wide")):
-        for ny in (1, 2, 40, CAPS[cap][0]):
+    for code, cap in enumerate(_CAP_CODES):
+        for ny in (1, 2, 40, CAPS[cap][0] or 300):
             for elem in (4, 8):
                 for block in (*SWEEP, *WIDE_BLOCKS.values()):
-                    got = lib.lt_segment_smem_bytes(ny, elem, block, wide)
+                    got = lib.lt_segment_smem_bytes(ny, elem, block, code)
                     plan = _smem_plan(ny, elem, block, cap)
                     if got != plan:
                         raise RuntimeError(
                             f"kernel's shared-memory plan {got} B (ny={ny}, {elem}-byte "
                             f"values, block {block}, {cap}) != wrapper's {plan} B"
                         )
+    for ny, nc, nm in ((1, 4, 1), (40, 10, 6), (160, 40, 36), (300, 9, 5)):
+        for elem in (4, 8):
+            for px in (1, 129, 65_536):
+                got = lib.lt_segment_global_scratch_bytes(ny, nc, nm, elem, px)
+                plan = _scratch_plan(ny, nc, nm, elem, px)
+                if got != plan:
+                    raise RuntimeError(
+                        f"kernel's scratch plan {got} B (ny={ny}, nc={nc}, nm={nm}, "
+                        f"{elem}-byte values, {px} px) != wrapper's {plan} B"
+                    )
     return lib
 
 
@@ -286,28 +339,30 @@ def build_info(force: bool = False) -> dict:
     return dict(_built()[1])
 
 
+#: the C entries' code of each instantiation
+_CAP_CODES = ("narrow", "wide", "global")
+
+
 def instantiation(ny: int, params: LTParams) -> str:
     """The kernels' instantiation that holds ``ny`` years and ``params``'
     candidates: ``"narrow"`` up to :data:`NARROW_NY` years and
-    :data:`NARROW_NC` candidates, else ``"wide"``; raises
-    :class:`ValueError`, naming the cap, above :data:`MAX_NY` years or
-    :data:`MAX_NC` candidates."""
+    :data:`NARROW_NC` candidates, ``"wide"`` up to :data:`WIDE_NY` and
+    :data:`WIDE_NC`, else ``"global"``, which has no cap."""
     nc = params.max_candidates
-    if ny > MAX_NY:
-        raise ValueError(
-            f"NY={ny} exceeds the kernel's {MAX_NY}-year capacity"
-        )
-    if nc > MAX_NC:
-        raise ValueError(
-            f"max_segments + 1 + vertex_count_overshoot = {nc} exceeds the kernel's "
-            f"candidate capacity {MAX_NC}"
-        )
-    return "narrow" if ny <= NARROW_NY and nc <= NARROW_NC else "wide"
+    if ny <= NARROW_NY and nc <= NARROW_NC:
+        return "narrow"
+    return "wide" if ny <= WIDE_NY and nc <= WIDE_NC else "global"
+
+
+def _holds(cap: str, ny: int, params: LTParams) -> bool:
+    """Whether instantiation ``cap`` holds ``ny`` years and ``params``."""
+    max_ny, max_nc = CAPS[cap]
+    return max_ny is None or (ny <= max_ny and params.max_candidates <= max_nc)
 
 
 def block_of(dtype: torch.dtype, cap: str = "narrow") -> int:
     """Threads per block of both kernels of instantiation ``cap``."""
-    return (WIDE_BLOCKS if cap == "wide" else BLOCKS)[dtype]
+    return {"narrow": BLOCKS, "wide": WIDE_BLOCKS, "global": GLOBAL_BLOCKS}[cap][dtype]
 
 
 def _smem_plan(ny: int, elem: int, block: int, cap: str = "narrow") -> int:
@@ -316,9 +371,58 @@ def _smem_plan(ny: int, elem: int, block: int, cap: str = "narrow") -> int:
     y columns (NY per thread; the mask slab lands there), and the t
     columns (W = max(NY, NC) | 1 per thread for the instantiation's
     candidate capacity NC; the value slab lands there and the output
-    staging tile reuses them)."""
+    staging tile reuses them).  The global form uses none."""
+    if cap == "global":
+        return 0
     width = max(ny, CAPS[cap][1]) | 1
     return 16 + (ny * elem + 15) // 16 * 16 + block * (ny + width) * elem
+
+
+def _scratch_plan(ny: int, nc: int, nm: int, elem: int, px: int) -> int:
+    """Bytes of the global form's scratch for ``px`` pixels
+    (``plane_offset(NPLANE)`` in the source): one plane per per-pixel
+    array, laid out [position][pixel] and rounded up to 16 bytes — the y
+    and t columns (NY values each), the valid-year set, the family's NM
+    sets and the family kernel's member set (NY/64 rounded up 64-bit words
+    each), then NC ints (vertices, farthest points), NC values (segment
+    deviations), NM values each (SSEs, p-values, scores), NC ints and
+    values (the chosen vertices and fits), NC values each (regression
+    anchors, rates) and NC ints (vertex years)."""
+    words = (ny + 63) // 64
+    planes = (
+        (ny, elem), (ny, elem), (words, 8), (nm * words, 8), (words, 8),
+        (nc, 4), (nc, 4), (nc, elem), (nm, elem), (nm, elem), (nm, elem),
+        (nc, 4), (nc, elem), (nc, elem), (nc, elem), (nc, 4),
+    )
+    return sum((rows * size * px + 15) // 16 * 16 for rows, size in planes)
+
+
+def global_scratch_bytes(ny: int, params: LTParams, dtype: torch.dtype = torch.float32,
+                         px: int = 1) -> int:
+    """Bytes of global-memory scratch one launch of either global form
+    needs for ``px`` pixels at ``ny`` years and ``params``' candidates."""
+    if dtype not in BLOCKS:
+        raise TypeError(f"values must be float32 or float64; got {dtype}")
+    return _scratch_plan(ny, params.max_candidates, params.max_segments,
+                         8 if dtype == torch.float64 else 4, px)
+
+
+def global_chunk(ny: int, params: LTParams, dtype: torch.dtype = torch.float32,
+                 budget: "int | None" = None) -> int:
+    """Pixels per launch of the global forms: the most, a multiple of
+    :data:`CUDA_BLOCK`, whose scratch stays within ``budget`` bytes
+    (default :data:`GLOBAL_SCRATCH_BUDGET`); raises :class:`ValueError`
+    when not even one block's fits."""
+    budget = GLOBAL_SCRATCH_BUDGET if budget is None else budget
+    per_block = global_scratch_bytes(ny, params, dtype, CUDA_BLOCK)
+    if per_block > budget:
+        raise ValueError(
+            f"one block of {CUDA_BLOCK} px at NY={ny} needs {per_block:,} B of scratch; "
+            f"the budget is {budget:,} B"
+        )
+    # whole blocks fill every plane in whole 16-byte runs: the plan is
+    # linear in the blocks
+    return budget // per_block * CUDA_BLOCK
 
 
 def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" = None,
@@ -327,11 +431,16 @@ def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" 
     instantiation ``cap`` at ``ny`` years for ``dtype`` values and
     ``block`` threads (default: the instantiation's block for the dtype,
     :func:`block_of`); raises :class:`ValueError` when a block may not
-    hold that much on sm_90 (more than :data:`SMEM_LIMIT` bytes)."""
+    hold that much on sm_90 (more than :data:`SMEM_LIMIT` bytes).  The
+    global form holds any NY in none."""
     if dtype not in BLOCKS:
         raise TypeError(f"values must be float32 or float64; got {dtype}")
     block = block_of(dtype, cap) if block is None else block
     max_ny = CAPS[cap][0]
+    if max_ny is None:
+        if ny < 1:
+            raise ValueError(f"NY={ny}: a series needs a year")
+        return _smem_plan(ny, 8 if dtype == torch.float64 else 4, block, cap)
     if not 1 <= ny <= max_ny:
         raise ValueError(f"NY={ny} outside the {cap} kernel's 1..{max_ny}-year capacity")
     n = _smem_plan(ny, 8 if dtype == torch.float64 else 4, block, cap)
@@ -343,8 +452,7 @@ def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" 
     return n
 
 
-def _check(years: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
-           params: LTParams) -> None:
+def _check(years: torch.Tensor, values: torch.Tensor, mask: torch.Tensor) -> None:
     """Validate what the kernel (and its plain version) accept."""
     if values.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"values must be float32 or float64; got {values.dtype}")
@@ -360,7 +468,6 @@ def _check(years: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"years must be ({ny},); got {tuple(years.shape)}")
     if not (values.is_contiguous() and mask.is_contiguous()):
         raise ValueError("values and mask must be contiguous")
-    instantiation(ny, params)
     if values.device != mask.device:
         raise ValueError(f"values on {values.device}, mask on {mask.device}")
 
@@ -371,18 +478,55 @@ def _kernel_years(years: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return years.to(device=values.device, dtype=values.dtype).contiguous()
 
 
+def _plan_cap(ny: int, params: LTParams, cap: "str | None") -> str:
+    """The instantiation a launch uses: ``cap`` when given (tests and the
+    smoke force one; it must hold the shape), else :func:`instantiation`."""
+    if cap is None:
+        return instantiation(ny, params)
+    if cap not in CAPS:
+        raise ValueError(f"cap {cap!r} is not one of {sorted(CAPS)}")
+    if not _holds(cap, ny, params):
+        raise ValueError(
+            f"the {cap} kernel holds {CAPS[cap][0]} years and {CAPS[cap][1]} candidates; "
+            f"got NY={ny} and {params.max_candidates}"
+        )
+    return cap
+
+
+class _Scratch:
+    """The global forms' scratch of one call: allocated once for the
+    largest piece, and the pieces each launch takes (:func:`global_chunk`
+    pixels, the last one ragged)."""
+
+    def __init__(self, ny: int, params: LTParams, dtype: torch.dtype, px: int, device):
+        self.chunk = global_chunk(ny, params, dtype)
+        self.tensor = torch.empty(
+            global_scratch_bytes(ny, params, dtype, min(px, self.chunk)),
+            dtype=torch.uint8, device=device,
+        )
+
+    def pieces(self, start: int, count: int):
+        """``(start, count)`` of each launch over pixels ``[start, start +
+        count)``."""
+        for s in range(start, start + count, self.chunk):
+            yield s, min(self.chunk, start + count - s)
+
+
 class _Launch:
     """Inputs and pixel-major outputs of one (possibly chunked) kernel call:
     the kernel reads the caller's ``values`` and ``mask`` themselves."""
 
-    def __init__(self, years, values, mask, params: LTParams):
+    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None):
         dev = values.device
         self.dtype = values.dtype
         self.params = params
         px, ny = values.shape
         self.px, self.ny = px, ny
-        self.cap = instantiation(ny, params)
+        self.cap = _plan_cap(ny, params, cap)
         self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
+        self.scratch = (
+            _Scratch(ny, params, self.dtype, px, dev) if self.cap == "global" else None
+        )
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nv, nm = params.max_vertices, params.max_segments
@@ -398,36 +542,45 @@ class _Launch:
 
     def run(self, start: int, count: int, op_count: "torch.Tensor | None" = None,
             cycles: "torch.Tensor | None" = None, block: "int | None" = None) -> None:
-        """Launch the kernel on pixels ``[start, start + count)``; with
+        """Launch the kernel on pixels ``[start, start + count)`` (the
+        global form: one launch per scratch-sized piece); with
         ``op_count`` (int64, PX) the float32 kernel also writes each
         pixel's floating-point operation tally there, with ``cycles``
         (int64, PX x (len(STAGES) + 1)) each pixel's cycles per stage and
         their total; ``block`` (one of :data:`SWEEP`) runs the float32
         kernel built for that block size.  Those three are float32 only,
         and stage cycles and the sweep narrow only."""
-        global LAUNCHES, WIDE_LAUNCHES
         if self.dtype != torch.float32 and (
                 op_count is not None or cycles is not None or block is not None):
             raise ValueError(
                 f"op counts, stage cycles and the block sweep are float32 kernels; "
                 f"values are {self.dtype}")
-        if self.cap == "wide" and (cycles is not None or block is not None):
+        if self.cap != "narrow" and (cycles is not None or block is not None):
             raise ValueError("stage cycles and the block sweep are narrow kernels")
         if block is not None and block not in SWEEP:
             raise ValueError(f"block {block} is not one of the sweep's {SWEEP}")
         lib = load_library()
-        wide = "_wide" if self.cap == "wide" else ""
-        fn = getattr(lib, f"lt_segment_fused{wide}_{'f64' if self.dtype == torch.float64 else 'f32'}")
-        extra = ()
+        form = "" if self.cap == "narrow" else f"_{self.cap}"
+        fn = getattr(lib, f"lt_segment_fused{form}_{'f64' if self.dtype == torch.float64 else 'f32'}")
+        record = None  # a per-pixel record the kernel writes
         if op_count is not None:
-            fn = getattr(lib, f"lt_segment_fused{wide}_f32_opcount")
-            extra = (_at(op_count, start),)
+            fn, record = getattr(lib, f"lt_segment_fused{form}_f32_opcount"), op_count
         elif cycles is not None:
-            fn = lib.lt_segment_fused_f32_stagecycles
-            extra = (_at(cycles, start),)
+            fn, record = lib.lt_segment_fused_f32_stagecycles, cycles
         elif block is not None:
             fn = lib.lt_segment_fused_f32_block
-            extra = (block,)
+        pieces = [(start, count)] if self.scratch is None else self.scratch.pieces(start, count)
+        for first, n in pieces:
+            tail = ([_at(record, first)] if record is not None
+                    else [block] if block is not None else [])
+            self._launch(fn, first, n, tail)
+
+    def _launch(self, fn, start: int, count: int, extra: list) -> None:
+        """One launch of ``fn`` on pixels ``[start, start + count)``, with
+        the scratch (the global form) and ``extra`` after the stream."""
+        global LAUNCHES, WIDE_LAUNCHES, GLOBAL_LAUNCHES
+        if self.scratch is not None:
+            extra = [self.scratch.tensor.data_ptr(), *extra]
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
         with nvtx_range("lt_segment_fused"):
@@ -443,7 +596,9 @@ class _Launch:
             )
         if rc != 0:
             raise RuntimeError(f"segment_fused ({self.cap}) launch failed: CUDA error {rc}")
-        if wide:
+        if self.cap == "global":
+            GLOBAL_LAUNCHES += 1
+        elif self.cap == "wide":
             WIDE_LAUNCHES += 1
         else:
             LAUNCHES += 1
@@ -473,21 +628,28 @@ def _at(a: torch.Tensor, start: int) -> int:
     return a.data_ptr() + start * a.stride(0) * a.element_size()
 
 
+def _col(a: torch.Tensor, start: int) -> int:
+    """Address of column ``start`` of a tensor whose last axis is the
+    pixels (the family kernel's year-major outputs)."""
+    return a.data_ptr() + start * a.element_size()
+
+
 def cuda_segment_pixels(
     years: torch.Tensor,
     values: torch.Tensor,
     mask: torch.Tensor,
     params: LTParams = LTParams(),
 ) -> SegOutputs:
-    """Segment a ``(PX, NY)`` batch with the fused kernel — one launch.
+    """Segment a ``(PX, NY)`` batch with the fused kernel — one launch
+    (the global form: one per :func:`global_chunk` pixels).
 
     ``values`` is float32 (the production path) or float64 (for holding
     the kernel's decisions exactly against the plain version), ``mask``
-    bool, both contiguous; NY and the candidates within the wide caps
-    (:func:`instantiation` picks the narrow or wide kernel).  CUDA tensors
-    launch the kernel; CPU tensors run the plain PyTorch version.
+    bool, both contiguous; :func:`instantiation` picks the narrow, wide or
+    global kernel from NY and the candidates.  CUDA tensors launch the
+    kernel; CPU tensors run the plain PyTorch version.
     """
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     if values.device.type != "cuda":
         return torch_segment_pixels(years, values, mask, params)
     with torch.cuda.device(values.device):
@@ -511,7 +673,7 @@ def cuda_segment_pixels_chunked(
     :data:`CUDA_BLOCK` when it is larger than the block.  Results equal
     the unchunked call exactly (every pixel is independent).
     """
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     px = values.shape[0]
     if chunk < 1 or px % chunk:
         raise ValueError(f"pixel count {px} not a multiple of chunk {chunk}; pad first")
@@ -538,7 +700,7 @@ def cuda_segment_op_counts(
     these inputs (int64, PX) — what this data needs, early exits included;
     the operation side of the kernel's roofline bound.  CUDA tensors only.
     """
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     if values.dtype != torch.float32 or values.device.type != "cuda":
         raise ValueError("op counts come from the float32 kernel on CUDA tensors")
     with torch.cuda.device(values.device):
@@ -560,7 +722,7 @@ def cuda_segment_stage_cycles(
     cycles from kernel entry to its last stage mark).  A stage a pixel
     skips counts 0; the output stage includes the block's staging barriers.
     CUDA tensors only."""
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     if values.dtype != torch.float32 or values.device.type != "cuda":
         raise ValueError("stage cycles come from the float32 kernel on CUDA tensors")
     with torch.cuda.device(values.device):
@@ -583,7 +745,7 @@ def occupancy(kernel: str = "fused", dtype: torch.dtype = torch.float32, ny: int
     blocks = ctypes.c_int(0)
     which = {"fused": 0, "family": 1}[kernel]
     f64 = int(dtype == torch.float64)
-    rc = lib.lt_segment_occupancy(which, f64, ny, block, int(cap == "wide"),
+    rc = lib.lt_segment_occupancy(which, f64, ny, block, _CAP_CODES.index(cap),
                                   ctypes.addressof(blocks))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
@@ -602,14 +764,17 @@ class _FamilyLaunch:
     """Inputs and year-major outputs of one family-kernel call: the kernel
     reads the caller's ``values`` and ``mask`` themselves."""
 
-    def __init__(self, years, values, mask, params: LTParams):
+    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None):
         dev = values.device
         self.dtype = values.dtype
         self.params = params
         px, ny = values.shape
         self.px, self.ny = px, ny
-        self.cap = instantiation(ny, params)
+        self.cap = _plan_cap(ny, params, cap)
         self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
+        self.scratch = (
+            _Scratch(ny, params, self.dtype, px, dev) if self.cap == "global" else None
+        )
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nm = params.max_segments
@@ -620,35 +785,43 @@ class _FamilyLaunch:
         self.sses = torch.empty((nm, px), dtype=self.dtype, device=dev)
 
     def run(self, op_count: "torch.Tensor | None" = None) -> None:
-        """Launch the family kernel on every pixel; with ``op_count``
-        (int64, PX) the float32 kernel also writes each pixel's
-        floating-point operation tally there."""
-        global FAMILY_LAUNCHES, WIDE_FAMILY_LAUNCHES
+        """Launch the family kernel on every pixel (the global form: one
+        launch per scratch-sized piece); with ``op_count`` (int64, PX) the
+        float32 kernel also writes each pixel's floating-point operation
+        tally there."""
+        global FAMILY_LAUNCHES, WIDE_FAMILY_LAUNCHES, GLOBAL_FAMILY_LAUNCHES
         lib = load_library()
-        wide = "_wide" if self.cap == "wide" else ""
-        fn = getattr(lib, f"lt_family_stats{wide}_{'f64' if self.dtype == torch.float64 else 'f32'}")
-        extra = ()
+        form = "" if self.cap == "narrow" else f"_{self.cap}"
+        fn = getattr(lib, f"lt_family_stats{form}_{'f64' if self.dtype == torch.float64 else 'f32'}")
         if op_count is not None:
-            fn = getattr(lib, f"lt_family_stats{wide}_f32_opcount")
-            extra = (op_count.data_ptr(),)
+            fn = getattr(lib, f"lt_family_stats{form}_f32_opcount")
+        pieces = [(0, self.px)] if self.scratch is None else self.scratch.pieces(0, self.px)
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
-        with nvtx_range("lt_family_stats"):
-            rc = fn(
-                self.years.data_ptr(), self.values.data_ptr(), self.mask.data_ptr(),
-                self.px, self.ny,
-                self.despiked.data_ptr(), self.vmasks.data_ptr(), self.sses.data_ptr(),
-                self.px,
-                p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
-                float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
-                stream, *extra,
-            )
-        if rc != 0:
-            raise RuntimeError(f"family_stats ({self.cap}) launch failed: CUDA error {rc}")
-        if wide:
-            WIDE_FAMILY_LAUNCHES += 1
-        else:
-            FAMILY_LAUNCHES += 1
+        for start, count in pieces:
+            extra = [] if self.scratch is None else [self.scratch.tensor.data_ptr()]
+            if op_count is not None:
+                extra.append(_at(op_count, start))
+            # a piece writes columns [start, start + count) of the
+            # year-major outputs, whose rows stay PX long
+            with nvtx_range("lt_family_stats"):
+                rc = fn(
+                    self.years.data_ptr(), _at(self.values, start), _at(self.mask, start),
+                    count, self.ny,
+                    _col(self.despiked, start), _col(self.vmasks, start),
+                    _col(self.sses, start), self.px,
+                    p.max_segments, p.vertex_count_overshoot, float(p.spike_threshold),
+                    float(p.recovery_threshold), int(bool(p.prevent_one_year_recovery)),
+                    stream, *extra,
+                )
+            if rc != 0:
+                raise RuntimeError(f"family_stats ({self.cap}) launch failed: CUDA error {rc}")
+            if self.cap == "global":
+                GLOBAL_FAMILY_LAUNCHES += 1
+            elif self.cap == "wide":
+                WIDE_FAMILY_LAUNCHES += 1
+            else:
+                FAMILY_LAUNCHES += 1
 
     def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(despiked (PX, NY), vmasks (PX, NM, NY) bool, sses (PX, NM))``
@@ -662,7 +835,8 @@ def cuda_family_stats(
     mask: torch.Tensor,
     params: LTParams = LTParams(),
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stages 1–4a with the family kernel — one launch.
+    """Stages 1–4a with the family kernel — one launch (the global form:
+    one per :func:`global_chunk` pixels).
 
     Returns ``(despiked, vmasks, sses)`` in the layout of
     :func:`~land_trendr_tpu_torch.ops.segment.torch_family_stats` (the
@@ -670,7 +844,7 @@ def cuda_family_stats(
     Inputs as for :func:`cuda_segment_pixels`.  CUDA tensors launch the
     kernel; CPU tensors run the plain PyTorch version.
     """
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     if values.device.type != "cuda":
         return torch_family_stats(years, values, mask, params)
     with torch.cuda.device(values.device):
@@ -689,7 +863,7 @@ def cuda_family_op_counts(
     kernel on these inputs (int64, PX) — the operation side of its
     roofline bound.  CUDA tensors only.
     """
-    _check(years, values, mask, params)
+    _check(years, values, mask)
     if values.dtype != torch.float32 or values.device.type != "cuda":
         raise ValueError("op counts come from the float32 kernel on CUDA tensors")
     with torch.cuda.device(values.device):

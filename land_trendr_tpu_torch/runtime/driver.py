@@ -38,10 +38,9 @@ each block is uploaded to, computed on and fetched from its own device,
 and the blocks are joined on the host in pixel order before the manifest
 write.
 
-On a CUDA device the run refuses, before it touches the workdir, a stack
-or params beyond the kernels' capacity
-(:func:`~land_trendr_tpu_torch.ops.segment_cuda.instantiation`).  A
-serving layer passes its :class:`~land_trendr_tpu_torch.serve.programs.
+On a CUDA device every NY and candidate count runs:
+:func:`~land_trendr_tpu_torch.ops.segment_cuda.instantiation` picks the
+narrow, wide or global form of the kernel.  A serving layer passes its :class:`~land_trendr_tpu_torch.serve.programs.
 ProgramCache` (``programs``): a miss pays one fully masked dummy tile
 through the upload → dispatch → fetch chain before tile 0 (the kernel
 library's load and the tile program's first launch), a hit skips it.
@@ -736,9 +735,6 @@ class Run:
         on_tile_durable=None,
     ) -> None:
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the kernels' capacity, refused before the workdir is touched
-            instantiation(stack.n_years, cfg.params)
         self.mesh = make_mesh(mesh) if mesh is not None else None
         if self.mesh is not None and self.mesh[0].type != self.device.type:
             raise ValueError(

@@ -10,9 +10,8 @@ ingest store ("ingest once, serve many") — and drains a bounded job
 queue through warm :class:`~land_trendr_tpu_torch.runtime.driver.Run`
 objects on one device (the card unless the caller asks for the CPU).  A
 warm job (same request shape, same stacks) pays **no** warm-up launch and
-**zero** TIFF decodes.  On a CUDA device admission refuses params beyond
-the kernel's candidate capacity; a stack beyond its year capacity is
-refused by the job's Run before its workdir is written.
+**zero** TIFF decodes.  Admission accepts every stack length and
+candidate count the JAX package does, on the card as on the CPU.
 
 Layout:
 
@@ -933,19 +932,6 @@ class SegmentationServer:
         try:
             faults.check("serve.submit")
             req = JobRequest.from_payload(payload)
-            if self.device.type == "cuda":
-                # the kernel's candidate capacity, refused at admission
-                # (the year capacity needs the stack: the job's Run
-                # refuses it before its workdir is written)
-                from land_trendr_tpu_torch.config import LTParams
-                from land_trendr_tpu_torch.ops.segment_cuda import MAX_NC
-
-                nc = LTParams.from_dict(req.params or {}).max_candidates
-                if nc > MAX_NC:
-                    raise ValueError(
-                        f"max_segments + 1 + vertex_count_overshoot = {nc} exceeds "
-                        f"the kernel's candidate capacity {MAX_NC}"
-                    )
         except ValueError as e:
             rejection = (400, "bad_request", str(e))
         except Exception as e:  # the injected-fault shape
@@ -1789,6 +1775,7 @@ class _JobAPIHandler(http.server.BaseHTTPRequestHandler):
         GET  /debug/jobs        per-job live state incl. run progress
         GET  /debug/requests    recent terminal requests, slowest first
                                 (trace_id + replica-side latency split)
+        GET  /debug/kernels     this process's kernel launch counts
         POST /debug/profile     on-demand bounded torch.profiler capture
 
     The ``/debug`` surface shares the job API's loopback-only bind (it
@@ -1858,6 +1845,10 @@ class _JobAPIHandler(http.server.BaseHTTPRequestHandler):
                 self._send_json(200, {"jobs": srv.debug_jobs()})
             elif path == "/debug/requests":
                 self._send_json(200, {"requests": srv.debug_requests()})
+            elif path == "/debug/kernels":
+                from land_trendr_tpu_torch.ops.segment_cuda import launch_counts
+
+                self._send_json(200, {"launches": launch_counts()})
             else:
                 self.send_error(404)
             return

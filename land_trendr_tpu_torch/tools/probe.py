@@ -104,7 +104,8 @@ def _device_name(dev: torch.device) -> str:
 
 def stages(px: int = 262_144, device: str = "cuda", reps: int = 5, ny: int = NY) -> dict:
     """Time the four variants at ``px`` pixels of ``ny`` years (above 64 the
-    kernels' wide instantiation); the probe's result dict."""
+    kernels' wide instantiation, above 128 their global form); the probe's
+    result dict."""
     dev = resolve_device(device)
     years, vals, mask = _inputs(px, dev, ny)
     out = {

@@ -52,9 +52,9 @@ def test_params_json(tmp_path):
 
 
 def test_absent_flags_are_rejected(tmp_path):
-    # a later slice's command (the fleet router)
-    r = _cli("--device", "cpu", "route", cwd=tmp_path)
-    assert r.returncode == 2 and "invalid choice: 'route'" in r.stderr
+    # the JAX package's platform switch: this package has --device instead
+    r = _cli("params", "--platform", "cpu", cwd=tmp_path)
+    assert r.returncode == 2 and "unrecognized arguments: --platform" in r.stderr
 
 
 def test_impl_is_not_a_flag(capsys):

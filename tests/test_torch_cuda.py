@@ -80,30 +80,30 @@ def test_rejects_non_contiguous(rng):
 
 
 def test_rejects_more_than_64_years(rng):
-    # 65 years take the wide kernel (the plain version here); 129 are
-    # beyond every instantiation
-    years, vals, mask = _inputs(rng, ny=65)
-    assert sc.instantiation(65, LTParams()) == "wide"
-    got = sc.cuda_segment_pixels(years, vals, mask)
-    ref = torch_segment_pixels(years, vals, mask)
-    for name, a, b in zip(got._fields, got, ref):
-        assert torch.equal(a, b), name
-    years, vals, mask = _inputs(rng, ny=129)
-    with pytest.raises(ValueError, match="128-year"):
-        sc.cuda_segment_pixels(years, vals, mask)
+    # 65 years take the wide kernel, 129 the global form (the plain version
+    # here): no length is refused (the name dates from when one was)
+    for ny, form in ((65, "wide"), (129, "global")):
+        years, vals, mask = _inputs(rng, ny=ny)
+        assert sc.instantiation(ny, LTParams()) == form
+        got = sc.cuda_segment_pixels(years, vals, mask)
+        ref = torch_segment_pixels(years, vals, mask)
+        for name, a, b in zip(got._fields, got, ref):
+            assert torch.equal(a, b), (ny, name)
 
 
 def test_rejects_params_beyond_capacity(rng):
+    # 17 candidates take the wide kernel, 33 the global form (the plain
+    # version here): no candidate count is refused (the name dates from
+    # when one was)
     years, vals, mask = _inputs(rng)
-    params = LTParams(max_segments=10, vertex_count_overshoot=6)  # 17 candidates
-    assert sc.instantiation(40, params) == "wide"
-    got = sc.cuda_segment_pixels(years, vals, mask, params)
-    ref = torch_segment_pixels(years, vals, mask, params)
-    for name, a, b in zip(got._fields, got, ref):
-        assert torch.equal(a, b), name
-    params = LTParams(max_segments=26, vertex_count_overshoot=6)  # 33 candidates
-    with pytest.raises(ValueError, match="candidate capacity 32"):
-        sc.cuda_segment_pixels(years, vals, mask, params)
+    for over, form in (({"max_segments": 10, "vertex_count_overshoot": 6}, "wide"),
+                       ({"max_segments": 26, "vertex_count_overshoot": 6}, "global")):
+        params = LTParams(**over)
+        assert sc.instantiation(40, params) == form
+        got = sc.cuda_segment_pixels(years, vals, mask, params)
+        ref = torch_segment_pixels(years, vals, mask, params)
+        for name, a, b in zip(got._fields, got, ref):
+            assert torch.equal(a, b), (form, name)
 
 
 @pytest.mark.parametrize("px,chunk,match", [(300, 150, "multiple of the CUDA block"),
@@ -294,14 +294,74 @@ def test_wide_kernels_match_plain_on_card(rng, card, dtype, ny, over):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ny,over", [(129, {}), (40, {"max_segments": 26, "vertex_count_overshoot": 6})])
 def test_beyond_the_wide_caps_is_refused_on_card(rng, card, ny, over):
+    # beyond the wide caps nothing is refused (the name dates from when the
+    # card did): the global form of both kernels runs, bit-identical to the
+    # plain version in float32
     params = LTParams(**over)
+    assert sc.instantiation(ny, params) == "global"
     years, vals, mask = (x.to(card) for x in _inputs(rng, px=256, ny=ny))
-    before = (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES)
-    with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
-        sc.cuda_segment_pixels(years, vals, mask, params)
-    with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
-        sc.cuda_family_stats(years, vals, mask, params)
-    assert (sc.LAUNCHES, sc.WIDE_LAUNCHES, sc.FAMILY_LAUNCHES, sc.WIDE_FAMILY_LAUNCHES) == before
+    counts = (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES)
+    got = sc.cuda_segment_pixels(years, vals, mask, params)
+    fam = sc.cuda_family_stats(years, vals, mask, params)
+    torch.cuda.synchronize()
+    assert (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    for name, a, b in zip(got._fields, got, torch_segment_pixels(years, vals, mask, params)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    for a, b in zip(fam, torch_family_stats(years, vals, mask, params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "ny,over",
+    [
+        (160, {}),
+        (40, {"max_segments": 36, "vertex_count_overshoot": 3}),   # 40 candidates
+    ],
+)
+def test_global_kernels_match_plain_on_card(rng, card, dtype, ny, over, monkeypatch):
+    # a budget of three blocks cuts 1000 px into 384 + 384 + 232: three
+    # launches of each kernel over one scratch, the last one ragged
+    params = LTParams(**over)
+    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET",
+                        sc.global_scratch_bytes(ny, params, dtype, 3 * sc.CUDA_BLOCK))
+    years, vals, mask = (x.to(card) for x in _inputs(rng, px=1000, ny=ny, dtype=dtype))
+    counts = (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES)
+    got = sc.cuda_segment_pixels(years, vals, mask, params)
+    desp, vm, sse = sc.cuda_family_stats(years, vals, mask, params)
+    torch.cuda.synchronize()
+    assert (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES) == (counts[0] + 3, counts[1] + 3)
+    ref = torch_segment_pixels(years, vals, mask, params)
+    rdesp, rvm, rsse = torch_family_stats(years, vals, mask, params)
+    assert bool(_decisions(got, ref).all()) and torch.equal(vm, rvm)
+    pairs = [*zip(got, ref), (desp, rdesp), (sse, rsse)]
+    for x, y in pairs:
+        if dtype == torch.float32 or not x.dtype.is_floating_point:
+            assert torch.equal(x.contiguous().view(torch.uint8),
+                               y.contiguous().view(torch.uint8))
+            continue
+        assert torch.equal(x.isnan(), y.isnan())
+        fin = x.isfinite()
+        if bool(fin.any()):
+            assert float((x[fin] - y[fin]).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_global_form_forced_equals_narrow_on_card(rng, card, dtype):
+    # forced at a shape the narrow kernel holds, the global form writes
+    # the narrow kernel's bits
+    years, vals, mask = (x.to(card) for x in _inputs(rng, px=1000, ny=40, dtype=dtype))
+    narrow = sc.cuda_segment_pixels(years, vals, mask)
+    job = sc._Launch(years, vals, mask, LTParams(), cap="global")
+    job.run(0, 1000)
+    for name, a, b in zip(narrow._fields, narrow, job.result()):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    fjob = sc._FamilyLaunch(years, vals, mask, LTParams(), cap="global")
+    fjob.run()
+    for a, b in zip(sc.cuda_family_stats(years, vals, mask), fjob.result()):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 # ---------------------------------------------------------------------------

@@ -188,10 +188,13 @@ def test_cuda_family_stats_checks_inputs():
     with pytest.raises(TypeError, match="float32 or float64"):
         sc.cuda_family_stats(torch.from_numpy(years), torch.from_numpy(vals).half(),
                              torch.from_numpy(mask))
-    # 70 years take the wide kernel now; 129 are beyond every instantiation
-    with pytest.raises(ValueError, match="128-year"):
-        sc.cuda_family_stats(torch.arange(129), torch.zeros((8, 129)),
-                             torch.ones((8, 129), dtype=torch.bool))
+    # 70 years take the wide kernel, 129 the global form: no length is
+    # refused (the plain version runs here, on the CPU)
+    args = (torch.arange(129), torch.rand((8, 129), generator=torch.Generator().manual_seed(1)),
+            torch.ones((8, 129), dtype=torch.bool))
+    assert sc.instantiation(129, LTParams()) == "global"
+    for a, b in zip(sc.cuda_family_stats(*args), torch_family_stats(*args)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA"):
         sc.cuda_family_op_counts(torch.from_numpy(years),
                                  torch.from_numpy(vals).float(), torch.from_numpy(mask))

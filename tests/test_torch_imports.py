@@ -92,6 +92,18 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.serve.config",
     "land_trendr_tpu_torch.serve.batching",
     "land_trendr_tpu_torch.serve.server",
+    "land_trendr_tpu_torch.obs.reqtrace",
+    "land_trendr_tpu_torch.fleet",
+    "land_trendr_tpu_torch.fleet.config",
+    "land_trendr_tpu_torch.fleet.scheduling",
+    "land_trendr_tpu_torch.fleet.autoscale",
+    "land_trendr_tpu_torch.fleet.journal",
+    "land_trendr_tpu_torch.fleet.capacity",
+    "land_trendr_tpu_torch.fleet.router",
+    "land_trendr_tpu_torch.loadgen",
+    "land_trendr_tpu_torch.loadgen.config",
+    "land_trendr_tpu_torch.loadgen.trace",
+    "land_trendr_tpu_torch.loadgen.runner",
 ]
 
 
@@ -114,6 +126,8 @@ def test_main_path_loads_no_jax():
     assert res["bad"] == []
     assert "land_trendr_tpu_torch.runtime.driver" in res["port"]
     assert "land_trendr_tpu_torch.serve.server" in res["port"]
+    assert "land_trendr_tpu_torch.fleet.router" in res["port"]
+    assert "land_trendr_tpu_torch.loadgen.runner" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -125,7 +139,10 @@ def test_main_path_loads_no_jax():
      "tune/store.py", "tune/probes.py", "tune/autotune.py",
      "obs/publish.py", "obs/history.py", "obs/alerts.py", "obs/aggregate.py",
      "serve/__init__.py", "serve/programs.py", "serve/jobs.py", "serve/config.py",
-     "serve/batching.py", "serve/server.py"],
+     "serve/batching.py", "serve/server.py",
+     "obs/reqtrace.py", "fleet/__init__.py", "fleet/config.py", "fleet/scheduling.py",
+     "fleet/autoscale.py", "fleet/journal.py", "fleet/capacity.py", "fleet/router.py",
+     "loadgen/__init__.py", "loadgen/config.py", "loadgen/trace.py", "loadgen/runner.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module

@@ -66,6 +66,7 @@ def test_smem_plan_rejects_above_the_block_limit(dtype, block):
 
 def test_block_sizes_are_multiples_of_the_chunk_granule():
     assert sc.BLOCKS == {torch.float32: 256, torch.float64: 128}
+    assert sc.GLOBAL_BLOCKS == {torch.float32: sc.CUDA_BLOCK, torch.float64: sc.CUDA_BLOCK}
     assert all(b % sc.CUDA_BLOCK == 0 for b in sc.BLOCKS.values())
     assert set(sc.BLOCKS.values()) <= set(sc.SWEEP)
     # the wide blocks are half the narrow ones and divide the granule, so a
@@ -75,6 +76,7 @@ def test_block_sizes_are_multiples_of_the_chunk_granule():
     for dtype in (torch.float32, torch.float64):
         assert sc.block_of(dtype, "narrow") == sc.BLOCKS[dtype]
         assert sc.block_of(dtype, "wide") == sc.WIDE_BLOCKS[dtype]
+        assert sc.block_of(dtype, "global") == sc.CUDA_BLOCK
 
 
 # the wide plan: the same layout with the staging width max(NY, 32) | 1, at
@@ -121,15 +123,15 @@ def _cands(nc: int) -> LTParams:
         (64, 32, "wide"),
         (128, 32, "wide"),
         (40, 33, None),
+        (300, 9, None),
     ],
 )
 def test_instantiation_from_years_and_candidates(ny, nc, want):
+    # None: no fixed instantiation holds the shape, and the global form
+    # takes it — nothing is refused for its size
     params = _cands(nc)
     assert params.max_candidates == nc
-    if want is None:
-        with pytest.raises(ValueError, match="128-year|candidate capacity 32"):
-            sc.instantiation(ny, params)
-        return
+    want = want or "global"
     assert sc.instantiation(ny, params) == want
     # the launch plan follows the instantiation
     years, vals, mask = _inputs(9, 8, ny)
@@ -147,6 +149,107 @@ def test_wide_jobs_reject_the_narrow_only_entries(kw):
     arg = 256 if kw == "block" else torch.zeros((32, 7), dtype=torch.int64)
     with pytest.raises(ValueError, match="narrow kernels"):
         job.run(0, 32, **{kw: arg})
+    gjob = sc._Launch(years, vals, mask, LTParams(), cap="global")
+    with pytest.raises(ValueError, match="narrow kernels"):
+        gjob.run(0, 32, **{kw: arg})
+
+
+# ---------------------------------------------------------------------------
+# the global form: no shared memory, a per-launch scratch, cut to a budget
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ny", [1, 40, 160, 1000])
+def test_global_form_holds_any_years_in_no_shared_memory(dtype, ny):
+    assert sc.smem_bytes(ny, dtype, cap="global") == 0
+    with pytest.raises(ValueError, match="needs a year"):
+        sc.smem_bytes(0, dtype, cap="global")
+
+
+# bytes per launch: 16 planes [position][pixel], each rounded up to 16 B —
+# y and t (NY values each), the valid set, the NM family sets and the
+# family kernel's set (NY/64 words each), NC ints x 2, NC values, NM
+# values x 3, NC ints, NC values x 3, NC ints
+@pytest.mark.parametrize(
+    "ny,over,dtype,px,want",
+    [
+        # NC 10, NM 6, one word: 2*40*4 + 8*(1+6+1) + 4*10*4 + 4*10*4 + 4*6*3 = 776 B/px
+        (40, {}, torch.float32, 128, 776 * 128),
+        (40, {}, torch.float64, 128, (2 * 40 * 8 + 8 * 8 + 4 * 10 * 2 + 8 * 10 + 8 * 6 * 3
+                                      + 4 * 10 + 8 * 10 * 3 + 4 * 10) * 128),
+        # NY 160: three words
+        (160, {}, torch.float32, 65_536, (2 * 160 * 4 + 8 * 3 * 8 + 4 * 10 * 2 + 4 * 10
+                                          + 4 * 6 * 3 + 4 * 10 + 4 * 10 * 3 + 4 * 10) * 65_536),
+        # 40 candidates: NC 40, NM 36
+        (40, {"max_segments": 36, "vertex_count_overshoot": 3}, torch.float32, 65_536,
+         (2 * 40 * 4 + 8 * 38 + 4 * 40 * 2 + 4 * 40 + 4 * 36 * 3 + 4 * 40 + 4 * 40 * 3
+          + 4 * 40) * 65_536),
+    ],
+)
+def test_global_scratch_bytes(ny, over, dtype, px, want):
+    assert sc.global_scratch_bytes(ny, LTParams(**over), dtype, px) == want
+
+
+def test_global_scratch_bytes_rounds_each_plane_to_16():
+    # one pixel at NY = 40 in float32: every plane is rounded up on its own
+    params = LTParams()
+    planes = [160, 160, 8, 48, 8, 40, 40, 40, 24, 24, 24, 40, 40, 40, 40, 40]
+    assert sc.global_scratch_bytes(40, params, torch.float32, 1) == sum(
+        (b + 15) // 16 * 16 for b in planes)
+
+
+@pytest.mark.parametrize(
+    "ny,over,dtype,budget,want",
+    [
+        (160, {}, torch.float32, 1 << 30, 576_000),
+        (160, {}, torch.float64, 1 << 30, 317_952),
+        (40, {"max_segments": 36, "vertex_count_overshoot": 3}, torch.float32, 1 << 30,
+         459_648),
+        (40, {}, torch.float32, 776 * 128 * 3 + 5, 384),
+        (40, {}, torch.float32, 776 * 128, 128),
+    ],
+)
+def test_global_chunk_stays_within_the_budget(ny, over, dtype, budget, want):
+    params = LTParams(**over)
+    assert sc.global_chunk(ny, params, dtype, budget) == want
+    assert want % sc.CUDA_BLOCK == 0
+    assert sc.global_scratch_bytes(ny, params, dtype, want) <= budget
+    assert sc.global_scratch_bytes(ny, params, dtype, want + sc.CUDA_BLOCK) > budget
+
+
+def test_global_chunk_refuses_a_budget_below_one_block():
+    with pytest.raises(ValueError, match="one block of 128 px"):
+        sc.global_chunk(40, LTParams(), torch.float32, 776 * 128 - 1)
+
+
+def test_global_launch_plan_cuts_the_call_into_pieces(monkeypatch):
+    # a budget of three blocks: 1000 px launch as 384 + 384 + 232, over one
+    # scratch sized for the largest piece
+    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", 776 * 128 * 3)
+    years, vals, mask = _inputs(8, 1000, 40)
+    job = sc._Launch(years, vals, mask, LTParams(), cap="global")
+    fjob = sc._FamilyLaunch(years, vals, mask, LTParams(), cap="global")
+    assert job.smem == fjob.smem == 0
+    assert job.scratch.chunk == fjob.scratch.chunk == 384
+    assert job.scratch.tensor.numel() == 776 * 384
+    assert job.scratch.tensor.dtype == torch.uint8
+    assert list(job.scratch.pieces(0, 1000)) == [(0, 384), (384, 384), (768, 232)]
+    assert list(job.scratch.pieces(256, 256)) == [(256, 256)]
+    # a call smaller than the chunk allocates only what it needs
+    small = sc._Launch(years[:], vals[:100], mask[:100], LTParams(), cap="global")
+    assert small.scratch.tensor.numel() == sc.global_scratch_bytes(40, LTParams(), px=100)
+
+
+@pytest.mark.parametrize("cap", ["narrow", "wide"])
+def test_forcing_a_form_that_cannot_hold_the_shape_is_refused(cap):
+    years, vals, mask = _inputs(9, 8, 129)
+    with pytest.raises(ValueError, match=f"the {cap} kernel holds"):
+        sc._Launch(years, vals, mask, LTParams(), cap=cap)
+    with pytest.raises(ValueError, match="not one of"):
+        sc._Launch(years, vals, mask, LTParams(), cap="huge")
+    # the global form holds it, as the instantiation picks
+    assert sc._Launch(years, vals, mask, LTParams()).cap == "global"
 
 
 # ---------------------------------------------------------------------------

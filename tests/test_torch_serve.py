@@ -13,12 +13,8 @@ rasters that do not come from the anchored fits (``rmse``,
 stated float32 tolerance (p99.9 <= 1e-5, max <= 5e-5;
 ``tests/test_torch_runtime.py``).  The fit-derived floats
 (``vertex_fit_vals``, ``seg_magnitude``, ``seg_rate``, ``p_of_f``) are
-not held to it here: on this 9-year, 4-segment job the port's float32
-tail against the JAX package's float32 is heavier than that contract
-(0.38% of ``vertex_fit_vals`` beyond 1e-5, max 8.6e-5; against float64
-the port's p99.9 is 1.4e-5 where the JAX package's is 9.9e-6; measured by
-``tests/test_torch_f32.py::test_f32_fit_tail_against_float64_on_scenes``),
-an open fault that ROADMAP section 3 records.
+held to a bound derived from both packages' float32 errors against the
+float64 truth (``_FIT_DERIVED_BOUND``).
 """
 
 from __future__ import annotations
@@ -138,11 +134,21 @@ def jax_served(stack_dir, tmp_path_factory) -> dict:
 
 #: float rasters computed from the anchored fits (see the module docstring)
 _FIT_DERIVED = ("vertex_fit_vals", "seg_magnitude", "seg_rate", "p_of_f")
+#: (p99.9, max) of |port float32 - JAX float32| on the fit-derived rasters.
+#: Each package's float32 differs from the float64 truth by at most the
+#: sum below, so their difference is bounded by the sum of both errors.
+#: On this job (``tests/test_torch_f32.py``'s ``serve_9yr`` scene) each
+#: package holds p99.9 <= 1e-5 against float64 (its contract), so p99.9
+#: <= 1e-5 + 1e-5; the max against float64 over the four rasters is
+#: 6.6e-6 for the port and 1.43e-5 for the JAX package, so max <= 1e-5 +
+#: 1.5e-5.
+_FIT_DERIVED_BOUND = (2e-5, 2.5e-5)
 
 
 def _match_jax(outputs: dict, theirs: dict) -> None:
-    """Decisions, integer rasters and the float rasters outside the fits
-    against the JAX package, at the port's stated float32 tolerance."""
+    """Decisions, integer rasters and every float raster against the JAX
+    package: the fit-derived ones at ``_FIT_DERIVED_BOUND``, the others at
+    the port's stated float32 tolerance."""
     ours = _rasters(outputs)
     assert sorted(ours) == sorted(theirs)
     agree = (
@@ -155,14 +161,13 @@ def _match_jax(outputs: dict, theirs: dict) -> None:
         b = theirs[name]
         assert a.dtype == b.dtype and a.shape == b.shape, name
         if a.dtype.kind == "f":
-            if name in _FIT_DERIVED:
-                assert np.array_equal(np.isfinite(a), np.isfinite(b)), name
-                continue
+            assert np.array_equal(np.isfinite(a), np.isfinite(b)), name
+            p999, top = _FIT_DERIVED_BOUND if name in _FIT_DERIVED else (1e-5, 5e-5)
             d = np.abs(a[:, agree].astype(np.float64) - b[:, agree])
             d = d[np.isfinite(d)]
             if d.size:
-                assert np.quantile(d, 0.999) <= 1e-5, name
-                assert d.max() <= 5e-5, name
+                assert np.quantile(d, 0.999) <= p999, name
+                assert d.max() <= top, name
         else:
             assert np.array_equal(a[:, agree], b[:, agree]), name
 
@@ -389,20 +394,22 @@ def test_direct_submit_rejection_raises(stack_dir, tmp_path):
 
 
 def test_candidates_beyond_the_kernel_refused_at_admission_on_cuda(stack_dir, tmp_path):
-    # a server whose device is a card refuses, with HTTP 400 and the cap
-    # named, params the kernel cannot hold; 32 candidates are admitted
+    # a server whose device is a card admits every candidate count the JAX
+    # package does: 33 candidates (the global form) as well as 32 (wide);
+    # the name dates from when the card refused 33
+    from land_trendr_tpu_torch.config import LTParams
+    from land_trendr_tpu_torch.ops.segment_cuda import instantiation
+
     srv_dir = tmp_path / "srv"
     server = _server(ServeConfig(workdir=str(srv_dir)))
     server.device = torch.device("cuda", 0)
     try:
-        st, body = _post(server.port, "/jobs", _job(
-            stack_dir, params={"max_segments": 26, "vertex_count_overshoot": 6}))
-        assert st == 400 and body["error"] == "bad_request"
-        assert "candidate capacity 32" in body["detail"]
-        assert not (srv_dir / "jobs").exists()
-        st, _ = _post(server.port, "/jobs", _job(
-            stack_dir, params={"max_segments": 25, "vertex_count_overshoot": 6}))
-        assert st == 200
+        for over, form in (({"max_segments": 26, "vertex_count_overshoot": 6}, "global"),
+                           ({"max_segments": 25, "vertex_count_overshoot": 6}, "wide")):
+            assert instantiation(9, LTParams(**over)) == form
+            st, body = _post(server.port, "/jobs", _job(stack_dir, params=over))
+            assert st == 200, body
+            assert body["state"] == "queued"
     finally:
         server.stop()
         server.serve_forever()
