@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch/CUDA port: the `segment` path, the stage
-probe, the `serve` path and the serving fleet (`route`, `load`) on one
-GPU.
+probe, the `serve` path, the serving fleet (`route`, `load`) and the
+port's tools on one GPU.
 
     python3 chip_smoke.py
 
@@ -154,13 +154,29 @@ each of which fails the script on its own:
    slowest of the 8 jobs (8 samples hold no p99) are printed with the
    card's name and power limit.
 
+12. **The port's tools on the card** (``land_trendr_tpu_torch/tools/``),
+   after phase 11: (a) ``parity_f32`` at 1,048,576 px x 40 years, the
+   float32 kernel against its float64 instantiation: exact vertex
+   agreement >= 99.9%, the taxonomy printed beside the JAX package's CPU
+   record on the same pixels (``PARITY_f32.json``); (b) ``impl_identity``,
+   kernel against plain version, at 1,048,576 px (narrow), 262,144 px at
+   NY = 72 (wide) and 65,536 px at NY = 160 (global): every decision field
+   equal on every pixel; (c) ``fault_soak --smoke`` (eager track on a
+   512² x 40 stack at tile 128): ok, all 27 registered seams armed and
+   fired, every case byte-equal; (d) ``elastic_soak --smoke``; (e)
+   ``capacity_bench --smoke`` and ``fleet_bench --smoke`` with their
+   invariants; (f) ``lt_request --slowest`` over phase 11's router: the
+   blame sums to the latency.  (a) and (b) run in this process, the rest
+   as the tools' own processes; each leg's seconds are printed.
+
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
 kernel's launch count is set to 0 just before its path (phases 4 and 10
 for the narrow fused kernel, phase 10 (c) for the wide one and (g) for
 the global one, phase 6 for the three family kernels; phases 7 and 8
-count their own runs; phase 11's are the fresh replicas' own counts) and
-read just after.
+count their own runs; phase 11's are the fresh replicas' own counts;
+phase 12's are this process's for (a) and (b) and the tools' reports for
+the rest) and read just after.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -1147,7 +1163,156 @@ def route_phase(smi: str, env: dict, tmp: str, stack_dir: str) -> dict:
                 if alive(pid):
                     os.kill(pid, signal.SIGKILL)
     out["seconds"] = time.perf_counter() - t11
+    out["rt"] = rt
     log(f"[phase 11] took {out['seconds']:.1f}s")
+    return out
+
+
+def tool(env: dict, tmp: str, name: str, *args: str, timeout: float = 600.0) -> dict:
+    """Run ``python -m land_trendr_tpu_torch.tools.<name> ARGS --out OUT`` on
+    the card's default device; its JSON report (the tools print progress)."""
+    out = os.path.join(tmp, f"{name}.json")
+    r = subprocess.run([sys.executable, "-m", f"land_trendr_tpu_torch.tools.{name}", *args,
+                        "--out", out], cwd=tmp, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    assert r.returncode == 0, (name, r.returncode, r.stdout[-3000:], r.stderr[-3000:])
+    with open(out) as f:
+        return json.load(f)
+
+
+def sum_launches(*counts: dict) -> dict:
+    """Kernel launch counts summed key by key."""
+    total: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
+    """Phase 12: the port's tools on the card (see the module docstring), in
+    the directory ``tmp``, after phase 11 (whose router workdir is ``rt``);
+    returns the launch counts of this process and of the tools' runs."""
+    from land_trendr_tpu_torch.config import LTParams
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.runtime import faults
+    from land_trendr_tpu_torch.tools import impl_identity, parity_f32
+
+    t12 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    legs: dict = {}
+    for k in segment_cuda.launch_counts():
+        setattr(segment_cuda, k, 0)
+
+    # (a) float32 parity against float64, both on the card, 1,048,576 px
+    t0 = time.perf_counter()
+    par = parity_f32.measure(1_048_576, dev, verbose=False)
+    legs["a"] = time.perf_counter() - t0
+    assert par["exact_vertex_agreement"] >= F32_FLOOR, par
+    assert par["launches"]["LAUNCHES"] == 2 * 1_048_576 // parity_f32.CHUNK, par["launches"]
+    tax = {k: v["count"] for k, v in par["taxonomy"].items()}
+    ref_path = os.path.join(ROOT, "PARITY_f32.json")
+    ref = None
+    if os.path.isfile(ref_path):
+        with open(ref_path) as f:
+            ref = json.load(f)
+    ref_txt = ("; the JAX package's CPU record on the same pixels (PARITY_f32.json): "
+               + ", ".join(f"{k} {v['count']}" for k, v in ref["taxonomy"].items())
+               + f", exact {ref['exact_vertex_agreement']:.7f}") if ref else ""
+    log(f"[tools] (a) parity_f32 1,048,576 px x 40 yr, f32 kernel vs f64 kernel on the card: "
+        f"exact {par['exact_vertex_agreement']:.7f} ({', '.join(f'{k} {v}' for k, v in tax.items())}), "
+        f"rmse delta max {par['rmse_abs_delta_max']:.3e}, fitted delta p99 max "
+        f"{par['fitted_abs_delta_p99_max']:.3e}{ref_txt}; {legs['a']:.1f} s ({smi})")
+
+    # (b) the kernel against the plain version at scale: narrow, wide, global
+    t0 = time.perf_counter()
+    for form, px, ny, inst in (("narrow", 1_048_576, 40, "narrow"), ("wide", 262_144, 72, "wide"),
+                               ("global", 65_536, 160, "global")):
+        rec = impl_identity.identity(px, dev, ny=ny, params=LTParams(), verbose=False)
+        assert rec["instantiation"] == inst and rec["decisions_identical"], rec
+        for k in ("pixel_exact_vertex_indices", "model_valid_equal", "n_vertices_equal"):
+            assert rec[k] == px, (form, k, rec[k])
+        log(f"[tools] (b) impl_identity {form}: {px:,} px x {ny} yr, decisions identical on "
+            f"every pixel; floats bitwise on {rec['float_fields_bitwise_equal']:,}, p_of_f bitwise "
+            f"on {rec['p_of_f_bitwise_equal']:,} (fitted delta max {rec['fitted_abs_delta_max']}, "
+            f"p_of_f rel delta max {rec['p_of_f_rel_delta_max']})")
+    legs["b"] = time.perf_counter() - t0
+    own = segment_cuda.launch_counts()
+    assert own["LAUNCHES"] > 0 and own["WIDE_LAUNCHES"] > 0 and own["GLOBAL_LAUNCHES"] > 0, own
+    assert faults.active() is None
+
+    # (c) the fault soak: every registered seam fired on the card, all byte-equal
+    t0 = time.perf_counter()
+    soak = tool(env, tmp, "fault_soak", "--smoke", timeout=900)
+    legs["c"] = time.perf_counter() - t0
+    assert soak["ok"] and soak["device"] == "cuda", soak.get("cases")
+    assert len(soak["seams_fired"]) == len(faults.SEAMS) == 27, soak["seams_fired"]
+    assert set(soak["seams_fired"]) == set(faults.SEAMS) == set(soak["seams_armed"])
+    assert all(c["artifacts_identical"] for c in soak["cases"]), soak["cases"]
+    assert soak["launches"]["LAUNCHES"] > 0, soak["launches"]
+    log(f"[tools] (c) fault_soak --smoke: {len(soak['cases'])} cases byte-equal, "
+        f"{len(soak['seams_fired'])}/27 seams fired on the card (eager {soak['eager_scene']['width']}"
+        f"^2 x 40 at tile {soak['eager_scene']['tile']}); tracks "
+        f"{json.dumps(soak['track_seconds'])} s; {legs['c']:.1f} s")
+
+    # (d) the elastic soak: churn (SIGKILL + late join) and the slow host
+    t0 = time.perf_counter()
+    el = tool(env, tmp, "elastic_soak", "--smoke", timeout=900)
+    legs["d"] = time.perf_counter() - t0
+    assert el["ok"] and sum(el["churn"]["survivor_launches"]) > 0, el
+    slow = el["slow_host"]
+    log(f"[tools] (d) elastic_soak --smoke: churn {el['churn']['tiles']} tiles byte-equal, "
+        f"{el['churn']['steals']} steals, late joiner {el['churn']['late_joiner_tiles']} tiles; "
+        f"slow host idle gap {slow['static']['idle_gap_pod_s']} -> {slow['elastic']['idle_gap_pod_s']} s, "
+        f"imbalance {slow['static']['host_imbalance']} -> {slow['elastic']['host_imbalance']}, "
+        f"spec wins {slow['elastic']['spec_wins']}; {legs['d']:.1f} s")
+
+    # (e) capacity and fleet benches at the JAX tools' smoke sizes
+    t0 = time.perf_counter()
+    cap = tool(env, tmp, "capacity_bench", "--smoke", timeout=900)
+    assert cap["ok"] and all(cap["invariants"].values()), cap["invariants"]
+    fleet = tool(env, tmp, "fleet_bench", "--smoke", timeout=900)
+    assert fleet["ok"] and all(fleet["invariants"].values()), fleet["invariants"]
+    legs["e"] = time.perf_counter() - t0
+    # a smoke cell's window holds a few jobs, which give no p99: its
+    # slowest job is printed as what it is (the p99 is the full run's)
+    slowest = {f"{p['replicas']}r@{p['offered_qps']}": [p["done"], p["max_s"]]
+               for c in cap["curves"] for p in c["points"]}
+    log(f"[tools] (e) capacity_bench --smoke: invariants met, knees "
+        f"{ {c['replicas']: c['knee_offered_qps'] for c in cap['curves']} }, "
+        f"[jobs done, slowest s] per cell {json.dumps(slowest)}; "
+        f"fleet_bench --smoke: warm {fleet['legs']['noaff']['warm_hit_ratio']} (noaff) < "
+        f"{fleet['legs']['affinity']['warm_hit_ratio']} (affinity), kill re-routed "
+        f"{fleet['legs']['kill']['rerouted_jobs']}, 0 lost; {legs['e']:.1f} s")
+
+    # (f) the slowest request of phase 11, assembled across its router and replicas
+    t0 = time.perf_counter()
+    trace_out = os.path.join(tmp, "slowest.trace.json")
+    r = subprocess.run([sys.executable, "-m", "land_trendr_tpu_torch.tools.lt_request",
+                        "--slowest", rt, "--trace", trace_out], cwd=tmp, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rec = json.loads(r.stdout)
+    legs["f"] = time.perf_counter() - t0
+    assert rec["found"] and rec["complete"], rec
+    assert abs(rec["blame_sum_s"] - rec["latency_s"]) < 5e-3, rec
+    assert os.path.getsize(trace_out) > 0 and rec["trace"]["events"] > 0
+    log(f"[tools] (f) lt_request --slowest over phase 11's router: {rec['trace_id']} "
+        f"latency {rec['latency_s']:.3f} s = blame {rec['blame_sum_s']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(rec["blame"].items()))
+        + f"), {len(rec['hops'])} hop(s), {rec['trace']['events']} trace events")
+
+    tool_launches = sum_launches(
+        soak["launches"],
+        *(c for leg in soak["replica_launches"].values() for c in leg.values()),
+        {"LAUNCHES": sum(el["churn"]["survivor_launches"])},
+        cap["launches"], fleet["launches"])
+    out = {"own": own, "tools": tool_launches, "seconds": time.perf_counter() - t12}
+    log(f"[tools] launches in this process (a, b): {json.dumps(own)}; in the tools' processes "
+        f"(c-e; replicas read over GET /debug/kernels, elastic survivors from their summaries): "
+        f"{json.dumps(tool_launches)}")
+    log(f"[phase 12] took {out['seconds']:.1f}s (a {legs['a']:.1f}, b {legs['b']:.1f}, "
+        f"c {legs['c']:.1f}, d {legs['d']:.1f}, e {legs['e']:.1f}, f {legs['f']:.1f}) ({smi})")
     return out
 
 
@@ -1950,7 +2115,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="lt_smoke_serve_", dir=ROOT) as serve_tmp:
         served = serve_phase(dev, smi, env, serve_tmp)
         routed = route_phase(smi, env, serve_tmp, served["stack_dir"])
+        # ---- phase 12: the port's tools on the card ---------------------
+        tools_tmp = os.path.join(serve_tmp, "tools")
+        os.makedirs(tools_tmp)
+        tooled = tools_phase(smi, env, tools_tmp, routed["rt"])
     serve_launches = served["cold_launches"] + served["warm_launches"] + served["flood_launches"]
+    # phase 12's launches: its own process (parity, identity) and the tools'
+    tool_launches = sum_launches(tooled["own"], tooled["tools"])
 
     src = "land_trendr_tpu_torch/csrc/segment_fused.cu"
     kernel = {
@@ -1959,10 +2130,12 @@ def main() -> int:
         "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
         # the narrow kernel's paths: phase 4's scene, phase 10's serve jobs
-        # and phase 11's routed jobs (counted in the replicas)
+        # and phase 11's routed jobs (counted in the replicas); phase 12's
+        # tools run other shapes and stand apart, under "tools"
         "launches": launches + serve_launches + routed["route_launches"],
         "launches_by_path": {"segment": launches, "serve": serve_launches,
-                             "route": routed["route_launches"]},
+                             "route": routed["route_launches"],
+                             "tools": tool_launches["LAUNCHES"]},
         "max_abs_err": err32,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1977,8 +2150,11 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
-        # the 18-candidate serve job of phase 10 (c)
+        # the 18-candidate serve job of phase 10 (c); phase 12's NY = 72
+        # identity run stands apart, under "tools"
         "launches": served["wide_launches"],
+        "launches_by_path": {"serve": served["wide_launches"],
+                             "tools": tool_launches["WIDE_LAUNCHES"]},
         "max_abs_err": max(w72["max_abs_err"], w18["max_abs_err"]),
         "ms": w72["ms"],
         "plain_ms": w72["plain_ms"],
@@ -2026,8 +2202,11 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
-        # the 40-candidate serve job of phase 10 (g)
+        # the 40-candidate serve job of phase 10 (g); phase 12's NY = 160
+        # identity run stands apart, under "tools"
         "launches": served["global_launches"],
+        "launches_by_path": {"serve": served["global_launches"],
+                             "tools": tool_launches["GLOBAL_LAUNCHES"]},
         "max_abs_err": max(g160["max_abs_err"], g40["max_abs_err"]),
         "ms": g160["ms"],
         "plain_ms": g160["plain_ms"],

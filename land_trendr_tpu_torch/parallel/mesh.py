@@ -157,9 +157,11 @@ def segment_pixels_sharded(
     # the wrapper launches on the current stream of each shard's own device
     outs = [cuda_segment_pixels(years.to(dev), v, m, params)
             for dev, (v, m) in zip(mesh, shards)]
-    return SegOutputs(
-        *(torch.cat([o[i].cpu() for o in outs]) for i in range(len(SegOutputs._fields)))
-    )
+    # the contract is host results in pixel order; every shard was enqueued
+    # above, so this gather is the call's one sync point
+    # lt: noqa[LT002]
+    fields = [[o[i].cpu() for o in outs] for i in range(len(SegOutputs._fields))]
+    return SegOutputs(*(torch.cat(f) for f in fields))
 
 
 def summarize_sharded(out: SegOutputs, n_real: "int | None" = None) -> dict[str, float]:
@@ -169,9 +171,9 @@ def summarize_sharded(out: SegOutputs, n_real: "int | None" = None) -> dict[str,
     Pass the ``n_real`` from :func:`pad_to_multiple` so the fully-masked
     padding rows (always no-fit) don't dilute the rates.
     """
-    valid = out.model_valid.cpu()
-    rmse = out.rmse.cpu().double()
-    p_of_f = out.p_of_f.cpu().double()
+    # run metrics are host numbers: the summary's one read of the outputs
+    # lt: noqa[LT002]
+    valid, rmse, p_of_f = out.model_valid.cpu(), out.rmse.cpu().double(), out.p_of_f.cpu().double()
     if n_real is not None:
         valid, rmse, p_of_f = valid[:n_real], rmse[:n_real], p_of_f[:n_real]
     n = valid.shape[0]

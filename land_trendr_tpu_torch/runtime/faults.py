@@ -11,9 +11,13 @@ never cost the other 10k; the plans below are how every "must never"
 becomes a unit test.
 
 Seams (the public contract — hosts call :func:`check` / :func:`fired` /
-:func:`corrupt` with these names).  Every seam is declared so schedules
-stay interchangeable; those of subsystems this package does not have yet
-(router, replica, loadgen, journal, recover) never fire:
+:func:`corrupt` with these names).  Every registered seam fires in this
+package, the fleet's too (``router.forward``, ``replica.health``,
+``router.journal``, ``router.recover`` in ``fleet/``, ``loadgen.tick`` in
+``loadgen/runner.py``).  ``tools/fault_soak.py`` proves it: a case arms
+each seam and holds the run's artifacts byte-identical to a clean run
+(its ``SOAK_COVERED_SEAMS`` table; lint rule LT011 checks registry, fire
+sites and soak against each other in ``tests/test_torch_lint.py``):
 
 =================== =======================================================
 ``feed``            driver feed job (any stack; ``runtime/driver.py``)

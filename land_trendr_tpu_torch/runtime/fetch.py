@@ -414,6 +414,14 @@ class ShardedHandle(_Handle):
         return arrays, np.concatenate([p[1] for p in parts])[:px]
 
 
+def _indexed(device: "torch.device | str") -> torch.device:
+    """``device`` with its index: plain ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class TileFetcher:
     """Per-run fetch strategy: plan once, then one handle per tile (one per
     shard of a mesh tile, each copied on its own device's side stream)."""
@@ -426,13 +434,15 @@ class TileFetcher:
         mesh: "list[torch.device] | None" = None,
     ) -> None:
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = _indexed(device)
         self.packed = packed
         self.demoted = False
         self.plan: FetchPlan | None = None
         self.stats = _Stats()
+        # keyed by indexed devices: a tile's outputs report ``cuda:N``
+        # even when the caller named the device plain ``cuda``
         self._streams = (
-            {d: torch.cuda.Stream(device=d) for d in (mesh or [self.device])}
+            {_indexed(d): torch.cuda.Stream(device=d) for d in (mesh or [self.device])}
             if packed else {}
         )
 

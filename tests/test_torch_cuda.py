@@ -583,3 +583,17 @@ def test_leased_and_mesh_runs_equal_static_on_card(card, tmp_path):
     forced = driver.RunConfig(workdir=str(tmp_path / "forced"), upload_packed=True, **kw)
     with pytest.raises(ValueError, match="cannot be combined with a mesh"):
         driver.run_stack(stack, forced, device=card, mesh=[card, card])
+
+
+@pytest.mark.cuda
+def test_every_tune_group_probes_on_card(card, tmp_path):
+    """``autotune`` on the card runs every probe group: the fetch probe
+    names the device plain ``cuda`` while its tile outputs live on
+    ``cuda:0``, so the packed fetcher keys its streams by indexed device."""
+    from land_trendr_tpu_torch.runtime import fetch
+    from land_trendr_tpu_torch.tune import autotune
+
+    prof = autotune(str(tmp_path / "store"), height=64, width=64, n_years=12,
+                    device="cuda", smoke=True, reps=1)
+    assert {g: r.get("error") for g, r in prof["groups"].items() if not r["ok"]} == {}
+    assert fetch._indexed("cuda") == card

@@ -24,7 +24,9 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("land_trendr_tpu", "jax", "jaxlib")
+    # ``tools`` is the JAX package's script directory (the port keeps its
+    # own copies of what it needs from there)
+    return top in ("land_trendr_tpu", "jax", "jaxlib", "tools")
 
 
 def _imported(tree: ast.AST):
@@ -51,6 +53,8 @@ def test_forbidden_names_compared_exactly():
     assert not _forbidden("land_trendr_tpu_torch.ops.segment")
     assert _forbidden("jaxlib")
     assert not _forbidden("numpy")
+    assert _forbidden("tools._measure")
+    assert not _forbidden("land_trendr_tpu_torch.tools.measure")
 
 
 MAIN_PATH = [
@@ -104,6 +108,15 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.loadgen.config",
     "land_trendr_tpu_torch.loadgen.trace",
     "land_trendr_tpu_torch.loadgen.runner",
+    "land_trendr_tpu_torch.tools.measure",
+    "land_trendr_tpu_torch.tools.parity_f32",
+    "land_trendr_tpu_torch.tools.impl_identity",
+    "land_trendr_tpu_torch.tools.fault_soak",
+    "land_trendr_tpu_torch.tools.elastic_worker",
+    "land_trendr_tpu_torch.tools.elastic_soak",
+    "land_trendr_tpu_torch.tools.lt_request",
+    "land_trendr_tpu_torch.tools.capacity_bench",
+    "land_trendr_tpu_torch.tools.fleet_bench",
 ]
 
 
@@ -114,7 +127,7 @@ def test_main_path_loads_no_jax():
         f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.startswith('jax') or m == 'land_trendr_tpu'"
-        " or m.startswith('land_trendr_tpu.')]\n"
+        " or m.startswith('land_trendr_tpu.') or m == 'tools' or m.startswith('tools.')]\n"
         "print(json.dumps({'bad': bad, 'port': [m for m in new if m.startswith('land_trendr_tpu_torch')]}))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -128,6 +141,7 @@ def test_main_path_loads_no_jax():
     assert "land_trendr_tpu_torch.serve.server" in res["port"]
     assert "land_trendr_tpu_torch.fleet.router" in res["port"]
     assert "land_trendr_tpu_torch.loadgen.runner" in res["port"]
+    assert "land_trendr_tpu_torch.tools.fault_soak" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -142,7 +156,10 @@ def test_main_path_loads_no_jax():
      "serve/batching.py", "serve/server.py",
      "obs/reqtrace.py", "fleet/__init__.py", "fleet/config.py", "fleet/scheduling.py",
      "fleet/autoscale.py", "fleet/journal.py", "fleet/capacity.py", "fleet/router.py",
-     "loadgen/__init__.py", "loadgen/config.py", "loadgen/trace.py", "loadgen/runner.py"],
+     "loadgen/__init__.py", "loadgen/config.py", "loadgen/trace.py", "loadgen/runner.py",
+     "tools/measure.py", "tools/parity_f32.py", "tools/impl_identity.py",
+     "tools/fault_soak.py", "tools/elastic_worker.py", "tools/elastic_soak.py",
+     "tools/lt_request.py", "tools/capacity_bench.py", "tools/fleet_bench.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module
