@@ -165,9 +165,24 @@ each of which fails the script on its own:
    512² x 40 stack at tile 128): ok, all 27 registered seams armed and
    fired, every case byte-equal; (d) ``elastic_soak --smoke``; (e)
    ``capacity_bench --smoke`` and ``fleet_bench --smoke`` with their
-   invariants; (f) ``lt_request --slowest`` over phase 11's router: the
-   blame sums to the latency.  (a) and (b) run in this process, the rest
-   as the tools' own processes; each leg's seconds are printed.
+   invariants; (f) ``lt_request --slowest`` over
+   phase 11's router: the blame sums to the latency.  (a) and (b) run in
+   this process, the rest as the tools' own processes; each leg's seconds
+   are printed.
+
+13. **The oracle, the FTV rasters and the perf gate**, after phase
+   12: (a) ``parity_paramspace``: 64 trials x 64 px of the JAX tool's
+   joint parameter draw (seed base 2000) — the float64 kernel exact
+   against the port's oracle on every pixel, each trial's batch through
+   every admitting form (narrow, wide, global) bit-identical to narrow in
+   f32 and f64, and the f32 kernel bit-identical to the plain version;
+   (b) ``validate_ftv`` over phase 4b's NDVI and TCW FTV rasters, 64
+   sampled pixels re-derived from the DNs through the float64 oracle,
+   within the JAX tool's 1e-3; (c) ``perf_gate --device cuda`` with every
+   leg: its scheduler, router and capacity legs check phase 12 (d)/(e)'s
+   reports (no bench runs twice) and its bands derive from the card's
+   records under ``land_trendr_tpu_torch/tools/records/``.  Every check's
+   name, verdict and detail are printed.
 
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
@@ -176,7 +191,8 @@ for the narrow fused kernel, phase 10 (c) for the wide one and (g) for
 the global one, phase 6 for the three family kernels; phases 7 and 8
 count their own runs; phase 11's are the fresh replicas' own counts;
 phase 12's are this process's for (a) and (b) and the tools' reports for
-the rest) and read just after.
+the rest; phase 13's are this process's for (a) and the gate's own) and
+read just after.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -185,6 +201,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -243,6 +260,8 @@ NARROW_REF_MS = 1.3179
 #: lands mid-job)
 ROUTE_JOBS = 8
 KILL_TILE = 128
+#: phase 13 (a): trials of the joint parameter draw (64 px each)
+PARAMSPACE_TRIALS = 64
 #: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
@@ -1316,6 +1335,80 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
     return out
 
 
+def gate_phase(smi: str, env: dict, tmp: str, stack, ftv_out: str) -> dict:
+    """Phase 13, after phase 12 in its directory ``tmp``: (a) the joint
+    parameter-space parity, (b) ``validate_ftv`` over phase 4b's rasters
+    (``ftv_out``, the scene ``stack``) and (c) the perf gate on the card
+    over phase 12's elastic, fleet and capacity reports (see the module
+    docstring); returns the phase's launch counts and seconds."""
+    from land_trendr_tpu_torch.tools import parity_paramspace, validate_ftv
+
+    t13 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    legs: dict = {}
+
+    # (a) the JAX tool's joint draw: f64 kernel = oracle, forms = narrow, f32 = plain
+    t0 = time.perf_counter()
+    par = parity_paramspace.measure(PARAMSPACE_TRIALS, dev, (2000,),
+                                    workers=min(8, os.cpu_count() or 1), verbose=False)
+    legs["a"] = time.perf_counter() - t0
+    px = PARAMSPACE_TRIALS * parity_paramspace.PX
+    assert par["ok"] and par["exact"] == par["pixels_total"] == px, par["mismatches"]
+    assert (par["forms_bit_identical_trials"] == par["plain_bit_identical_trials"]
+            == PARAMSPACE_TRIALS), par["mismatches"]
+    log(f"[gate] (a) parity_paramspace: {PARAMSPACE_TRIALS} trials x {parity_paramspace.PX} px "
+        f"(seed base 2000): {par['exact']:,} / {px:,} px exact against the oracle, "
+        f"{len(par['mismatches'])} mismatches; every admitting form bit-identical to narrow "
+        f"in f32 and f64 on {par['forms_bit_identical_trials']} trials (forms run "
+        f"{json.dumps(par['forms_run'])}), f32 kernel = plain on "
+        f"{par['plain_bit_identical_trials']}; launches {json.dumps(par['launches'])}; "
+        f"oracle {par['oracle_s']} s on {par['oracle_workers']} processes; {legs['a']:.1f} s")
+
+    # (b) phase 4b's FTV rasters re-derived from the DNs through the oracle
+    t0 = time.perf_counter()
+    rep = validate_ftv.validate(stack, ftv_out, FTV, n_samples=64, device=dev)
+    legs["b"] = time.perf_counter() - t0
+    assert rep["pass"], rep
+    log("[gate] (b) validate_ftv over phase 4b (64 px): " + ", ".join(
+        f"ftv_{k} max |delta| {r['max_abs_delta']:.3e} (p99 {r['p99_abs_delta']:.3e})"
+        for k, r in rep["indices"].items())
+        + f" against the tolerance {validate_ftv.TOLERANCE}; {legs['b']:.1f} s")
+
+    # (c) the gate on the card, over phase 12's reports (no bench runs twice)
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "perf_gate.json")
+    r = subprocess.run(
+        [sys.executable, "-m", "land_trendr_tpu_torch.tools.perf_gate", "--device", "cuda",
+         "--json", "--out", out,
+         "--scheduler-report", os.path.join(tmp, "elastic_soak.json"),
+         "--router-report", os.path.join(tmp, "fleet_bench.json"),
+         "--capacity-report", os.path.join(tmp, "capacity_bench.json")],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=900)
+    legs["c"] = time.perf_counter() - t0
+    assert os.path.isfile(out), (r.returncode, r.stdout[-3000:], r.stderr[-3000:])
+    with open(out) as f:
+        verdict = json.load(f)
+    for c in verdict["checks"]:
+        mark = "finding" if c.get("finding") else {True: "ok", False: "FAIL", None: "n/a"}[c["ok"]]
+        log(f"[gate] (c) {mark} {c['check']}: {c['detail']}")
+    # on the card every row is decided: ok, or a band the card's own record
+    # cannot give (a finding, named) — never an unexplained n/a
+    failed = [c["check"] for c in verdict["checks"]
+              if c["ok"] is not True and not c.get("finding")]
+    findings = [c["check"] for c in verdict["checks"] if c.get("finding")]
+    assert r.returncode == 0 and verdict["ok"] and not failed, (r.returncode, failed)
+    log(f"[gate] (c) perf_gate --device cuda: {len(verdict['checks']) - len(findings)} checks "
+        f"ok ({sum(c['kind'] == 'band' and c['ok'] is True for c in verdict['checks'])} of them "
+        f"bands met), findings without a band {findings}; {verdict['lint']}; "
+        f"the gate's own {verdict['seconds']} s, launches {json.dumps(verdict['launches'])}; "
+        f"{legs['c']:.1f} s")
+    out13 = {"launches": sum_launches(par["launches"], verdict["launches"]),
+             "seconds": time.perf_counter() - t13}
+    log(f"[phase 13] took {out13['seconds']:.1f}s (a {legs['a']:.1f}, b {legs['b']:.1f}, "
+        f"c {legs['c']:.1f}) ({smi})")
+    return out13
+
+
 def build_native() -> "str | None":
     """Build the host raster codec that the loaders, the feed and the writers
     use when it is present (``native/lt_native.cc`` with the flags of
@@ -1343,6 +1436,14 @@ def build_native() -> "str | None":
 
 
 def main() -> int:
+    # directories that live across phases are removed however the run ends
+    with contextlib.ExitStack() as cleanup:
+        return run_phases(cleanup)
+
+
+def run_phases(cleanup: contextlib.ExitStack) -> int:
+    """Every phase in order (the module docstring); ``cleanup`` holds what
+    outlives a single phase."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
               file=sys.stderr)
@@ -1593,38 +1694,39 @@ def main() -> int:
             shutil.rmtree(work)
 
     # ---- phase 4b: the scene with FTV + change --------------------------
-    with tempfile.TemporaryDirectory(prefix="lt_smoke_", dir=ROOT) as tmp:
-        cfg = RunConfig(
-            tile_size=TILE,
-            workdir=os.path.join(tmp, "work"),
-            out_dir=os.path.join(tmp, "out"),
-            ftv_indices=FTV,
-            change_filt=ChangeFilter(max_dur=4.0),
-        )
-        segment_cuda.LAUNCHES = 0
-        summary = run_stack(stack, cfg, device="cuda")
-        tail_launches = segment_cuda.LAUNCHES
-        t0 = time.perf_counter()
-        paths = assemble_outputs(stack, cfg)
-        assemble_s = time.perf_counter() - t0
-        with open(os.path.join(cfg.workdir, "manifest.jsonl")) as f:
-            header = json.loads(f.readline())
-        log(f"[ftv+change] ftv {','.join(FTV)}, change max_dur 4: px_per_s "
-            f"{summary['px_per_s']} wall_s {summary['wall_s']} fit_rate "
-            f"{summary['fit_rate']:.4f} launches {tail_launches} assemble_s {assemble_s:.2f} "
-            f"outputs {len(paths)}")
-        log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
-        log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
-        log(f"[ftv+change] HBM peak (the telemetry gauge's value) "
-            f"{summary['device_bytes_peak']} B; retries {summary['retries']}, "
-            f"quarantined {summary['tiles_quarantined']}")
-        assert summary["retries"] == 0 and summary["tiles_quarantined"] == [], summary
-        assert summary["tiles_done"] == n_tiles, summary
-        assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
-        assert header.get("context", {}).get("impl") == "cuda", header
-        assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
-        want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
-        assert want <= set(paths), sorted(want - set(paths))
+    # its rasters stay until phase 13 (b) validates them against the oracle
+    ftv_tmp = cleanup.enter_context(tempfile.TemporaryDirectory(prefix="lt_smoke_ftv_", dir=ROOT))
+    cfg = RunConfig(
+        tile_size=TILE,
+        workdir=os.path.join(ftv_tmp, "work"),
+        out_dir=os.path.join(ftv_tmp, "out"),
+        ftv_indices=FTV,
+        change_filt=ChangeFilter(max_dur=4.0),
+    )
+    segment_cuda.LAUNCHES = 0
+    summary = run_stack(stack, cfg, device="cuda")
+    tail_launches = segment_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    paths = assemble_outputs(stack, cfg)
+    assemble_s = time.perf_counter() - t0
+    with open(os.path.join(cfg.workdir, "manifest.jsonl")) as f:
+        header = json.loads(f.readline())
+    log(f"[ftv+change] ftv {','.join(FTV)}, change max_dur 4: px_per_s "
+        f"{summary['px_per_s']} wall_s {summary['wall_s']} fit_rate "
+        f"{summary['fit_rate']:.4f} launches {tail_launches} assemble_s {assemble_s:.2f} "
+        f"outputs {len(paths)}")
+    log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
+    log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
+    log(f"[ftv+change] HBM peak (the telemetry gauge's value) "
+        f"{summary['device_bytes_peak']} B; retries {summary['retries']}, "
+        f"quarantined {summary['tiles_quarantined']}")
+    assert summary["retries"] == 0 and summary["tiles_quarantined"] == [], summary
+    assert summary["tiles_done"] == n_tiles, summary
+    assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
+    assert header.get("context", {}).get("impl") == "cuda", header
+    assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
+    want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
+    assert want <= set(paths), sorted(want - set(paths))
 
     # ---- phase 5: the CLI ----------------------------------------------
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -2108,7 +2210,6 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s, {d_rep['probes']} timed reps, knobs "
             f"{json.dumps(d_best)}, timings {json.dumps(d_rep['timings'])} ({smi})")
         del pstack
-    del stack
     log(f"[phase 9] took {time.perf_counter() - t9:.1f}s")
 
     # ---- phases 10 and 11: serve, then route and load, on the card -------
@@ -2119,9 +2220,13 @@ def main() -> int:
         tools_tmp = os.path.join(serve_tmp, "tools")
         os.makedirs(tools_tmp)
         tooled = tools_phase(smi, env, tools_tmp, routed["rt"])
+        # ---- phase 13: the oracle, the FTV rasters and the perf gate -------
+        gated = gate_phase(smi, env, tools_tmp, stack, os.path.join(ftv_tmp, "out"))
+    del stack
     serve_launches = served["cold_launches"] + served["warm_launches"] + served["flood_launches"]
-    # phase 12's launches: its own process (parity, identity) and the tools'
-    tool_launches = sum_launches(tooled["own"], tooled["tools"])
+    # phases 12 and 13: their own process (parity, identity, paramspace)
+    # and the tools' and the gate's
+    tool_launches = sum_launches(tooled["own"], tooled["tools"], gated["launches"])
 
     src = "land_trendr_tpu_torch/csrc/segment_fused.cu"
     kernel = {
@@ -2130,8 +2235,8 @@ def main() -> int:
         "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
         # the narrow kernel's paths: phase 4's scene, phase 10's serve jobs
-        # and phase 11's routed jobs (counted in the replicas); phase 12's
-        # tools run other shapes and stand apart, under "tools"
+        # and phase 11's routed jobs (counted in the replicas); phases 12
+        # and 13's tools run other shapes and stand apart, under "tools"
         "launches": launches + serve_launches + routed["route_launches"],
         "launches_by_path": {"segment": launches, "serve": serve_launches,
                              "route": routed["route_launches"],

@@ -5,6 +5,13 @@ float32 parity and kernel identity at scale (``parity_f32``,
 ``impl_identity``); the fault soak and the elastic soak (``fault_soak``,
 ``elastic_soak`` with its ``elastic_worker``); one request's trace
 (``lt_request``); the fleet benches (``capacity_bench``, ``fleet_bench``);
-and their shared helpers (``measure``).  Run each as
-``python -m land_trendr_tpu_torch.tools.<name>``; each runs on the card
-unless given ``--device cpu``."""
+joint parameter-space parity and FTV validation (``parity_paramspace``,
+``validate_ftv``); the host-path benches (``feed_bench``, ``fetch_bench``,
+``upload_bench``, ``host_path_bench``); the serving and observability
+benches (``serve_bench``, ``batch_bench``, ``flight_overhead``,
+``reqtrace_bench``, ``tune_bench``); the pod trace (``lt_trace``); the perf
+gate over the card's records (``perf_gate``, ``records/``); and their
+shared helpers (``measure``).  Run each as ``python -m
+land_trendr_tpu_torch.tools.<name>``; each runs on the card unless given
+``--device cpu`` (the trace readers ``lt_request`` and ``lt_trace`` read
+files only)."""

@@ -57,7 +57,7 @@ from land_trendr_tpu_torch.fleet.capacity import (
 from land_trendr_tpu_torch.fleet.scheduling import DECISIONS_NAME
 from land_trendr_tpu_torch.loadgen import InProcClient, LoadConfig, LoadRunner
 from land_trendr_tpu_torch.loadgen.trace import SHAPE_PARAMS
-from land_trendr_tpu_torch.tools.measure import replica_launches, write_json_atomic
+from land_trendr_tpu_torch.tools.measure import record_meta, replica_launches, write_json_atomic
 
 __all__ = ["MIN_JOBS", "main", "run_autoscale_leg", "run_bench", "run_curve_leg"]
 
@@ -384,6 +384,8 @@ def main(argv: "list[str] | None" = None) -> int:
         if args.keep is None:
             shutil.rmtree(root, ignore_errors=True)
 
+    report = {**record_meta("land_trendr_tpu_torch.tools.capacity_bench", argv, device),
+              **report}
     if args.out:
         write_json_atomic(args.out, report, trailing_newline=False)
         print(f"wrote {args.out}")

@@ -163,11 +163,23 @@ def run_leg(
     max_out = n_replicas + 1
     kill_at = len(trace) // 3 if kill_one else None
     try:
+        deadline = time.monotonic() + timeout_s
+        # the leg measures an N-replica fleet: the trace starts once every
+        # spawned replica is ready (a slow start-up on a loaded host would
+        # otherwise send the first jobs all to one replica)
+        while True:
+            with router._lock:
+                ready = sum(r.state == "ready" for r in router.pool)
+            if ready >= n_replicas:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"leg {name}: {ready}/{n_replicas} replicas ready "
+                                   f"in {timeout_s}s")
+            time.sleep(0.05)
         t0 = time.perf_counter()
         submits: list = []
         results: dict = {}
         pending: set = set()
-        deadline = time.monotonic() + timeout_s
 
         def _drain(block_below: int) -> None:
             while len(pending) > block_below:

@@ -12,12 +12,22 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import subprocess
+import sys
 import urllib.request
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["digest_workdir", "replica_launches", "write_json_atomic", "write_text_atomic"]
+__all__ = [
+    "digest_workdir",
+    "record_meta",
+    "replica_launches",
+    "smi_line",
+    "source_digest",
+    "write_json_atomic",
+    "write_text_atomic",
+]
 
 
 def write_text_atomic(path: str, text: str) -> None:
@@ -75,3 +85,64 @@ def digest_workdir(workdir: str) -> dict:
                 for name in sorted(z.files)
             }
     return out
+
+
+def smi_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of card 0 (or why there
+    is none): every time kept from the card stands beside it."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+    lines = r.stdout.strip().splitlines()
+    return lines[0] if r.returncode == 0 and lines else f"nvidia-smi rc {r.returncode}"
+
+
+#: the package whose sources :func:`source_digest` covers
+PACKAGE = Path(__file__).resolve().parent.parent
+#: what the digest leaves out: build outputs, bytecode, the records themselves
+_NOT_SOURCE = {"_build", "__pycache__", "records"}
+
+
+def source_digest() -> str:
+    """sha256 over the package's source files (relative path and bytes of
+    each, in path order; build outputs, bytecode and the records left
+    out): the code a record was made with, checkable on any checkout,
+    with or without ``.git``."""
+    h = hashlib.sha256()
+    for path in sorted(PACKAGE.rglob("*")):
+        rel = path.relative_to(PACKAGE)
+        if path.is_dir() or _NOT_SOURCE & set(rel.parts[:-1]) or path.suffix == ".pyc":
+            continue
+        h.update(rel.as_posix().encode() + b"\0")
+        h.update(hashlib.sha256(path.read_bytes()).digest())
+    return h.hexdigest()
+
+
+def record_meta(module: str, argv: "list[str] | None", device: str) -> dict:
+    """What a record of record carries besides its numbers, all as the run
+    finds them: the exact command, the commit (``git rev-parse HEAD`` with
+    ``-dirty`` for uncommitted changes; null where the checkout has no
+    ``.git``), the :func:`source_digest` of the code that ran and, on the
+    card, its ``nvidia-smi`` name and power limit."""
+    args = sys.argv[1:] if argv is None else argv
+    commit = None
+    try:
+        head = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                              timeout=10, cwd=PACKAGE)
+        if head.returncode == 0:
+            dirty = subprocess.run(["git", "status", "--porcelain", "--", "."],
+                                   capture_output=True, text=True, timeout=30, cwd=PACKAGE)
+            commit = head.stdout.strip() + ("-dirty" if dirty.stdout.strip() else "")
+    except (OSError, subprocess.SubprocessError):
+        commit = None
+    return {
+        "command": " ".join(["python -m", module, *args]),
+        "commit": commit,
+        "source_sha256": source_digest(),
+        "device": device,
+        "nvidia_smi": smi_line() if device == "cuda" else None,
+    }

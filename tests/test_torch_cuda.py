@@ -597,3 +597,29 @@ def test_every_tune_group_probes_on_card(card, tmp_path):
                     device="cuda", smoke=True, reps=1)
     assert {g: r.get("error") for g, r in prof["groups"].items() if not r["ok"]} == {}
     assert fetch._indexed("cuda") == card
+
+
+@pytest.mark.cuda
+def test_paramspace_forms_and_plain_bit_identical_on_card(card):
+    """Two trials of ``parity_paramspace``'s joint draw on the card: the f64
+    kernel exact against the oracle, every admitting form bit-identical to
+    narrow in f32 and f64, the f32 kernel bit-identical to the plain version."""
+    from land_trendr_tpu_torch.tools import parity_paramspace
+
+    rec = parity_paramspace.measure(2, card, (2000,), workers=1, verbose=False)
+    assert rec["ok"] is True, rec["mismatches"]
+    assert rec["forms_bit_identical_trials"] == rec["plain_bit_identical_trials"] == 2
+    assert rec["forms_run"] == {"narrow": 4, "wide": 4, "global": 4}
+    assert rec["launches"]["GLOBAL_LAUNCHES"] >= 4
+
+
+@pytest.mark.cuda
+def test_gate_ratio_bands_on_card(card):
+    """On the card the gate decides every band it can derive from the
+    records; a record under the JAX floor yields a named finding."""
+    from land_trendr_tpu_torch.tools import perf_gate
+
+    gate = perf_gate.Gate("cuda")
+    gate.ratio("x.ok", 3.0, 2.3, "speedup")
+    gate.ratio("x.finding", 0.5, 0.16, "speedup")
+    assert gate.checks[0]["ok"] is True and gate.checks[1].get("finding") is True

@@ -117,6 +117,19 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.tools.lt_request",
     "land_trendr_tpu_torch.tools.capacity_bench",
     "land_trendr_tpu_torch.tools.fleet_bench",
+    "land_trendr_tpu_torch.tools.parity_paramspace",
+    "land_trendr_tpu_torch.tools.validate_ftv",
+    "land_trendr_tpu_torch.tools.feed_bench",
+    "land_trendr_tpu_torch.tools.fetch_bench",
+    "land_trendr_tpu_torch.tools.upload_bench",
+    "land_trendr_tpu_torch.tools.host_path_bench",
+    "land_trendr_tpu_torch.tools.serve_bench",
+    "land_trendr_tpu_torch.tools.batch_bench",
+    "land_trendr_tpu_torch.tools.flight_overhead",
+    "land_trendr_tpu_torch.tools.reqtrace_bench",
+    "land_trendr_tpu_torch.tools.tune_bench",
+    "land_trendr_tpu_torch.tools.lt_trace",
+    "land_trendr_tpu_torch.tools.perf_gate",
 ]
 
 
@@ -142,6 +155,7 @@ def test_main_path_loads_no_jax():
     assert "land_trendr_tpu_torch.fleet.router" in res["port"]
     assert "land_trendr_tpu_torch.loadgen.runner" in res["port"]
     assert "land_trendr_tpu_torch.tools.fault_soak" in res["port"]
+    assert "land_trendr_tpu_torch.tools.perf_gate" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -159,7 +173,10 @@ def test_main_path_loads_no_jax():
      "loadgen/__init__.py", "loadgen/config.py", "loadgen/trace.py", "loadgen/runner.py",
      "tools/measure.py", "tools/parity_f32.py", "tools/impl_identity.py",
      "tools/fault_soak.py", "tools/elastic_worker.py", "tools/elastic_soak.py",
-     "tools/lt_request.py", "tools/capacity_bench.py", "tools/fleet_bench.py"],
+     "tools/lt_request.py", "tools/capacity_bench.py", "tools/fleet_bench.py",
+     "tools/parity_paramspace.py", "tools/validate_ftv.py", "tools/feed_bench.py", "tools/fetch_bench.py", "tools/upload_bench.py",
+     "tools/host_path_bench.py", "tools/serve_bench.py", "tools/batch_bench.py", "tools/flight_overhead.py", "tools/reqtrace_bench.py",
+     "tools/tune_bench.py", "tools/lt_trace.py", "tools/perf_gate.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module
