@@ -62,7 +62,8 @@ each of which fails the script on its own:
    ``ftv_indices=("ndvi", "tcw")`` and ``ChangeFilter(max_dur=4)``: one
    fused launch per tile, impl "cuda", the FTV and the seven change
    rasters assembled, fit_rate in (0, 1]; px/s and stage_s printed.
-5. **CLI**: ``synth``, ``segment`` on the default device, then a second
+5. **CLI**: ``synth``, ``segment`` on the default device (through
+   ``tools/run_segment_measured``, which prints its peak RSS), then a second
    ``segment`` that resumes every tile; then ``segment --ftv ndvi
    --change --change-mmu 4`` and ``change OUT --mmu 4``.
 6. **Stage probe** (``tools/probe.py stages``) at 262,144 px: the fused
@@ -184,6 +185,21 @@ each of which fails the script on its own:
    records under ``land_trendr_tpu_torch/tools/records/``.  Every check's
    name, verdict and detail are printed.
 
+14. **The scale tools at smoke size**, after phase 13, each in its own
+   process (so each peak RSS is that process's): (a) ``giga_run all`` at
+   2048² x 12 years (4 tiles of 1024): the ``segment`` child SIGKILLed once
+   its first tile is durable (rc -9), the resume skips 1-3 tiles, and the
+   assembled rasters and sieved change maps are byte-equal to an unkilled
+   run's; each phase's seconds and peak RSS printed; (b)
+   ``change_stream_bench`` at 2048², mmu 9; (c) ``stream_assembly_bench
+   scene`` over phase 4b's workdir, its rasters byte-equal to phase 4b's;
+   (d) ``arch_speedup``: the oracle on 256 px, the plain version on 4,096
+   px on the host, the kernel on 262,144 px.  (b) and (c) run side by
+   side first ((c) works on the host only), then (a), then (d): no two
+   timed runs share the card.  A tool killed at its time limit is killed
+   with its whole process group.  Their launches join the ``kernels``
+   line's ``launches_by_path.tools``.
+
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
 kernel's launch count is set to 0 just before its path (phases 4 and 10
@@ -191,8 +207,9 @@ for the narrow fused kernel, phase 10 (c) for the wide one and (g) for
 the global one, phase 6 for the three family kernels; phases 7 and 8
 count their own runs; phase 11's are the fresh replicas' own counts;
 phase 12's are this process's for (a) and (b) and the tools' reports for
-the rest; phase 13's are this process's for (a) and the gate's own) and
-read just after.
+the rest; phase 13's are this process's for (a) and the gate's own; phase
+14's the tools' reports) and read just after.  Every log line starts with
+the seconds since the smoke started.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -208,7 +225,6 @@ import json
 import os
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -262,13 +278,27 @@ ROUTE_JOBS = 8
 KILL_TILE = 128
 #: phase 13 (a): trials of the joint parameter draw (64 px each)
 PARAMSPACE_TRIALS = 64
+#: phase 8 (b): alternating pairs of scene runs, compute-wait poll against a
+#: blocking synchronize
+WAIT_REPS = 1
+#: phase 12 (e): the capacity smoke's cells (replica counts x offered QPS)
+CAPACITY_SMOKE = ("--replica-counts", "2", "--qps-steps", "0.5,2")
+#: phase 14: the composed scale run's edge (4 tiles of 1024 at 12 years) and
+#: the change bench's; arch_speedup's oracle and host plain-version pixels
+GIGA_SIZE = 2048
+ARCH_ORACLE_PX = 256
+ARCH_PLAIN_PX = 4_096
 #: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 
 
+#: the smoke's start: every log line carries the seconds since it
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -397,48 +427,6 @@ def raster_digests(out_dir: str) -> dict:
     """SHA-256 of every raster in ``out_dir`` (byte equality of large scenes
     without holding their bytes)."""
     return {name: hashlib.sha256(data).hexdigest() for name, data in raster_bytes(out_dir).items()}
-
-
-def reap(procs: list, timeout: float) -> "list[tuple[str, str]]":
-    """Wait for every process (stdout, stderr); on a timeout or a failure
-    kill the rest, so no process outlives the smoke."""
-    results = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                raise RuntimeError(f"process {p.args[:6]} exited {p.returncode}:\n{err[-3000:]}")
-            results.append((out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return results
-
-
-def launch_pod(args_for, env: dict, before, n: int = 2, attempts: int = 3) -> None:
-    """Run ``n`` :func:`pod_worker` processes of this script against a
-    coordinator on a free localhost port; a lost port race (another process
-    took the port between the probe and the bind) retries on a fresh one."""
-    for attempt in range(attempts):
-        before()
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            coordinator = f"localhost:{sk.getsockname()[1]}"
-        procs = [
-            subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pod-worker",
-                 coordinator, str(n), str(i), *args_for(i)],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for i in range(n)
-        ]
-        try:
-            reap(procs, timeout=300)
-            return
-        except RuntimeError as e:
-            if "address already in use" not in str(e).lower() or attempt == attempts - 1:
-                raise
 
 
 def pod_worker(argv: list) -> int:
@@ -736,19 +724,18 @@ def wait_state(get, states=("done", "cancelled", "error", "config_error", "stall
         time.sleep(poll)
 
 
-def serve_phase(dev: torch.device, smi: str, env: dict, tmp: str) -> dict:
+def serve_phase(dev: torch.device, smi: str, env: dict, tmp: str, stack_dir: str) -> dict:
     """Phase 10: ``serve`` on the card (see the module docstring), in the
-    directory ``tmp``; returns the launch counts of the serve path, the
-    measurements printed and the stack's directory (phase 11's)."""
-    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
+    directory ``tmp``, over the 1024² stack written to ``stack_dir`` (made
+    on the host beside the earlier phases); returns the launch counts of
+    the serve path, the measurements printed and the stack's directory
+    (phase 11's)."""
     from land_trendr_tpu_torch.obs import aggregate
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.serve import SegmentationServer, ServeConfig
 
     t10 = time.perf_counter()
     out: dict = {}
-    stack_dir = os.path.join(tmp, "stack")
-    write_stack(stack_dir, make_stack(SceneSpec(height=SERVE, width=SERVE, seed=10)))
     n_tiles = (SERVE // SERVE_TILE) ** 2
     job = {"stack_dir": stack_dir, "tile_size": SERVE_TILE}
     wide_job = {**job, "params": dict(WIDE_PARAMS)}
@@ -770,8 +757,8 @@ def serve_phase(dev: torch.device, smi: str, env: dict, tmp: str) -> dict:
             ("cli_global", ["--max-segments", "36", "--vertex-count-overshoot", "3"]))]
         ref, ref_wide, ref_global = (f.result() for f in refs)
     out["stack_dir"] = stack_dir
-    log(f"[serve] {SERVE}^2 x {NY} stack on disk; segment references: default, 18- and "
-        f"40-candidate params ({time.perf_counter() - t10:.1f} s)")
+    log(f"[serve] segment references: default, 18- and 40-candidate params "
+        f"({time.perf_counter() - t10:.1f} s)")
 
     # ---- in-process server: (a), then (c) with the flood (b) behind it
     dispatcher = None
@@ -1187,16 +1174,45 @@ def route_phase(smi: str, env: dict, tmp: str, stack_dir: str) -> dict:
     return out
 
 
-def tool(env: dict, tmp: str, name: str, *args: str, timeout: float = 600.0) -> dict:
-    """Run ``python -m land_trendr_tpu_torch.tools.<name> ARGS --out OUT`` on
-    the card's default device; its JSON report (the tools print progress)."""
+def start_tool(env: dict, tmp: str, name: str, *args: str) -> "tuple[subprocess.Popen, str]":
+    """Start ``python -m land_trendr_tpu_torch.tools.<name> ARGS --out OUT``
+    on the card's default device, its output into files beside OUT."""
     out = os.path.join(tmp, f"{name}.json")
-    r = subprocess.run([sys.executable, "-m", f"land_trendr_tpu_torch.tools.{name}", *args,
-                        "--out", out], cwd=tmp, env=env, capture_output=True, text=True,
-                       timeout=timeout)
-    assert r.returncode == 0, (name, r.returncode, r.stdout[-3000:], r.stderr[-3000:])
+    with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
+        # a session of its own: a kill reaches the tool's children too
+        proc = subprocess.Popen([sys.executable, "-m", f"land_trendr_tpu_torch.tools.{name}",
+                                 *args, "--out", out], cwd=tmp, env=env, stdout=so, stderr=se,
+                                start_new_session=True)
+    return proc, out
+
+
+def kill_tool(proc: subprocess.Popen) -> None:
+    """SIGKILL a :func:`start_tool` run's whole process group and reap it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_tool(started: "tuple[subprocess.Popen, str]", timeout: float = 600.0) -> dict:
+    """Wait for a :func:`start_tool` run (its process group killed at
+    ``timeout``); its JSON report (the tools print progress)."""
+    proc, out = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            kill_tool(proc)
+    with open(out + ".stdout") as so, open(out + ".stderr") as se:
+        assert rc == 0, (out, rc, so.read()[-3000:], se.read()[-3000:])
     with open(out) as f:
         return json.load(f)
+
+
+def tool(env: dict, tmp: str, name: str, *args: str, timeout: float = 600.0) -> dict:
+    """:func:`start_tool`, then :func:`finish_tool`."""
+    return finish_tool(start_tool(env, tmp, name, *args), timeout)
 
 
 def sum_launches(*counts: dict) -> dict:
@@ -1288,8 +1304,9 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
 
     # (e) capacity and fleet benches at the JAX tools' smoke sizes
     t0 = time.perf_counter()
-    cap = tool(env, tmp, "capacity_bench", "--smoke", timeout=900)
+    cap = tool(env, tmp, "capacity_bench", "--smoke", *CAPACITY_SMOKE, timeout=900)
     assert cap["ok"] and all(cap["invariants"].values()), cap["invariants"]
+    log(f"[tools] (e) capacity_bench --smoke {time.perf_counter() - t0:.1f} s")
     fleet = tool(env, tmp, "fleet_bench", "--smoke", timeout=900)
     assert fleet["ok"] and all(fleet["invariants"].values()), fleet["invariants"]
     legs["e"] = time.perf_counter() - t0
@@ -1409,6 +1426,91 @@ def gate_phase(smi: str, env: dict, tmp: str, stack, ftv_out: str) -> dict:
     return out13
 
 
+def scale_phase(smi: str, env: dict, tmp: str, ftv_tmp: str, stack) -> dict:
+    """Phase 14, after phase 13 in its directory ``tmp``: the scale tools at
+    smoke size (see the module docstring), each as its own process, so each
+    peak RSS is that process's; ``ftv_tmp`` holds phase 4b's workdir and
+    rasters over ``stack``.  Returns the launch counts the tools report and
+    the phase's seconds."""
+    t14 = time.perf_counter()
+    legs: dict = {}
+    # (b) and (c) first, side by side: only (b) uses the card, so no two
+    # timed runs share it; then (a) alone
+    h, w = stack.shape
+    started_b = start_tool(env, tmp, "change_stream_bench", f"--size={GIGA_SIZE}", "--mmu=9",
+                           "--work-root", tmp)
+    started_c = start_tool(
+        env, tmp, "stream_assembly_bench", "scene", os.path.join(ftv_tmp, "work"),
+        "--years", f"{int(stack.years[0])}:{int(stack.years[-1])}", "--shape", f"{h},{w}",
+        "--tile-size", str(TILE), "--ftv", ",".join(FTV), "--change-max-dur", "4",
+        "--out-dir", os.path.join(tmp, "sa_out"))
+    try:
+        # (b) the streamed change maps with the mmu sieve
+        cs = finish_tool(started_b, 900)[f"change_{GIGA_SIZE}x{GIGA_SIZE}_mmu9"]
+        legs["b"] = time.perf_counter() - t14
+        # (c) phase 4b's workdir re-assembled by the streaming writers
+        sa = finish_tool(started_c, 900)[f"scene_{h}x{w}"]
+        legs["c"] = time.perf_counter() - t14
+    finally:
+        for proc, _ in (started_b, started_c):  # no process outlives the smoke
+            if proc.poll() is None:
+                kill_tool(proc)
+    assert cs["changed_frac_first_rows"] > 0, cs
+    log(f"[scale] (b) change_stream_bench {GIGA_SIZE}^2, mmu 9: change maps "
+        f"{cs['change_wall_s']:.2f} s, peak RSS {cs['peak_rss_mb']} MiB (after fabricating "
+        f"{cs['rss_after_fabricate_mb']}), fabricate {cs['fabricate_s']:.1f} s; done "
+        f"{legs['b']:.1f} s into the phase")
+    assert sa["out_sha256"] == raster_digests(os.path.join(ftv_tmp, "out")), (
+        "the re-assembled rasters differ from phase 4b's")
+    log(f"[scale] (c) stream_assembly_bench scene over phase 4b ({h}x{w}, {sa['products']} "
+        f"rasters byte-equal to phase 4b's; beside (b), on the host): {sa['wall_s']:.2f} s, "
+        f"peak RSS {sa['peak_rss_mb']} MiB ({sa['out_bytes_total']} B out); done "
+        f"{legs['c']:.1f} s into the phase")
+
+    # (a) the composed run, SIGKILLed after its first durable tile and resumed
+    t0 = time.perf_counter()
+    giga = tool(env, tmp, "giga_run", "all", "--size", str(GIGA_SIZE), "--kill-tiles", "1",
+                "--out-root", os.path.join(tmp, "giga"),
+                timeout=900)[f"giga_{GIGA_SIZE}x{GIGA_SIZE}"]
+    legs["a"] = time.perf_counter() - t0
+    killed, resumed = giga["segment_killed"], giga["segment_resumed"]
+    assert killed["rc"] == -signal.SIGKILL, killed
+    assert 1 <= resumed["tiles_skipped_resume"] < giga["tiles"] == 4, resumed
+    assert giga["rasters_equal_unkilled"] and giga["rasters"] == 12, giga
+    # a 1024² tile is four chunks of chunk_px = 262,144: four launches
+    assert resumed["launches"] == 4 * resumed["tiles_done"] > 0, resumed
+    shutil.rmtree(os.path.join(tmp, "giga"))
+    log(f"[scale] (a) giga_run all {GIGA_SIZE}^2 x {giga['ny']} yr, tile {giga['tile']}: segment "
+        f"SIGKILLed (rc {killed['rc']}) with {killed['durable_seen']} tile(s) durable after "
+        f"{killed['wall_s']:.2f} s; resume skipped {resumed['tiles_skipped_resume']} of "
+        f"{giga['tiles']}; {giga['rasters']} rasters (sieved change maps included) byte-equal "
+        "to an unkilled run; phase s / peak RSS MiB: " + ", ".join(
+            f"{p} {giga[p]['wall_s_total']:.1f} / {giga[p]['peak_rss_mib']}"
+            for p in ("gen", "segment_resumed", "assemble", "sieve", "reference"))
+        + f"; {legs['a']:.1f} s")
+
+    # (d) the per-pixel oracle, the plain version on the host and the kernel
+    t0 = time.perf_counter()
+    ar = tool(env, tmp, "arch_speedup", str(ARCH_ORACLE_PX), str(ARCH_PLAIN_PX),
+              "--card-px", str(POP_PX))
+    legs["d"] = time.perf_counter() - t0
+    card = ar["card"][-1]
+    assert card["launches"] > 0 and 0 < card["fit_rate"] <= 1, ar
+    log(f"[scale] (d) arch_speedup: oracle {ar['oracle_px_s']} px/s ({ARCH_ORACLE_PX} px, f64, "
+        f"host), plain {ar['kernel_cpu_px_s']} px/s ({ARCH_PLAIN_PX} px, f32, "
+        f"{ar['torch_threads']} host threads), kernel {card['px_s']} px/s ({card['px']} px, "
+        f"{card['ms']} ms): card / oracle {ar['speedup_card_vs_oracle']}x ({smi}); "
+        f"{legs['d']:.1f} s")
+    out = {"launches": sum_launches({"LAUNCHES": resumed["launches"]},
+                                    {"LAUNCHES": giga["reference"]["launches"]},
+                                    {"LAUNCHES": card["launches"]}),
+           "seconds": time.perf_counter() - t14}
+    log(f"[phase 14] took {out['seconds']:.1f}s (b and c side by side done at {legs['b']:.1f} / "
+        f"{legs['c']:.1f}, a {legs['a']:.1f}, d {legs['d']:.1f}); launches "
+        f"{json.dumps(out['launches'])} ({smi})")
+    return out
+
+
 def build_native() -> "str | None":
     """Build the host raster codec that the loaders, the feed and the writers
     use when it is present (``native/lt_native.cc`` with the flags of
@@ -1453,7 +1555,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     sys.path.insert(0, ROOT)
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.io import native
-    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack
+    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.ops.change import CHANGE_PRODUCTS, ChangeFilter
     from land_trendr_tpu_torch.ops.segment import (
@@ -1472,6 +1574,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     )
     from land_trendr_tpu_torch.runtime.stack import load_stack_dir_c2, stack_from_synthetic
     from land_trendr_tpu_torch.tools import probe
+    from land_trendr_tpu_torch.tools.pod_launch import launch_pod, reap
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1482,16 +1585,29 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         f" ({time.perf_counter() - t_native:.1f} s)")
     params = LTParams()
 
-    # phase 4's synthetic scene is host work: it is made while nvcc builds
+    # phase 4's synthetic scene is host work: it is made while nvcc builds;
+    # then phase 10's stack is made and written to disk, beside phase 2
     scene: dict = {}
+    serve_root = cleanup.enter_context(tempfile.TemporaryDirectory(prefix="lt_smoke_serve_",
+                                                                   dir=ROOT))
+    serve_stack = os.path.join(serve_root, "stack")
 
     def make_scene():
         t0 = time.perf_counter()
         scene["stack"] = stack_from_synthetic(make_stack(SceneSpec(height=SCENE, width=SCENE)))
         scene["seconds"] = time.perf_counter() - t0
 
+    def make_serve_stack():
+        scene_thread.join()
+        t0 = time.perf_counter()
+        write_stack(serve_stack, make_stack(SceneSpec(height=SERVE, width=SERVE, seed=10)))
+        scene["serve_seconds"] = time.perf_counter() - t0
+
     scene_thread = threading.Thread(target=make_scene, name="smoke-scene", daemon=True)
     scene_thread.start()
+    serve_thread = threading.Thread(target=make_serve_stack, name="smoke-serve-stack",
+                                    daemon=True)
+    serve_thread.start()
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -1694,7 +1810,8 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
             shutil.rmtree(work)
 
     # ---- phase 4b: the scene with FTV + change --------------------------
-    # its rasters stay until phase 13 (b) validates them against the oracle
+    # its rasters stay until phase 13 (b) validates them against the oracle,
+    # and its workdir until phase 14 (c) re-assembles it
     ftv_tmp = cleanup.enter_context(tempfile.TemporaryDirectory(prefix="lt_smoke_ftv_", dir=ROOT))
     cfg = RunConfig(
         tile_size=TILE,
@@ -1741,11 +1858,18 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
             return out.stdout
 
         cli("synth", "D", "--size", "256")
-        first = json.loads(cli("segment", "D"))["summary"]
+        # the first segment through run_segment_measured: the CLI's own
+        # output on stdout, this process's peak RSS on stderr
+        measured = subprocess.run(
+            [sys.executable, "-m", "land_trendr_tpu_torch.tools.run_segment_measured",
+             "segment", "D"], cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        assert measured.returncode == 0, measured.stderr[-3000:]
+        first = json.loads(measured.stdout)["summary"]
+        first_rss = json.loads(measured.stderr.strip().splitlines()[-1])["peak_rss_mib"]
         again = json.loads(cli("segment", "D"))["summary"]
-        log(f"[cli] segment: tiles {first['tiles']} impl {first['impl']} device "
-            f"{first['device']} fit_rate {first['fit_rate']:.4f}; resume skipped "
-            f"{again['tiles_skipped_resume']} of {again['tiles']}")
+        log(f"[cli] segment (run_segment_measured): tiles {first['tiles']} impl {first['impl']} "
+            f"device {first['device']} fit_rate {first['fit_rate']:.4f}, peak RSS {first_rss} "
+            f"MiB; resume skipped {again['tiles_skipped_resume']} of {again['tiles']}")
         assert first["impl"] == "cuda" and first["device"].startswith("cuda"), first
         assert first["tiles_done"] == first["tiles"], first
         assert again["tiles_skipped_resume"] == again["tiles"] and again["tiles_done"] == 0, again
@@ -1939,7 +2063,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
 
         poll_wait = fetchmod.wait_event
         rates = {"poll": [], "synchronize": []}
-        for rep in range(2):
+        for rep in range(WAIT_REPS):
             for mode in ("poll", "synchronize"):
                 fetchmod.wait_event = poll_wait if mode == "poll" else (
                     lambda ev: ev.synchronize())
@@ -2116,8 +2240,10 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         static = pcfg("pod")
         outs = [os.path.join(tmp, f"pod{i}.json") for i in range(2)]
         t0 = time.perf_counter()
-        launch_pod(lambda i: [stack_dir, static.workdir, outs[i]], env,
-                   before=lambda: shutil.rmtree(static.workdir, ignore_errors=True))
+        launch_pod(lambda coord, i: [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                     "--pod-worker", coord, "2", str(i), stack_dir,
+                                     static.workdir, outs[i]],
+                   env, before_attempt=lambda: shutil.rmtree(static.workdir, ignore_errors=True))
         pod_s = time.perf_counter() - t0
         per = []
         for o in outs:
@@ -2213,20 +2339,29 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     log(f"[phase 9] took {time.perf_counter() - t9:.1f}s")
 
     # ---- phases 10 and 11: serve, then route and load, on the card -------
-    with tempfile.TemporaryDirectory(prefix="lt_smoke_serve_", dir=ROOT) as serve_tmp:
-        served = serve_phase(dev, smi, env, serve_tmp)
-        routed = route_phase(smi, env, serve_tmp, served["stack_dir"])
-        # ---- phase 12: the port's tools on the card ---------------------
-        tools_tmp = os.path.join(serve_tmp, "tools")
-        os.makedirs(tools_tmp)
-        tooled = tools_phase(smi, env, tools_tmp, routed["rt"])
-        # ---- phase 13: the oracle, the FTV rasters and the perf gate -------
-        gated = gate_phase(smi, env, tools_tmp, stack, os.path.join(ftv_tmp, "out"))
+    t0 = time.perf_counter()
+    serve_thread.join()
+    assert "serve_seconds" in scene, "writing phase 10's stack failed (its traceback is above)"
+    log(f"[serve] {SERVE}^2 x {NY} stack made and written in {scene['serve_seconds']:.1f} s "
+        f"beside the earlier phases (waited {time.perf_counter() - t0:.1f} s for it)")
+    served = serve_phase(dev, smi, env, serve_root, serve_stack)
+    routed = route_phase(smi, env, serve_root, served["stack_dir"])
+    # ---- phase 12: the port's tools on the card -------------------------
+    tools_tmp = os.path.join(serve_root, "tools")
+    os.makedirs(tools_tmp)
+    tooled = tools_phase(smi, env, tools_tmp, routed["rt"])
+    # ---- phase 13: the oracle, the FTV rasters and the perf gate ---------
+    gated = gate_phase(smi, env, tools_tmp, stack, os.path.join(ftv_tmp, "out"))
+    # ---- phase 14: the scale tools at smoke size ------------------------
+    scale_tmp = os.path.join(serve_root, "scale")
+    os.makedirs(scale_tmp)
+    scaled = scale_phase(smi, env, scale_tmp, ftv_tmp, stack)
     del stack
     serve_launches = served["cold_launches"] + served["warm_launches"] + served["flood_launches"]
     # phases 12 and 13: their own process (parity, identity, paramspace)
-    # and the tools' and the gate's
-    tool_launches = sum_launches(tooled["own"], tooled["tools"], gated["launches"])
+    # and the tools' and the gate's; phase 14: the scale tools'
+    tool_launches = sum_launches(tooled["own"], tooled["tools"], gated["launches"],
+                                 scaled["launches"])
 
     src = "land_trendr_tpu_torch/csrc/segment_fused.cu"
     kernel = {
@@ -2236,7 +2371,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
         # the narrow kernel's paths: phase 4's scene, phase 10's serve jobs
         # and phase 11's routed jobs (counted in the replicas); phases 12
-        # and 13's tools run other shapes and stand apart, under "tools"
+        # to 14's tools run other shapes and stand apart, under "tools"
         "launches": launches + serve_launches + routed["route_launches"],
         "launches_by_path": {"segment": launches, "serve": serve_launches,
                              "route": routed["route_launches"],

@@ -22,7 +22,8 @@ tile 20, 2 replica counts, 3 QPS steps, 5 s windows); the full run takes
 the card's real shape — a 512² x 40-year stack at tile 512, so each job
 is one full-width launch — with 1-3 replicas and each cell's window long
 enough for :data:`MIN_JOBS` (100) completed jobs, so the p99 means
-something.  The explicit size flags override either.
+something.  The explicit size, replica-count and QPS flags override
+either.
 
 Usage::
 
@@ -255,11 +256,12 @@ def run_autoscale_leg(
 
 
 def run_bench(smoke: bool, root: str, size: int, years: int, tile: int,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", replica_counts: "list[int] | None" = None,
+              qps_steps: "list[float] | None" = None) -> dict:
     rootp = Path(root)
     stack_dir = _write_scene(rootp, size, years)
-    replica_counts = [1, 2] if smoke else [1, 2, 3]
-    qps_steps = [0.5, 1.0, 2.0] if smoke else [0.5, 1.0, 2.0, 4.0]
+    replica_counts = replica_counts or ([1, 2] if smoke else [1, 2, 3])
+    qps_steps = qps_steps or ([0.5, 1.0, 2.0] if smoke else [0.5, 1.0, 2.0, 4.0])
     min_jobs = 0 if smoke else MIN_JOBS
     window_s = 5.0 if smoke else 15.0
     timeout_s = 120.0 if smoke else 600.0
@@ -362,6 +364,10 @@ def main(argv: "list[str] | None" = None) -> int:
                     help="stack years (default: 7 smoke / 40 full)")
     ap.add_argument("--tile", type=int, default=None,
                     help="tile size (default: 20 smoke / 512 full)")
+    ap.add_argument("--replica-counts", default=None, metavar="N,N",
+                    help="the curves' replica counts (default: 1,2 smoke / 1,2,3 full)")
+    ap.add_argument("--qps-steps", default=None, metavar="Q,Q",
+                    help="each curve's offered QPS (default: 0.5,1,2 smoke / 0.5,1,2,4 full)")
     ap.add_argument("--keep", default=None, metavar="DIR", help="keep the bench workdirs under DIR")
     ap.add_argument("--out", default=None, metavar="FILE", help="write the JSON report here")
     args = ap.parse_args(argv)
@@ -379,7 +385,11 @@ def main(argv: "list[str] | None" = None) -> int:
     root = args.keep or tempfile.mkdtemp(prefix="lt_capacity_bench_")
     Path(root).mkdir(parents=True, exist_ok=True)
     try:
-        report = run_bench(args.smoke, root, size, years, tile, device=device)
+        report = run_bench(
+            args.smoke, root, size, years, tile, device=device,
+            replica_counts=[int(n) for n in args.replica_counts.split(",")]
+            if args.replica_counts else None,
+            qps_steps=[float(q) for q in args.qps_steps.split(",")] if args.qps_steps else None)
     finally:
         if args.keep is None:
             shutil.rmtree(root, ignore_errors=True)

@@ -12,20 +12,30 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
+import time
 import urllib.request
 from pathlib import Path
 
 import numpy as np
 
 __all__ = [
+    "child_env",
+    "digest_files",
     "digest_workdir",
+    "disk_free",
+    "merge_record",
     "record_meta",
     "replica_launches",
+    "rss_mib",
     "smi_line",
     "source_digest",
+    "peak_rss_mib",
     "write_json_atomic",
+    "watch_rss",
     "write_text_atomic",
 ]
 
@@ -51,6 +61,18 @@ def write_json_atomic(
     if trailing_newline:
         text += "\n"
     write_text_atomic(path, text)
+
+
+def merge_record(path: str, key: str, entry: dict, indent: int = 1) -> None:
+    """Add ``entry`` under ``key`` to the JSON object at ``path`` (made if
+    absent), durably: a record that holds one entry per run, as the JAX
+    tools' merged records do."""
+    rec = {}
+    if os.path.isfile(path):
+        with open(path) as f:
+            rec = json.load(f)
+    rec[key] = entry
+    write_json_atomic(path, rec, indent=indent)
 
 
 def replica_launches(router) -> "dict[str, dict]":
@@ -87,6 +109,87 @@ def digest_workdir(workdir: str) -> dict:
     return out
 
 
+def digest_files(directory: str) -> dict:
+    """file name → sha256 of its bytes, for every file in ``directory``
+    (byte equality of large rasters, read in 16 MiB pieces)."""
+    out = {}
+    for p in sorted(Path(directory).iterdir()):
+        if p.is_file():
+            h = hashlib.sha256()
+            with open(p, "rb") as f:
+                for piece in iter(lambda: f.read(1 << 24), b""):
+                    h.update(piece)
+            out[p.name] = h.hexdigest()
+    return out
+
+
+def _status_kib(field: str) -> "int | None":
+    """A ``kB`` field of ``/proc/self/status`` (None where it has none)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+#: the largest ``VmRSS`` the sampler of :func:`watch_rss` has read (KiB)
+_SAMPLED_PEAK_KIB: "list[int]" = []
+
+
+def watch_rss(interval_s: float = 0.02) -> None:
+    """Where the kernel keeps no ``VmHWM`` (a gVisor sandbox, such as the
+    card machine's), sample ``VmRSS`` on a daemon thread for
+    :func:`peak_rss_mib`.  Call once, first thing in a tool's ``main``."""
+    if _SAMPLED_PEAK_KIB or _status_kib("VmHWM") is not None or _status_kib("VmRSS") is None:
+        return
+    peak = _SAMPLED_PEAK_KIB
+    peak.append(_status_kib("VmRSS") or 0)
+
+    def sample() -> None:
+        while True:
+            peak[0] = max(peak[0], _status_kib("VmRSS") or 0)
+            time.sleep(interval_s)
+
+    threading.Thread(target=sample, name="rss-sampler", daemon=True).start()
+
+
+def rss_mib() -> "float | None":
+    """This process's resident set now (``VmRSS``), in MiB."""
+    cur = _status_kib("VmRSS")
+    return None if cur is None else round(cur / 1024, 1)
+
+
+def peak_rss_mib() -> float:
+    """This process's peak resident set in MiB: ``VmHWM`` of
+    ``/proc/self/status``, the high-water mark of the address space this
+    process's program has run in since its ``exec``; where there is none,
+    the largest ``VmRSS`` sampled since :func:`watch_rss` (or the current
+    one, where nothing has sampled).  Not ``ru_maxrss``: Linux and gVisor
+    carry it across fork and exec, so a child started by a large parent
+    reports at least the parent's resident set.  Raises where ``/proc``
+    gives neither."""
+    hwm = _status_kib("VmHWM")
+    if hwm is not None:
+        return round(hwm / 1024, 1)
+    cur = _status_kib("VmRSS")
+    if cur is None:
+        raise RuntimeError("/proc/self/status gives neither VmHWM nor VmRSS")
+    return round(max(_SAMPLED_PEAK_KIB + [cur]) / 1024, 1)
+
+
+def disk_free(path: str) -> dict:
+    """Free and total bytes of the file system that holds ``path`` (the
+    nearest existing parent): scale runs record where they wrote."""
+    p = Path(path).resolve()
+    while not p.exists():
+        p = p.parent
+    usage = shutil.disk_usage(p)
+    return {"path": str(p), "free_bytes": usage.free, "total_bytes": usage.total}
+
+
 def smi_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of card 0 (or why there
     is none): every time kept from the card stands beside it."""
@@ -105,6 +208,15 @@ def smi_line() -> str:
 PACKAGE = Path(__file__).resolve().parent.parent
 #: what the digest leaves out: build outputs, bytecode, the records themselves
 _NOT_SOURCE = {"_build", "__pycache__", "records"}
+
+
+def child_env(**extra: str) -> dict:
+    """This process's environment with the package's checkout first on
+    ``PYTHONPATH``: a tool's child process (``python -m
+    land_trendr_tpu_torch...``) imports the same package from any cwd."""
+    root = str(PACKAGE.parent)
+    path = os.environ.get("PYTHONPATH", "")
+    return {**os.environ, "PYTHONPATH": root + (os.pathsep + path if path else ""), **extra}
 
 
 def source_digest() -> str:

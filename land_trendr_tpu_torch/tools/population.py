@@ -1,7 +1,8 @@
-"""Mixed-regime synthetic pixel population for the stage probe and the
-chip smoke — a copy of the JAX package's ``tools/_population.py``
-(``make_population``), numpy only, with the same draw order, so a seed
-gives the same population in both packages.
+"""Synthetic pixel populations: the mixed-regime one of the stage probe
+and the chip smoke — a copy of the JAX package's ``tools/_population.py``
+(``make_population``) — and the headline bench's (``make_series``, for
+``arch_speedup``), numpy only, with the same draw order, so a seed gives
+the same population in both packages.
 
 Five regimes — exp-recovery disturbance, step, linear trend, scaled random
 walk, flat — plus spikes, noise and masking, in the disturbance-positive
@@ -71,3 +72,22 @@ def make_population(
     traj = traj + noise_arr
     mask = rng.uniform(size=(px, ny)) > mask_drop
     return years, -traj, mask
+
+
+def make_series(px: int, ny: int, seed: int = 7) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Disturbance-positive NBR-like series + mask, float32: a copy of the
+    JAX package's ``bench.make_series`` (the same draws in the same order,
+    so a ``(px, ny, seed)`` gives the same population in both packages)."""
+    rng = np.random.default_rng(seed)
+    years = np.arange(1984, 1984 + ny, dtype=np.int32)
+    base = rng.uniform(0.55, 0.75, size=(px, 1)).astype(np.float32)
+    t = np.arange(ny, dtype=np.float32)[None, :]
+    disturbed = rng.uniform(size=(px, 1)) < 0.35
+    d_year = rng.integers(5, ny - 5, size=(px, 1))
+    mag = rng.uniform(0.15, 0.5, size=(px, 1)).astype(np.float32)
+    rec = rng.uniform(0.03, 0.15, size=(px, 1)).astype(np.float32)
+    dt = np.maximum(t - d_year, 0.0).astype(np.float32)
+    traj = base - np.where(disturbed & (t >= d_year), mag * np.exp(-rec * dt), 0.0)
+    traj += rng.normal(0.0, 0.012, size=(px, ny)).astype(np.float32)
+    mask = rng.uniform(size=(px, ny)) > 0.08
+    return years, (-traj).astype(np.float32), mask

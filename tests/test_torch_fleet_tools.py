@@ -100,3 +100,18 @@ def test_capacity_bench_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     assert all(v == 0 for v in rep["launches"].values())
     summary = json.loads(capsys.readouterr().out.split("wrote ", 1)[1].split("\n", 1)[1])
     assert summary["ok"] is True and set(summary["knees"]) == {"1", "2"}
+
+
+def test_capacity_bench_smoke_grid_on_cpu(tmp_path, monkeypatch):
+    """The card smoke's grid (``chip_smoke.py``'s ``CAPACITY_SMOKE``): one
+    curve of 2 replicas at 0.5 and 2 QPS, every invariant held."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = tmp_path / "cap.json"
+    assert capacity_bench.main(["--smoke", "--replica-counts", "2", "--qps-steps", "0.5,2",
+                                "--device", "cpu", "--out", str(out)]) == 0
+    rep = json.loads(out.read_text())
+    assert rep["ok"] is True and all(rep["invariants"].values()), rep["invariants"]
+    assert [c["replicas"] for c in rep["curves"]] == [2]
+    assert [p["offered_qps"] for p in rep["curves"][0]["points"]] == [0.5, 2.0]
+    assert rep["workload"]["replica_counts"] == [2] and rep["workload"]["qps_steps"] == [0.5, 2.0]
+    assert rep["replay"]["match"] and rep["scripted_replay"]["match"]

@@ -24,9 +24,10 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    # ``tools`` is the JAX package's script directory (the port keeps its
-    # own copies of what it needs from there)
-    return top in ("land_trendr_tpu", "jax", "jaxlib", "tools")
+    # ``tools`` is the JAX package's script directory, ``tests`` and
+    # ``bench`` the repo's test helpers and headline bench (the port keeps
+    # its own copies of what it needs from them)
+    return top in ("land_trendr_tpu", "jax", "jaxlib", "tools", "tests", "bench")
 
 
 def _imported(tree: ast.AST):
@@ -55,6 +56,8 @@ def test_forbidden_names_compared_exactly():
     assert not _forbidden("numpy")
     assert _forbidden("tools._measure")
     assert not _forbidden("land_trendr_tpu_torch.tools.measure")
+    assert _forbidden("tests._pod_launch") and _forbidden("bench")
+    assert not _forbidden("benchmark") and not _forbidden("land_trendr_tpu_torch.tools.pod_launch")
 
 
 MAIN_PATH = [
@@ -130,6 +133,13 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.tools.tune_bench",
     "land_trendr_tpu_torch.tools.lt_trace",
     "land_trendr_tpu_torch.tools.perf_gate",
+    "land_trendr_tpu_torch.tools.pod_launch",
+    "land_trendr_tpu_torch.tools.run_segment_measured",
+    "land_trendr_tpu_torch.tools.giga_run",
+    "land_trendr_tpu_torch.tools.stream_assembly_bench",
+    "land_trendr_tpu_torch.tools.change_stream_bench",
+    "land_trendr_tpu_torch.tools.multihost_bench",
+    "land_trendr_tpu_torch.tools.arch_speedup",
 ]
 
 
@@ -140,7 +150,7 @@ def test_main_path_loads_no_jax():
         f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.startswith('jax') or m == 'land_trendr_tpu'"
-        " or m.startswith('land_trendr_tpu.') or m == 'tools' or m.startswith('tools.')]\n"
+        " or m.startswith('land_trendr_tpu.') or m.split('.')[0] in ('tools', 'tests', 'bench')]\n"
         "print(json.dumps({'bad': bad, 'port': [m for m in new if m.startswith('land_trendr_tpu_torch')]}))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -156,6 +166,8 @@ def test_main_path_loads_no_jax():
     assert "land_trendr_tpu_torch.loadgen.runner" in res["port"]
     assert "land_trendr_tpu_torch.tools.fault_soak" in res["port"]
     assert "land_trendr_tpu_torch.tools.perf_gate" in res["port"]
+    assert "land_trendr_tpu_torch.tools.giga_run" in res["port"]
+    assert "land_trendr_tpu_torch.tools.multihost_bench" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -176,7 +188,10 @@ def test_main_path_loads_no_jax():
      "tools/lt_request.py", "tools/capacity_bench.py", "tools/fleet_bench.py",
      "tools/parity_paramspace.py", "tools/validate_ftv.py", "tools/feed_bench.py", "tools/fetch_bench.py", "tools/upload_bench.py",
      "tools/host_path_bench.py", "tools/serve_bench.py", "tools/batch_bench.py", "tools/flight_overhead.py", "tools/reqtrace_bench.py",
-     "tools/tune_bench.py", "tools/lt_trace.py", "tools/perf_gate.py"],
+     "tools/tune_bench.py", "tools/lt_trace.py", "tools/perf_gate.py",
+     "tools/pod_launch.py", "tools/run_segment_measured.py", "tools/giga_run.py",
+     "tools/stream_assembly_bench.py", "tools/change_stream_bench.py",
+     "tools/multihost_bench.py", "tools/arch_speedup.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module
