@@ -34,16 +34,23 @@ each of which fails the script on its own:
    within 1e-5, float64 decisions exact; the wide family kernel at 72
    years likewise.  CUDA-event times, op counts and bounds, with phase 2's
    narrow time beside them.
-2d. **The global forms** (any NY and candidate count; the series, sets and
-   per-thread arrays in a global-memory scratch) against their plain
-   versions at 65,536 px: 160 years at default params, and 40 years at 40
-   candidates (``max_segments=36, vertex_count_overshoot=3``); float32
-   bit-identical on every pixel, float64 decisions exact; then the global
-   form forced at 40 years with default params equals the narrow kernel
-   bit for bit.  CUDA-event times, op counts, scratch bytes and bounds
-   by the function's own inputs and outputs, with the bound that also
-   counts the scratch (written once, read once) beside it.  Phase 2 also holds
-   the narrow kernel within 5% of its 1.3179 ms on a card at 700 W.
+2d. **The global forms** (any NY and candidate count; the series in
+   shared memory at a block picked from NY, or in a device-memory scratch
+   where no block holds it) against their plain versions at 65,536 px:
+   160 years at default params, and 40 years at 40 candidates
+   (``max_segments=36, vertex_count_overshoot=3``); float32 bit-identical
+   on every pixel, float64 decisions exact; the scratch tier at 1,000
+   years (1,024 px) likewise; then the global form forced at 40 years
+   with default params equals the narrow kernel bit for bit.  CUDA-event
+   times (the plain version's after its checked call), op counts, scratch
+   bytes and bounds by the function's own inputs and outputs, with the
+   bound that also counts the scratch (written once, read once) beside
+   it; each case's plan, stage
+   shares (the narrow kernel's of phase 2 beside them) and block-size
+   sweep, and every instantiation's registers, local bytes and spills.
+   ``python3 chip_smoke.py --phase-2d`` runs the build and this phase
+   alone.  Phase 2 also holds the narrow kernel within 5% of its 1.3179 ms
+   on a card at 700 W.
 3. **Chunked against unchunked**: chunk 65,536 gives identical decisions.
 3b. **Family kernel against its plain version** on phase 2's population:
    vertex sets equal on every pixel in float64 and on >= 99.9% in
@@ -64,8 +71,9 @@ each of which fails the script on its own:
    rasters assembled, fit_rate in (0, 1]; px/s and stage_s printed.
 5. **CLI**: ``synth``, ``segment`` on the default device (through
    ``tools/run_segment_measured``, which prints its peak RSS), then a second
-   ``segment`` that resumes every tile; then ``segment --ftv ndvi
-   --change --change-mmu 4`` and ``change OUT --mmu 4``.
+   ``segment`` that resumes every tile; beside them ``segment --ftv ndvi
+   --change --change-mmu 4`` and then ``change OUT --mmu 4`` (checks, none
+   timed, in their own workdirs).
 6. **Stage probe** (``tools/probe.py stages``) at 262,144 px: the fused
    kernel, the family kernel, family + plain tail and the plain version,
    timed with CUDA events; its JSON line is printed; then the same probe
@@ -82,7 +90,7 @@ each of which fails the script on its own:
    re-dispatches (one per injected ``compute.wait``/``fetch.wait``) plus
    the resumed tile; (b) ``dispatch`` failing three times on one tile with
    ``quarantine_tiles``: exactly that tile is quarantined and the run
-   completes; (c) ``stall_timeout_s=2`` with ~10 s of ``torch.cuda._sleep``
+   completes; (c) ``stall_timeout_s=2`` with ~6 s of ``torch.cuda._sleep``
    enqueued before one tile's event: ``StallError`` within 4 s and the
    process lives on; (d) a cancel after the third durable tile:
    ``RunCancelled``, and a rerun resumes the rest.
@@ -95,11 +103,10 @@ each of which fails the script on its own:
    the compute-wait poll against a blocking ``synchronize()`` wait,
    alternating, px/s of each; one run under ``utils/profiling.trace``,
    whose kernel intervals give the device's busy share of the wall;
-   (c) the CLI: ``segment --trace --out-overviews 2`` (the trace names
-   ``segment_fused_kernel``),
-   ``pixel --from-stack --engine both`` at two pixels (oracle and kernel
-   agree on vertex years), and ``info`` on an output raster (two
-   overview pages).
+   (c) the CLI over phase 5's stack: ``segment --trace --out-overviews 2``
+   (the trace names ``segment_fused_kernel``) and ``info`` on an output
+   raster (two overview pages), with ``pixel --from-stack --engine both``
+   at two pixels beside them (oracle and kernel agree on vertex years).
 9. **Elastic, pod, mesh and tuning**: (a) phase 4's scene with
    ``lease_batch=2`` (16 tiles leased, 16 launches), then again with a
    dead peer holding four leases that the ``lease.expire`` seam makes
@@ -168,11 +175,12 @@ each of which fails the script on its own:
    ``capacity_bench --smoke`` and ``fleet_bench --smoke`` with their
    invariants; (f) ``lt_request --slowest`` over
    phase 11's router: the blame sums to the latency.  (a) and (b) run in
-   this process, the rest as the tools' own processes; each leg's seconds
+   this process, beside (c), which checks bytes and seams only; the rest
+   run one after another as the tools' own processes; each leg's seconds
    are printed.
 
 13. **The oracle, the FTV rasters and the perf gate**, after phase
-   12: (a) ``parity_paramspace``: 64 trials x 64 px of the JAX tool's
+   12: (a) ``parity_paramspace``: 32 trials x 64 px of the JAX tool's
    joint parameter draw (seed base 2000) — the float64 kernel exact
    against the port's oracle on every pixel, each trial's batch through
    every admitting form (narrow, wide, global) bit-identical to narrow in
@@ -185,8 +193,8 @@ each of which fails the script on its own:
    records under ``land_trendr_tpu_torch/tools/records/``.  Every check's
    name, verdict and detail are printed.
 
-14. **The scale tools at smoke size**, after phase 13, each in its own
-   process (so each peak RSS is that process's): (a) ``giga_run all`` at
+14. **The scale tools at smoke size**, each in its own process (so each
+   peak RSS is that process's): (a) ``giga_run all`` at
    2048² x 12 years (4 tiles of 1024): the ``segment`` child SIGKILLed once
    its first tile is durable (rc -9), the resume skips 1-3 tiles, and the
    assembled rasters and sieved change maps are byte-equal to an unkilled
@@ -194,11 +202,12 @@ each of which fails the script on its own:
    ``change_stream_bench`` at 2048², mmu 9; (c) ``stream_assembly_bench
    scene`` over phase 4b's workdir, its rasters byte-equal to phase 4b's;
    (d) ``arch_speedup``: the oracle on 256 px, the plain version on 4,096
-   px on the host, the kernel on 262,144 px.  (b) and (c) run side by
-   side first ((c) works on the host only), then (a), then (d): no two
-   timed runs share the card.  A tool killed at its time limit is killed
-   with its whole process group.  Their launches join the ``kernels``
-   line's ``launches_by_path.tools``.
+   px on the host, the kernel on 262,144 px.  (b) and (c) ((c) works on
+   the host only) run side by side, beside phase 12 (a)-(c), which check
+   bytes and seams only, and end before phase 12 (d); (a) and then (d)
+   run after phase 13: no two timed runs share the card.  A tool killed
+   at its time limit is killed with its whole process group.  Their
+   launches join the ``kernels`` line's ``launches_by_path.tools``.
 
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
@@ -254,8 +263,8 @@ PROBE_REPS = 5
 #: robustness scene (phase 7): 512 x 512 x 40 at tile 128
 ROBUST = 512
 ROBUST_TILE = 128
-#: cycles of the device spin behind the stall (phase 7c): ~10 s at H100 clocks
-STALL_CYCLES = int(2e10)
+#: cycles of the device spin behind the stall (phase 7c): ~6 s at H100 clocks
+STALL_CYCLES = int(1.2e10)
 #: serve scene (phase 10): 1024 x 1024 x 40 at tile 512, four tiles a job
 SERVE = 1024
 SERVE_TILE = 512
@@ -277,7 +286,7 @@ NARROW_REF_MS = 1.3179
 ROUTE_JOBS = 8
 KILL_TILE = 128
 #: phase 13 (a): trials of the joint parameter draw (64 px each)
-PARAMSPACE_TRIALS = 64
+PARAMSPACE_TRIALS = 32
 #: phase 8 (b): alternating pairs of scene runs, compute-wait poll against a
 #: blocking synchronize
 WAIT_REPS = 1
@@ -375,10 +384,11 @@ def bit_identical(a, b, agree: torch.Tensor) -> bool:
     )
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` calls, CUDA events, after
-    one warm-up call."""
-    fn()
+    one warm-up call (``warm=False``: the caller has just made it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -388,6 +398,14 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def checked_and_timed(fn) -> tuple:
+    """``(fn(), ms)``: the first call's result, which is checked and serves
+    as the warm-up, and the milliseconds of one more call, CUDA events
+    around it."""
+    out = fn()
+    return out, cuda_ms(fn, reps=1, warm=False)
 
 
 def write_multidate_c2(out_dir: str, synth, rng: np.random.Generator) -> int:
@@ -489,9 +507,12 @@ def bound_of(n_bytes: int, n_ops: int) -> "tuple[float, str]":
 
 #: phase 2d's global-form populations: (name, years, params overrides)
 GLOBAL_CASES = (("ny160", 160, {}), ("nc40", NY, GLOBAL_PARAMS))
+#: phase 2d's scratch-tier case: a series no block of the global form's
+#: shared tier holds (years, pixels)
+SCRATCH_NY, SCRATCH_PX = 1000, 1024
 
 
-def global_kernels(dev: torch.device) -> dict:
+def global_kernels(dev: torch.device, narrow_share: dict) -> dict:
     """Phase 2d: the global form of both kernels against their plain
     versions at NY = 160 and at 40 candidates (NY = 40), 65,536 px: f32
     bit-identical on every pixel, f64 decisions exact with floats within
@@ -499,10 +520,14 @@ def global_kernels(dev: torch.device) -> dict:
     against the narrow kernel, bit for bit.  CUDA-event times, op counts,
     scratch bytes, the bound by the function's inputs and outputs, and
     beside it the bound that also counts the scratch's traffic (written
-    once, read once).  Returns the fused and family measurements."""
+    once, read once); the global form's stage shares beside the narrow
+    kernel's at NY = 40 (``narrow_share``, phase 2), its block-size sweep,
+    and every instantiation's registers, local bytes and spills.  Returns
+    the fused and family measurements."""
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.ops.segment import torch_family_stats, torch_segment_pixels
+    from land_trendr_tpu_torch.tools import probe
 
     out = {}
     for name, ny, over in GLOBAL_CASES:
@@ -521,10 +546,10 @@ def global_kernels(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         assert (segment_cuda.GLOBAL_LAUNCHES, segment_cuda.GLOBAL_FAMILY_LAUNCHES) == (
             before[0] + 2, before[1] + 2), "the global calls did not launch the global forms"
-        p32 = torch_segment_pixels(years, v32, mask, params)
+        p32, plain_ms = checked_and_timed(lambda: torch_segment_pixels(years, v32, mask, params))
         every = torch.ones(GLOBAL_PX, dtype=torch.bool, device=dev)
         same32 = bit_identical(k32, p32, every)
-        pf32 = torch_family_stats(years, v32, mask, params)
+        pf32, fplain = checked_and_timed(lambda: torch_family_stats(years, v32, mask, params))
         fsame32 = all(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
                       for a, b in zip(f32, pf32))
         p64 = torch_segment_pixels(years, v64, mask, params)
@@ -542,15 +567,33 @@ def global_kernels(dev: torch.device) -> dict:
         assert err64 <= F64_ATOL and ferr64 <= F64_ATOL, (err64, ferr64)
         job = segment_cuda._Launch(years, v32, mask, params)
         ms = cuda_ms(lambda: job.run(0, GLOBAL_PX), reps=5)
+        occ = segment_cuda.occupancy("fused", torch.float32, ny, cap="global",
+                                     nc=params.max_candidates)
+        plan64 = segment_cuda.global_plan(ny, params, torch.float64)
+        log(f"[global] {name} plan: f32 {job.plan.tier} tier, block {job.plan.block}, "
+            f"{job.plan.smem} B shared, {occ['warps_per_sm']} warps/SM; f64 {plan64.tier} "
+            f"tier, block {plan64.block}, {plan64.smem} B shared")
+        share, per_px = probe.stage_shares(
+            segment_cuda.cuda_segment_stage_cycles(years, v32, mask, params))
+        log(f"[global] {name} stage shares of the f32 kernel's per-thread cycles (the narrow "
+            f"kernel's at NY={NY}, phase 2, beside): " + ", ".join(
+                f"{k} {100 * v:.1f}% ({100 * narrow_share[k]:.1f}%)" for k, v in share.items())
+            + f"; {sum(per_px.values()):.0f} cycles per pixel's thread")
+        sweep = {b: cuda_ms(lambda b=b: job.run(0, GLOBAL_PX, block=b), reps=3)
+                 for b in segment_cuda.GLOBAL_SWEEP}
+        warps = {b: segment_cuda.occupancy("fused", torch.float32, ny, b, "global",
+                                           params.max_candidates)["warps_per_sm"]
+                 for b in sweep}
+        log(f"[global] {name} block-size sweep (f32 fused, ms; warps/SM): " + ", ".join(
+            f"block {b} {t:.4f} ({warps[b]})" for b, t in sweep.items()))
         job64 = segment_cuda._Launch(years, v64, mask, params)
         ms64 = cuda_ms(lambda: job64.run(0, GLOBAL_PX), reps=3)
-        plain_ms = cuda_ms(lambda: torch_segment_pixels(years, v32, mask, params), reps=1)
         n_ops = int(segment_cuda.cuda_segment_op_counts(years, v32, mask, params).sum())
         fjob = segment_cuda._FamilyLaunch(years, v32, mask, params)
         fms = cuda_ms(fjob.run, reps=5)
-        fplain = cuda_ms(lambda: torch_family_stats(years, v32, mask, params), reps=1)
         f_ops = int(segment_cuda.cuda_family_op_counts(years, v32, mask, params).sum())
-        scratch = segment_cuda.global_scratch_bytes(ny, params, torch.float32, GLOBAL_PX)
+        # the shared tier allocates no scratch
+        scratch = 0 if job.scratch is None else job.scratch.tensor.numel()
         fused_b, family_b = bytes_bound(GLOBAL_PX, ny, params.max_vertices, params.max_segments)
         # the bound is the function's own traffic; the scratch is the
         # kernel's choice, so its traffic only stands beside it
@@ -568,7 +611,9 @@ def global_kernels(dev: torch.device) -> dict:
             f"{100 * fbound / fms:.2f}%; bound with 2 x scratch {fwith_scratch:.4f} ms")
         out[f"fused_{name}"] = {"ms": ms, "ms_f64": ms64, "plain_ms": plain_ms,
                                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
-                                "scratch_bytes": scratch, "bound_ms_with_scratch": with_scratch}
+                                "scratch_bytes": scratch, "bound_ms_with_scratch": with_scratch,
+                                "stage_share": share, "cycles_per_px": per_px,
+                                "block_sweep_ms": sweep}
         out[f"family_{name}"] = {"ms": fms, "plain_ms": fplain, "bound_ms": fbound,
                                  "bound_by": fby, "max_abs_err": 0.0, "scratch_bytes": scratch,
                                  "bound_ms_with_scratch": fwith_scratch}
@@ -594,15 +639,114 @@ def global_kernels(dev: torch.device) -> dict:
         log(f"[global] forced at NY={NY}, default params, {dt.__name__}: both kernels equal "
             f"the narrow ones bit for bit: {same}")
         assert same, f"the global form forced at NY={NY} differs from the narrow kernel ({dt})"
+    out["scratch_tier"] = scratch_tier(dev)
     vals = torch.from_numpy(vals_np.astype(np.float32)).to(dev)
     job = segment_cuda._Launch(years, vals, mask, params, cap="global")
     out["forced_ms"] = cuda_ms(lambda: job.run(0, GLOBAL_PX), reps=10)
     njob = segment_cuda._Launch(years, vals, mask, params)
     out["forced_narrow_ms"] = cuda_ms(lambda: njob.run(0, GLOBAL_PX), reps=10)
-    log(f"[global] forced at NY={NY}: global {out['forced_ms']:.4f} ms, narrow "
-        f"{out['forced_narrow_ms']:.4f} ms ({GLOBAL_PX} px f32, "
-        f"{out['forced_ms'] / out['forced_narrow_ms']:.2f}x)")
+    out["forced_sweep_ms"] = {b: cuda_ms(lambda b=b: job.run(0, GLOBAL_PX, block=b), reps=5)
+                              for b in segment_cuda.GLOBAL_SWEEP}
+    log(f"[global] forced at NY={NY}: global {out['forced_ms']:.4f} ms (block {job.block}), "
+        f"narrow {out['forced_narrow_ms']:.4f} ms ({GLOBAL_PX} px f32, "
+        f"{out['forced_ms'] / out['forced_narrow_ms']:.2f}x); block-size sweep: " + ", ".join(
+            f"block {b} {t:.4f}" for b, t in out["forced_sweep_ms"].items()))
+    # registers and local bytes of each production instantiation, and the
+    # spills ptxas reported for every entry
+    out["attributes"] = segment_cuda.kernel_attributes()
+    log("[global] registers / local bytes (cudaFuncGetAttributes): " + ", ".join(
+        f"{a['kernel']} {a['cap']} {a['dtype']} {a['registers']} / {a['local_bytes']}"
+        for a in out["attributes"]))
+    out["ptxas"] = probe.ptxas_rows(segment_cuda.build_info()["ptxas"])
+    log("[global] ptxas (registers, stack, spill stores / loads): " + ", ".join(
+        f"{r['kernel']} {r['form']} {r['dtype']} {r['policy']} b{r['block']} "
+        f"{r['registers']}, {r.get('stack_bytes')}, {r.get('spill_stores')}/{r.get('spill_loads')}"
+        for r in out["ptxas"]))
     return out
+
+
+def scratch_tier(dev: torch.device) -> dict:
+    """Phase 2d's scratch tier: NY = SCRATCH_NY, whose series no block of
+    the global form's shared tier holds, SCRATCH_PX px against the plain
+    version: f32 bit-identical on every pixel, f64 decisions exact with
+    floats within F64_ATOL; both kernels, with their times."""
+    from land_trendr_tpu_torch.config import LTParams
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.ops.segment import torch_family_stats, torch_segment_pixels
+
+    params = LTParams()
+    years_np, vals_np, mask_np = population(np.random.default_rng(20261020), SCRATCH_PX,
+                                            SCRATCH_NY)
+    years = torch.from_numpy(years_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    every = torch.ones(SCRATCH_PX, dtype=torch.bool, device=dev)
+    out = {}
+    for dt in (np.float32, np.float64):
+        vals = torch.from_numpy(vals_np.astype(dt)).to(dev)
+        job = segment_cuda._Launch(years, vals, mask, params)
+        fjob = segment_cuda._FamilyLaunch(years, vals, mask, params)
+        assert job.plan.tier == fjob.plan.tier == "scratch", job.plan
+        before = (segment_cuda.GLOBAL_LAUNCHES, segment_cuda.GLOBAL_FAMILY_LAUNCHES)
+        job.run(0, SCRATCH_PX)
+        fjob.run()
+        torch.cuda.synchronize()
+        assert (segment_cuda.GLOBAL_LAUNCHES, segment_cuda.GLOBAL_FAMILY_LAUNCHES) == (
+            before[0] + 1, before[1] + 1), "the scratch tier did not launch once a kernel"
+        got, ref = job.result(), torch_segment_pixels(years, vals, mask, params)
+        fam, pfam = fjob.result(), torch_family_stats(years, vals, mask, params)
+        if dt == np.float32:
+            same = bit_identical(got, ref, every) and all(
+                torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+                for a, b in zip(fam, pfam))
+            assert same, "the scratch tier (f32) differs from its plain version"
+            err = 0.0
+        else:
+            n_bad = int((~decisions(got, ref)).sum()) + int(
+                (~(fam[1] == pfam[1]).all(dim=(1, 2))).sum())
+            err = max(max_float_err(got, ref, every), max_pair_err(
+                (("despiked", fam[0], pfam[0]), ("sses", fam[2], pfam[2])), every))
+            assert n_bad == 0 and err <= F64_ATOL, (n_bad, err)
+        key = dt.__name__
+        out[key] = {"ms": cuda_ms(lambda: job.run(0, SCRATCH_PX), reps=3),
+                    "family_ms": cuda_ms(fjob.run, reps=3), "max_abs_err": err,
+                    "scratch_bytes": job.scratch.tensor.numel(),
+                    "fit_rate": float(got.model_valid.float().mean())}
+        agreed = ("bit-identical on every pixel" if err == 0.0
+                  else f"decisions exact, max |diff| {err:.3e}")
+        log(f"[global] scratch tier NY={SCRATCH_NY}, {SCRATCH_PX} px {key}: {agreed} (fused "
+            f"and family); fused {out[key]['ms']:.4f} ms, family "
+            f"{out[key]['family_ms']:.4f} ms, scratch {out[key]['scratch_bytes']} B, fit rate "
+            f"{out[key]['fit_rate']:.4f}")
+    return out
+
+
+def phase_2d_alone() -> int:
+    """``chip_smoke.py --phase-2d``: the build and phase 2d alone, with the
+    narrow kernel's stage shares at NY = 40 on phase 2's population beside
+    them; prints the card's line and the phase's JSON last."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.tools import probe
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = nvidia_smi_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
+    info = segment_cuda.build_info(force=True)
+    log(f"[build] segment_fused.cu built in {info['build_s']:.2f}s")
+    years_np, vals_np, mask_np = population(np.random.default_rng(20261016), POP_PX)
+    cyc = segment_cuda.cuda_segment_stage_cycles(
+        torch.from_numpy(years_np).to(dev),
+        torch.from_numpy(vals_np.astype(np.float32)).to(dev), torch.from_numpy(mask_np).to(dev))
+    share, _ = probe.stage_shares(cyc)
+    glob = global_kernels(dev, share)
+    print(smi)
+    print(json.dumps({"narrow_stage_share": share, **glob}))
+    return 0
 
 
 def wide_kernels(dev: torch.device, narrow_ms: float) -> dict:
@@ -1224,20 +1368,14 @@ def sum_launches(*counts: dict) -> dict:
     return total
 
 
-def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
-    """Phase 12: the port's tools on the card (see the module docstring), in
-    the directory ``tmp``, after phase 11 (whose router workdir is ``rt``);
-    returns the launch counts of this process and of the tools' runs."""
+def _tools_in_process(dev: torch.device, smi: str, legs: dict) -> dict:
+    """Phase 12 (a) and (b), in this process: the float32 kernel against its
+    float64 instantiation, then the kernel against the plain version in each
+    form; their seconds into ``legs``; returns this process's launch counts."""
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.runtime import faults
     from land_trendr_tpu_torch.tools import impl_identity, parity_f32
-
-    t12 = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    legs: dict = {}
-    for k in segment_cuda.launch_counts():
-        setattr(segment_cuda, k, 0)
 
     # (a) float32 parity against float64, both on the card, 1,048,576 px
     t0 = time.perf_counter()
@@ -1275,11 +1413,35 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
     own = segment_cuda.launch_counts()
     assert own["LAUNCHES"] > 0 and own["WIDE_LAUNCHES"] > 0 and own["GLOBAL_LAUNCHES"] > 0, own
     assert faults.active() is None
+    return own
 
-    # (c) the fault soak: every registered seam fired on the card, all byte-equal
-    t0 = time.perf_counter()
-    soak = tool(env, tmp, "fault_soak", "--smoke", timeout=900)
-    legs["c"] = time.perf_counter() - t0
+
+def tools_phase(smi: str, env: dict, tmp: str, rt: str, scale_run: dict, ftv_tmp: str) -> dict:
+    """Phase 12: the port's tools on the card (see the module docstring), in
+    the directory ``tmp``, after phase 11 (whose router workdir is ``rt``),
+    with phase 14 (b) and (c) (``scale_run``, over phase 4b's ``ftv_tmp``)
+    beside (a)-(c); returns the launch counts of this process and of the
+    tools' runs, and the seconds of phase 14 (b) and (c)."""
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.runtime import faults
+
+    t12 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    legs: dict = {}
+    for k in segment_cuda.launch_counts():
+        setattr(segment_cuda, k, 0)
+
+    # (c) the fault soak, started first: it checks bytes and seams only, so
+    # (a) and (b), checks in this process, run beside it
+    t_c = time.perf_counter()
+    started_c = start_tool(env, tmp, "fault_soak", "--smoke")
+    try:
+        own = _tools_in_process(dev, smi, legs)
+        soak = finish_tool(started_c, 900)
+    finally:
+        if started_c[0].poll() is None:  # no process outlives the smoke
+            kill_tool(started_c[0])
+    legs["c"] = time.perf_counter() - t_c
     assert soak["ok"] and soak["device"] == "cuda", soak.get("cases")
     assert len(soak["seams_fired"]) == len(faults.SEAMS) == 27, soak["seams_fired"]
     assert set(soak["seams_fired"]) == set(faults.SEAMS) == set(soak["seams_armed"])
@@ -1288,7 +1450,9 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
     log(f"[tools] (c) fault_soak --smoke: {len(soak['cases'])} cases byte-equal, "
         f"{len(soak['seams_fired'])}/27 seams fired on the card (eager {soak['eager_scene']['width']}"
         f"^2 x 40 at tile {soak['eager_scene']['tile']}); tracks "
-        f"{json.dumps(soak['track_seconds'])} s; {legs['c']:.1f} s")
+        f"{json.dumps(soak['track_seconds'])} s; {legs['c']:.1f} s (beside a and b)")
+    # phase 14 (b) and (c) end before the timed legs (d) and (e) start
+    scale_host = finish_scale_host_legs(scale_run, ftv_tmp)
 
     # (d) the elastic soak: churn (SIGKILL + late join) and the slow host
     t0 = time.perf_counter()
@@ -1343,7 +1507,8 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str) -> dict:
         *(c for leg in soak["replica_launches"].values() for c in leg.values()),
         {"LAUNCHES": sum(el["churn"]["survivor_launches"])},
         cap["launches"], fleet["launches"])
-    out = {"own": own, "tools": tool_launches, "seconds": time.perf_counter() - t12}
+    out = {"own": own, "tools": tool_launches, "seconds": time.perf_counter() - t12,
+           "scale_host": scale_host}
     log(f"[tools] launches in this process (a, b): {json.dumps(own)}; in the tools' processes "
         f"(c-e; replicas read over GET /debug/kernels, elastic survivors from their summaries): "
         f"{json.dumps(tool_launches)}")
@@ -1426,47 +1591,65 @@ def gate_phase(smi: str, env: dict, tmp: str, stack, ftv_out: str) -> dict:
     return out13
 
 
-def scale_phase(smi: str, env: dict, tmp: str, ftv_tmp: str, stack) -> dict:
-    """Phase 14, after phase 13 in its directory ``tmp``: the scale tools at
-    smoke size (see the module docstring), each as its own process, so each
-    peak RSS is that process's; ``ftv_tmp`` holds phase 4b's workdir and
-    rasters over ``stack``.  Returns the launch counts the tools report and
-    the phase's seconds."""
-    t14 = time.perf_counter()
-    legs: dict = {}
-    # (b) and (c) first, side by side: only (b) uses the card, so no two
-    # timed runs share it; then (a) alone
+def start_scale_host_legs(env: dict, tmp: str, ftv_tmp: str, stack) -> dict:
+    """Start phase 14 (b) and (c) side by side in the directory ``tmp``
+    (``ftv_tmp`` holds phase 4b's workdir and rasters over ``stack``): they
+    run beside phase 12 (a)-(c), which check bytes and seams only, and
+    :func:`finish_scale_host_legs` reads them before phase 12 (d)."""
     h, w = stack.shape
-    started_b = start_tool(env, tmp, "change_stream_bench", f"--size={GIGA_SIZE}", "--mmu=9",
-                           "--work-root", tmp)
-    started_c = start_tool(
-        env, tmp, "stream_assembly_bench", "scene", os.path.join(ftv_tmp, "work"),
-        "--years", f"{int(stack.years[0])}:{int(stack.years[-1])}", "--shape", f"{h},{w}",
-        "--tile-size", str(TILE), "--ftv", ",".join(FTV), "--change-max-dur", "4",
-        "--out-dir", os.path.join(tmp, "sa_out"))
+    return {"t0": time.perf_counter(), "shape": (h, w), "started": {
+        "b": start_tool(env, tmp, "change_stream_bench", f"--size={GIGA_SIZE}", "--mmu=9",
+                        "--work-root", tmp),
+        "c": start_tool(
+            env, tmp, "stream_assembly_bench", "scene", os.path.join(ftv_tmp, "work"),
+            "--years", f"{int(stack.years[0])}:{int(stack.years[-1])}", "--shape", f"{h},{w}",
+            "--tile-size", str(TILE), "--ftv", ",".join(FTV), "--change-max-dur", "4",
+            "--out-dir", os.path.join(tmp, "sa_out"))}}
+
+
+def stop_scale_host_legs(run: dict) -> None:
+    """Kill whatever :func:`start_scale_host_legs` started that still runs."""
+    for proc, _ in run["started"].values():
+        if proc.poll() is None:
+            kill_tool(proc)
+
+
+def finish_scale_host_legs(run: dict, ftv_tmp: str) -> dict:
+    """Phase 14 (b) the streamed change maps with the mmu sieve and (c)
+    phase 4b's workdir re-assembled by the streaming writers, as
+    :func:`start_scale_host_legs` started them; returns the seconds from
+    their start to each one's end."""
+    legs: dict = {}
+    h, w = run["shape"]
     try:
-        # (b) the streamed change maps with the mmu sieve
-        cs = finish_tool(started_b, 900)[f"change_{GIGA_SIZE}x{GIGA_SIZE}_mmu9"]
-        legs["b"] = time.perf_counter() - t14
-        # (c) phase 4b's workdir re-assembled by the streaming writers
-        sa = finish_tool(started_c, 900)[f"scene_{h}x{w}"]
-        legs["c"] = time.perf_counter() - t14
+        cs = finish_tool(run["started"]["b"], 900)[f"change_{GIGA_SIZE}x{GIGA_SIZE}_mmu9"]
+        legs["b"] = time.perf_counter() - run["t0"]
+        sa = finish_tool(run["started"]["c"], 900)[f"scene_{h}x{w}"]
+        legs["c"] = time.perf_counter() - run["t0"]
     finally:
-        for proc, _ in (started_b, started_c):  # no process outlives the smoke
-            if proc.poll() is None:
-                kill_tool(proc)
+        stop_scale_host_legs(run)  # no process outlives the smoke
     assert cs["changed_frac_first_rows"] > 0, cs
     log(f"[scale] (b) change_stream_bench {GIGA_SIZE}^2, mmu 9: change maps "
         f"{cs['change_wall_s']:.2f} s, peak RSS {cs['peak_rss_mb']} MiB (after fabricating "
         f"{cs['rss_after_fabricate_mb']}), fabricate {cs['fabricate_s']:.1f} s; done "
-        f"{legs['b']:.1f} s into the phase")
+        f"{legs['b']:.1f} s after its start (beside phase 12 a-c)")
     assert sa["out_sha256"] == raster_digests(os.path.join(ftv_tmp, "out")), (
         "the re-assembled rasters differ from phase 4b's")
     log(f"[scale] (c) stream_assembly_bench scene over phase 4b ({h}x{w}, {sa['products']} "
         f"rasters byte-equal to phase 4b's; beside (b), on the host): {sa['wall_s']:.2f} s, "
         f"peak RSS {sa['peak_rss_mb']} MiB ({sa['out_bytes_total']} B out); done "
-        f"{legs['c']:.1f} s into the phase")
+        f"{legs['c']:.1f} s after its start")
+    return legs
 
+
+def scale_phase(smi: str, env: dict, tmp: str, host_legs: dict) -> dict:
+    """Phase 14, after phase 13 in its directory ``tmp``: (a) and (d) of the
+    scale tools at smoke size (see the module docstring), each as its own
+    process, so each peak RSS is that process's; (b) and (c) ran beside
+    phase 12 (``host_legs``: their seconds).  Returns the launch counts the
+    tools report and the phase's seconds."""
+    t14 = time.perf_counter()
+    legs: dict = {}
     # (a) the composed run, SIGKILLed after its first durable tile and resumed
     t0 = time.perf_counter()
     giga = tool(env, tmp, "giga_run", "all", "--size", str(GIGA_SIZE), "--kill-tiles", "1",
@@ -1505,8 +1688,8 @@ def scale_phase(smi: str, env: dict, tmp: str, ftv_tmp: str, stack) -> dict:
                                     {"LAUNCHES": giga["reference"]["launches"]},
                                     {"LAUNCHES": card["launches"]}),
            "seconds": time.perf_counter() - t14}
-    log(f"[phase 14] took {out['seconds']:.1f}s (b and c side by side done at {legs['b']:.1f} / "
-        f"{legs['c']:.1f}, a {legs['a']:.1f}, d {legs['d']:.1f}); launches "
+    log(f"[phase 14] took {out['seconds']:.1f}s (a {legs['a']:.1f}, d {legs['d']:.1f}; b and c, "
+        f"beside phase 12, {host_legs['b']:.1f} / {host_legs['c']:.1f}); launches "
         f"{json.dumps(out['launches'])} ({smi})")
     return out
 
@@ -1755,7 +1938,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     wide = wide_kernels(dev, kernel_ms)
 
     # ---- phase 2d: the global forms against their plain versions ---------
-    glob = global_kernels(dev)
+    glob = global_kernels(dev, report["stage_share"])
 
     # ---- phase 4: scene through run_stack + assemble_outputs ------------
     t0 = time.perf_counter()
@@ -1847,6 +2030,10 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
 
     # ---- phase 5: the CLI ----------------------------------------------
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # the CLI's synthetic stack, which phase 8's CLI reads too (no command
+    # writes into it: each writes its workdir and rasters under its cwd)
+    cli_stack = os.path.join(cleanup.enter_context(
+        tempfile.TemporaryDirectory(prefix="lt_smoke_clistack_", dir=ROOT)), "D")
     with tempfile.TemporaryDirectory(prefix="lt_smoke_cli_", dir=ROOT) as tmp:
         def cli(*argv: str) -> str:
             out = subprocess.run(
@@ -1857,25 +2044,35 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
                 raise RuntimeError(f"CLI {argv} exited {out.returncode}:\n{out.stderr[-3000:]}")
             return out.stdout
 
-        cli("synth", "D", "--size", "256")
-        # the first segment through run_segment_measured: the CLI's own
-        # output on stdout, this process's peak RSS on stderr
-        measured = subprocess.run(
-            [sys.executable, "-m", "land_trendr_tpu_torch.tools.run_segment_measured",
-             "segment", "D"], cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        assert measured.returncode == 0, measured.stderr[-3000:]
-        first = json.loads(measured.stdout)["summary"]
-        first_rss = json.loads(measured.stderr.strip().splitlines()[-1])["peak_rss_mib"]
-        again = json.loads(cli("segment", "D"))["summary"]
+        def ftv_and_change() -> "tuple[dict, list]":
+            tail = json.loads(cli("segment", cli_stack, "--ftv", "ndvi", "--change",
+                                  "--change-mmu", "4", "--workdir", "w_tail", "--out-dir",
+                                  "o_tail"))
+            return tail, json.loads(cli("change", "o_tail", "--mmu", "4", "--dest",
+                                        "c_tail"))["outputs"]
+
+        cli("synth", cli_stack, "--size", "256")
+        # the FTV and change commands (their own workdir and rasters) run
+        # beside the first segment and its resume: checks, none of them timed
+        with ThreadPoolExecutor(1) as pool:
+            tail_fut = pool.submit(ftv_and_change)
+            # the first segment through run_segment_measured: the CLI's own
+            # output on stdout, this process's peak RSS on stderr
+            measured = subprocess.run(
+                [sys.executable, "-m", "land_trendr_tpu_torch.tools.run_segment_measured",
+                 "segment", cli_stack], cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            assert measured.returncode == 0, measured.stderr[-3000:]
+            first = json.loads(measured.stdout)["summary"]
+            first_rss = json.loads(measured.stderr.strip().splitlines()[-1])["peak_rss_mib"]
+            again = json.loads(cli("segment", cli_stack))["summary"]
+            tail, maps = tail_fut.result()
         log(f"[cli] segment (run_segment_measured): tiles {first['tiles']} impl {first['impl']} "
             f"device {first['device']} fit_rate {first['fit_rate']:.4f}, peak RSS {first_rss} "
             f"MiB; resume skipped {again['tiles_skipped_resume']} of {again['tiles']}")
         assert first["impl"] == "cuda" and first["device"].startswith("cuda"), first
         assert first["tiles_done"] == first["tiles"], first
         assert again["tiles_skipped_resume"] == again["tiles"] and again["tiles_done"] == 0, again
-        tail = json.loads(cli("segment", "D", "--ftv", "ndvi", "--change", "--change-mmu", "4",
-                              "--workdir", "w_tail", "--out-dir", "o_tail"))
-        maps = json.loads(cli("change", "o_tail", "--mmu", "4", "--dest", "c_tail"))["outputs"]
         log(f"[cli] segment --ftv ndvi --change --change-mmu 4: impl {tail['summary']['impl']}, "
             f"{len(tail['outputs'])} rasters; change --mmu 4: {len(maps)} rasters")
         assert tail["summary"]["impl"] == "cuda", tail["summary"]
@@ -1960,7 +2157,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         log(f"[robust] quarantine: tiles_quarantined {s_q['tiles_quarantined']}, "
             f"launches {segment_cuda.LAUNCHES}, pixels {s_q['pixels']}")
 
-        # (c) the device spins ~10 s before one tile's event: StallError
+        # (c) the device spins ~6 s before one tile's event: StallError
         real_dispatch = driver.process_tile_dn
         n_calls = [0]
 
@@ -2110,8 +2307,17 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
                 raise RuntimeError(f"CLI {argv} exited {out.returncode}:\n{out.stderr[-3000:]}")
             return out.stdout
 
-        cli8("synth", "D", "--size", "256")
-        traced = json.loads(cli8("segment", "D", "--trace", "T", "--out-overviews", "2"))
+        # the two `pixel` calls read the stack only: they run beside the
+        # traced segment and `info` (checks, none of them timed)
+        pixels = ((10, 20), (24, 0))  # (10, 20) fits no model; (24, 0) is disturbed
+        with ThreadPoolExecutor(len(pixels)) as pool:
+            pix_futs = [pool.submit(cli8, "pixel", "--from-stack", cli_stack, "--x", str(x),
+                                    "--y", str(y), "--engine", "both") for x, y in pixels]
+            traced = json.loads(cli8("segment", cli_stack, "--trace", "T", "--out-overviews",
+                                     "2"))
+            path = traced["outputs"]["rmse"]
+            info = json.loads(cli8("info", path))[path]
+            pix_out = [json.loads(f.result()) for f in pix_futs]
         names = set()
         for fn in os.listdir(os.path.join(tmp, "T")):
             with open(os.path.join(tmp, "T", fn)) as f:
@@ -2121,10 +2327,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         log(f"[cli] segment --trace --out-overviews 2: impl {traced['summary']['impl']}, trace "
             f"names {kernels[0][:90]}; lt_ ranges in the trace: "
             f"{sorted(n for n in names if n.startswith('lt_'))}")
-        # (10, 20) fits no model on this stack; (24, 0) is a disturbed pixel
-        for x, y in ((10, 20), (24, 0)):
-            pix = json.loads(cli8("pixel", "--from-stack", "D", "--x", str(x), "--y", str(y),
-                                  "--engine", "both"))
+        for (x, y), pix in zip(pixels, pix_out):
             assert pix["parity"]["vertex_years_equal"], pix["parity"]
             assert pix["parity"]["model_valid_equal"] and pix["torch"]["device"].startswith("cuda")
             log(f"[cli] pixel ({x}, {y}) --engine both: model_valid "
@@ -2132,8 +2335,6 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
                 f"{pix['oracle']['vertex_years']} kernel {pix['torch']['vertex_years']} "
                 f"({pix['torch']['dtype']} on {pix['torch']['device']})")
         assert pix["oracle"]["model_valid"], "the disturbed pixel fit no model"
-        path = traced["outputs"]["rmse"]
-        info = json.loads(cli8("info", path))[path]
         assert info["overview_pages"] == 2, info
         log(f"[cli] info {path}: {info['height']}x{info['width']} {info['dtype']} "
             f"{info['compression']}, {info['overview_pages']} overview pages, "
@@ -2349,13 +2550,16 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     # ---- phase 12: the port's tools on the card -------------------------
     tools_tmp = os.path.join(serve_root, "tools")
     os.makedirs(tools_tmp)
-    tooled = tools_phase(smi, env, tools_tmp, routed["rt"])
+    scale_tmp = os.path.join(serve_root, "scale")
+    os.makedirs(scale_tmp)
+    # phase 14 (b) and (c) run beside phase 12 (a)-(c)
+    scale_run = start_scale_host_legs(env, scale_tmp, ftv_tmp, stack)
+    cleanup.callback(stop_scale_host_legs, scale_run)
+    tooled = tools_phase(smi, env, tools_tmp, routed["rt"], scale_run, ftv_tmp)
     # ---- phase 13: the oracle, the FTV rasters and the perf gate ---------
     gated = gate_phase(smi, env, tools_tmp, stack, os.path.join(ftv_tmp, "out"))
     # ---- phase 14: the scale tools at smoke size ------------------------
-    scale_tmp = os.path.join(serve_root, "scale")
-    os.makedirs(scale_tmp)
-    scaled = scale_phase(smi, env, scale_tmp, ftv_tmp, stack)
+    scaled = scale_phase(smi, env, scale_tmp, tooled["scale_host"])
     del stack
     serve_launches = served["cold_launches"] + served["warm_launches"] + served["flood_launches"]
     # phases 12 and 13: their own process (parity, identity, paramspace)
@@ -2454,12 +2658,17 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "bound_by": g160["bound_by"],
         "library_ms": None,
         "shape": f"{GLOBAL_PX:,} px x 160 years f32",
+        "ms_f64": g160["ms_f64"],
         "scratch_bytes": g160["scratch_bytes"],
         "bound_ms_with_scratch": g160["bound_ms_with_scratch"],
         "ms_40_candidates": g40["ms"],
+        "ms_40_candidates_f64": g40["ms_f64"],
         "plain_ms_40_candidates": g40["plain_ms"],
         "bound_ms_40_candidates": g40["bound_ms"],
         "ms_forced_at_40_years": glob["forced_ms"],
+        "forced_ratio_to_narrow": glob["forced_ms"] / glob["forced_narrow_ms"],
+        "ms_scratch_tier": glob["scratch_tier"]["float32"]["ms"],
+        "scratch_tier_shape": f"{SCRATCH_PX:,} px x {SCRATCH_NY} years f32",
     }
     gf = glob["family_ny160"]
     family_global = {
@@ -2479,6 +2688,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "scratch_bytes": gf["scratch_bytes"],
         "bound_ms_with_scratch": gf["bound_ms_with_scratch"],
         "ms_40_candidates": glob["family_nc40"]["ms"],
+        "ms_scratch_tier": glob["scratch_tier"]["float32"]["family_ms"],
     }
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [kernel, kernel_wide, kernel_global, family, family_wide,
@@ -2497,4 +2707,6 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-worker"]:
         sys.exit(pod_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase-2d"]:
+        sys.exit(phase_2d_alone())
     sys.exit(main())

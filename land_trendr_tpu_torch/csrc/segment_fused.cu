@@ -23,12 +23,21 @@
 // holds up to 128 years in two words and 32 candidates in its per-thread
 // arrays, at half the block (128 threads in float32, 64 in float64) so
 // that NY = 128 still fits a block's shared memory; the global one
-// (`Global`) has no cap: NY and the candidate count are runtime values,
-// and the series, the sets and the per-thread arrays live in a scratch
-// in device memory, laid out [position][pixel] (`Plane`).  The wrapper
-// picks the form from NY and the candidate count.  The arithmetic and its
-// order are the same in all three (`Store` gives each its storage), so
-// each is bit-identical to the plain version.
+// (`Global`) has no cap: NY, the candidate count and the block are
+// runtime values.  It is the same design at a runtime width: the slab
+// load, the [position][thread] columns at a 32-bit runtime stride (the
+// block), the staged output, and the valid-year set as ceil(NY / 64)
+// shared-memory columns of words.  Its shared tier runs the block of 128,
+// 64 or 32 threads that fits the most warps on an SM (`global_block`:
+// NY = 160 at 32 in float32, 64 in float64; NY = 40 at 128) and keeps
+// its per-thread arrays in locals of LOCAL_NC = 64 candidates, its model
+// family as member 0's vertices and the cull's removals (`FamLog`) instead
+// of NM vertex sets.  Its scratch tier — a NY that no block of 32 holds
+// (from 880 years in float32, 444 in float64) or more than 64 candidates —
+// keeps the same layout, and the arrays, in a region of device memory per
+// block, so only device memory bounds it.  The wrapper picks the form and
+// the tier.  The arithmetic and its order are the same everywhere (`Store`
+// gives each its storage), so each is bit-identical to the plain version.
 //
 // * Pixel-major I/O through shared memory.  A block's pixels are
 //   contiguous rows of the caller's (PX, NY) values and bool mask, so one
@@ -115,6 +124,7 @@ namespace {
 template <int WORDS_, int NC_>
 struct Cap {
   static constexpr bool GLOBAL = false;
+  static constexpr bool SCRATCH = false;
   static constexpr int WORDS = WORDS_;
   static constexpr int NY = 64 * WORDS_;
   static constexpr int NC = NC_;
@@ -122,30 +132,52 @@ struct Cap {
 };
 using Narrow = Cap<1, 16>;  // every stack of up to 64 years, 16 candidates
 using Wide = Cap<2, 32>;    // up to 128 years, 32 candidates
-// The global form: NY and the candidate count are runtime values.  The
-// series columns, the sets and the per-thread arrays live in a global
-// scratch the launch allocates (`Plane`), so only device memory bounds
-// them; no shared memory is used.  WORDS and NC are placeholders.
+// Per-candidate capacity of the global form's per-thread arrays in its
+// shared tier (fixed-size locals, as the fixed forms keep theirs).
+constexpr int LOCAL_NC = 64;
+// The global form: NY and the candidate count are runtime values, and so
+// is the block (`nthreads`).  Its shared tier (SCRATCH = false) keeps the
+// series and the valid-year set in dynamic shared memory, laid out as the
+// fixed forms' are, and its per-thread arrays in locals of LOCAL_NC; its
+// scratch tier (SCRATCH = true), for a NY whose series not even a block
+// of 32 holds in shared memory or more than LOCAL_NC candidates, keeps the
+// same layout, and the arrays, in a per-block region of device memory the
+// launch allocates.  WORDS is a placeholder.
+template <bool SCRATCH_>
 struct Global {
   static constexpr bool GLOBAL = true;
+  static constexpr bool SCRATCH = SCRATCH_;
   static constexpr int WORDS = 1;
   static constexpr int NY = 0x7fffffff;
-  static constexpr int NC = 1;
+  static constexpr int NC = SCRATCH_ ? 0x7fffffff : LOCAL_NC;
 };
+using GShared = Global<false>;
+using GScratch = Global<true>;
 
 // Threads per block.  CUDA_BLOCK is the chunk granule (every block size
 // divides or is a multiple of it).  The narrow float32 kernel, the timed
 // path, runs blocks of 256 (the fastest block of the sweep that holds
 // NY = 64), float64 keeps 128 so that NY = 64 fits in a block's shared
 // memory; the wide kernel halves both so that NY = 128 fits.  The global
-// form holds nothing in shared memory and runs CUDA_BLOCK in both.
+// form's kernels are built for any block up to GLOBAL_MAX_BLOCK (B = 0:
+// the block is blockDim.x); the launch picks it from NY, the value size
+// and the candidates (`global_block`), and the scratch tier runs
+// CUDA_BLOCK.
 constexpr int CUDA_BLOCK = 128;
+constexpr int GLOBAL_MAX_BLOCK = 128;
 template <typename T, class C = Narrow>
 constexpr int block_of() {
-  if constexpr (C::GLOBAL) return CUDA_BLOCK;
+  if constexpr (C::GLOBAL) return 0;
   return (std::is_same<T, float>::value ? 2 * CUDA_BLOCK : CUDA_BLOCK) / C::WORDS;
 }
 constexpr long long SMEM_LIMIT = 232448;  // shared bytes one block may use on sm_90
+
+// Threads of the block: B, or blockDim.x for the global form (B = 0).
+template <int B>
+__device__ __forceinline__ int nthreads() {
+  if constexpr (B > 0) return B;
+  else return (int)blockDim.x;
+}
 
 constexpr double CF_EPS = 1e-15;
 constexpr int CF_MAXIT = 300;
@@ -263,6 +295,40 @@ __host__ __device__ constexpr long long smem_bytes(int ny, int elem, int block, 
   return 16 + ((long long)ny * elem + 15) / 16 * 16 +
          (long long)block * (ny + stage_width(ny, nc)) * elem;
 }
+// The global form's block adds the valid-year set as W = ceil(NY / 64)
+// columns of 64-bit words, between the year axis and the y columns (the
+// fixed forms hold it in registers):
+//   [mbarrier][year axis][valid words, W * B * 8][y columns][t columns]
+// with the t columns' width max(NY, NC) | 1 for the launch's NC.
+__host__ __device__ constexpr int words_of(int ny) { return (ny + 63) / 64; }
+__host__ __device__ constexpr long long global_smem_bytes(int ny, int nc, int elem, int block) {
+  return smem_bytes(ny, elem, block, nc) + (long long)words_of(ny) * block * 8;
+}
+// The shared tier's block size: of the blocks of 128, 64 and 32 threads
+// that fit in shared memory, the one an SM holds the most warps of (its
+// 233,472 shared bytes, 1,024 of them kept by the system per resident
+// block, at most 32 blocks and 64 warps), ties to the larger block — at
+// NY = 160 in float32 that is 32 (5 warps against 4), at NY = 40 128; 0
+// (the scratch tier) when none fits or the candidates exceed the local
+// arrays.
+constexpr long long SM_SMEM = 233472;
+constexpr int global_block(int ny, int elem, int nc) {
+  if (nc > LOCAL_NC) return 0;
+  int best = 0, best_warps = 0;
+  for (int b = GLOBAL_MAX_BLOCK; b >= 32; b /= 2) {
+    const long long bytes = global_smem_bytes(ny, nc, elem, b);
+    if (bytes > SMEM_LIMIT) continue;
+    long long blocks = SM_SMEM / (bytes + 1024);
+    if (blocks > 32) blocks = 32;
+    if (blocks > 2048 / b) blocks = 2048 / b;
+    const int warps = (int)blocks * b / 32;
+    if (warps > best_warps) {
+      best = b;
+      best_warps = warps;
+    }
+  }
+  return best;
+}
 
 // A set of year indices or compacted positions: W 64-bit words, bit j of
 // the set in word j / 64.  The one-word forms are the plain 64-bit
@@ -336,13 +402,15 @@ struct Bits {
 };
 
 // ---- storage of the global form -------------------------------------------
-// A set of the global form: nw words in the scratch, word q at w[q * ld]
-// (ld = the launch's pixels, so adjacent threads touch adjacent words).
+// A set of the global form: nw words in the thread's column of its block
+// (shared memory, or the scratch tier's region), word q at w[q * ld] with
+// ld the block's threads, so the lanes of a warp touch adjacent words.
 // The same members as Bits<W>, over a runtime word count.
 struct GBits {
   uint64_t* w;
   int nw;
-  long long ld;
+  int ld;
+  __device__ __forceinline__ static GBits none() { return GBits{nullptr, 0, 0}; }
   __device__ __forceinline__ uint64_t& word(int q) const { return w[q * ld]; }
   __device__ __forceinline__ void clear() const {
     for (int q = 0; q < nw; ++q) word(q) = 0;
@@ -382,33 +450,55 @@ struct Local {
   __device__ __forceinline__ U& operator[](int i) { return a[i]; }
   __device__ __forceinline__ const U& operator[](int i) const { return a[i]; }
 };
-// ... and its global form: a thread's column of the scratch, element i at
-// p[i * ld].
+// ... and the scratch tier's form: the thread's column of its block's
+// region, element i at p[i * ld] (ld = the block's threads).
 template <typename U>
 struct Strided {
   U* p;
-  long long ld;
+  int ld;
   __device__ __forceinline__ U& operator[](int i) const { return p[i * ld]; }
 };
 
-// NM sets of one thread, in registers or in the scratch.
+// NM sets of one thread, in registers.
 template <int W, int N>
 struct LocalSets {
   Bits<W> a[N];
   __device__ __forceinline__ Bits<W>& operator[](int m) { return a[m]; }
   __device__ __forceinline__ const Bits<W>& operator[](int m) const { return a[m]; }
 };
-struct GSets {
-  uint64_t* w;
-  int nw;
-  long long ld;
-  __device__ __forceinline__ GBits operator[](int m) const {
-    return GBits{w + (long long)m * nw * ld, nw, ld};
+
+// The global form's model family: each member is the one before it less
+// the vertex the cull removed after it, so the family is member 0's
+// vertices and the removals — NC + NM positions where NM sets would take
+// NM * NY bits.
+template <class IArr>
+struct FamLog {
+  int k0 = 0;  // member 0's vertex count
+  IArr rm;   // rm[m]: the position removed after member m (-1: none)
+  // member 0's vertices (the cull's live set), into vp
+  template <class V, class A>
+  __device__ __forceinline__ void start(const V& v, A& vp) {
+    k0 = v.k;
+    for (int j = 0; j < k0; ++j) vp[j] = v.vp[j];
+  }
+  // member m's vertices, ascending: member 0's (in vp) less the first m
+  // removals, in place; returns their count
+  template <class A>
+  __device__ __forceinline__ int member(int m, A& vp) const {
+    int k = 0;
+    for (int j = 0; j < k0; ++j) {
+      const int x = vp[j];
+      bool gone = false;
+      for (int q = 0; q < m; ++q) gone = gone || rm[q] == x;
+      if (!gone) vp[k++] = x;
+    }
+    return k;
   }
 };
 
-// The storage types of capacity C: fixed-size arrays for Cap, views of the
-// scratch for Global.
+// The storage types of capacity C: fixed-size arrays for Cap and for the
+// global form's shared tier (LOCAL_NC each), views of the block's region
+// for its scratch tier.
 template <class C>
 struct Store {
   using Set = Bits<C::WORDS>;
@@ -418,85 +508,71 @@ struct Store {
   template <typename U>
   using MArr = Local<U, C::NM>;  // one per family member
 };
-template <>
-struct Store<Global> {
+template <bool S>
+struct Store<Global<S>> {
   using Set = GBits;
-  using Sets = GSets;
   template <typename U>
-  using Arr = Strided<U>;
+  using Arr = std::conditional_t<S, Strided<U>, Local<U, LOCAL_NC>>;
   template <typename U>
-  using MArr = Strided<U>;
+  using MArr = Arr<U>;
+  using Sets = FamLog<Arr<int>>;
 };
 
-// The global form's scratch: one plane per per-pixel array, each plane
-// laid out [position][pixel] over the launch's `ld` pixels and rounded up
-// to 16 bytes.  Rows per pixel and element bytes of each plane:
+// The scratch tier's per-thread arrays, after the block's layout
+// (global_smem_bytes) in its region: one plane per array, laid out
+// [position][thread], the int planes first.
 enum Plane {
-  P_Y,         // ny values: the y column (valid years, then the raw others)
-  P_T,         // ny values: the t column
-  P_VALID,     // nw words: the valid-year set
-  P_FAMVM,     // nm * nw words: the family's vertex sets
-  P_YEARWORD,  // nw words: the family kernel's member set on the year axis
-  P_VP,        // nc ints: live vertices
-  P_SI,        // nc ints: each segment's farthest point
-  P_SDEV,      // nc values: each segment's deviation, then its arctangent
-  P_FSSE,      // nm values: the family's SSEs,
-  P_FP,        // nm values: p-values,
-  P_FSCORE,    // nm values: scores
-  P_RVP,       // nc ints: the chosen model's vertices
-  P_RVF,       // nc values: their fitted values
-  P_VREG,      // nc values: the refit's regression anchors
-  P_RATE,      // nc values: the refit's point-to-point rates
-  P_VYI,       // nc ints: each vertex's year index
+  P_VP,      // nc ints: live vertices
+  P_SI,      // nc ints: each segment's farthest point
+  P_RVP,     // nc ints: the chosen model's vertices
+  P_VYI,     // nc ints: each vertex's year index
+  P_FRM,     // nm ints: the vertex removed after each family member
+  P_SDEV,    // nc values: each segment's deviation, then its arctangent
+  P_RVF,     // nc values: the chosen model's fitted values
+  P_VREG,    // nc values: the refit's regression anchors
+  P_RATE,    // nc values: the refit's point-to-point rates
+  P_FSSE,    // nm values: the family's SSEs,
+  P_FP,      // nm values: p-values,
+  P_FSCORE,  // nm values: scores
   NPLANE
 };
-__host__ __device__ constexpr int words_of(int ny) { return (ny + 63) / 64; }
-__host__ __device__ constexpr long long plane_rows(int plane, int ny, int nc, int nm) {
-  return plane == P_Y || plane == P_T ? ny
-       : plane == P_VALID || plane == P_YEARWORD ? words_of(ny)
-       : plane == P_FAMVM ? (long long)nm * words_of(ny)
-       : plane == P_FSSE || plane == P_FP || plane == P_FSCORE ? nm
-       : nc;
+// Byte offset of `plane` from the arrays' start (NPLANE: their size) for a
+// block of `block` threads; every plane is a multiple of 128 bytes.
+__host__ __device__ constexpr long long plane_offset(int plane, int nc, int nm, int elem,
+                                                     int block) {
+  const long long ints = plane <= P_VYI ? (long long)plane * nc
+                       : plane == P_FRM ? 4LL * nc
+                       : 4LL * nc + nm;
+  const long long vals = plane <= P_FRM ? 0
+                       : plane <= P_RATE ? (long long)(plane - P_SDEV) * nc
+                       : 4LL * nc + (long long)(plane - P_FSSE) * nm;
+  return (ints * 4 + vals * elem) * block;
 }
-__host__ __device__ constexpr int plane_elem(int plane, int elem) {
-  return plane == P_VALID || plane == P_FAMVM || plane == P_YEARWORD ? 8
-       : plane == P_VP || plane == P_SI || plane == P_RVP || plane == P_VYI ? 4
-       : elem;
-}
-// Byte offset of `plane` (NPLANE: the scratch's size) for `ld` pixels.
-__host__ __device__ inline long long plane_offset(int plane, int ny, int nc, int nm, int elem,
-                                                  long long ld) {
-  long long off = 0;
-  for (int q = 0; q < plane; ++q) {
-    off += (plane_rows(q, ny, nc, nm) * plane_elem(q, elem) * ld + 15) / 16 * 16;
-  }
-  return off;
+// Bytes of one block's region in the scratch tier: the block's layout,
+// then its arrays.
+__host__ __device__ constexpr long long global_region_bytes(int ny, int nc, int nm, int elem,
+                                                            int block) {
+  return global_smem_bytes(ny, nc, elem, block) + plane_offset(NPLANE, nc, nm, elem, block);
 }
 
-// One thread's views of the scratch (nothing for a fixed capacity).
+// One thread's views of its block's arrays in the scratch tier (nothing
+// for the other forms).
 template <typename T, class C>
 struct Mem {
-  __device__ Mem(unsigned char*, long long, long long, int, const Params&) {}
+  __device__ Mem(unsigned char*, int, int, const Params&) {}
 };
 template <typename T>
-struct Mem<T, Global> {
-  unsigned char* base;
-  long long ld, x;  // the launch's pixels; this thread's pixel among them
-  int ny, nc, nm;
-  __device__ Mem(unsigned char* scratch, long long px, long long pix, int ny_, const Params& p)
-      : base(scratch), ld(px), x(pix), ny(ny_), nc(p.nc), nm(p.nm) {}
-  __device__ __forceinline__ unsigned char* plane(int q) const {
-    return base + plane_offset(q, ny, nc, nm, (int)sizeof(T), ld);
-  }
+struct Mem<T, GScratch> {
+  unsigned char* arrays;  // the block's arrays
+  int nc, nm, nb;
+  __device__ Mem(unsigned char* region, int ny, int nb_, const Params& p)
+      : arrays(region + global_smem_bytes(ny, p.nc, (int)sizeof(T), nb_)),
+        nc(p.nc), nm(p.nm), nb(nb_) {}
   template <typename U>
   __device__ __forceinline__ Strided<U> arr(int q) const {
-    return Strided<U>{reinterpret_cast<U*>(plane(q)) + x, ld};
-  }
-  __device__ __forceinline__ GBits set(int q) const {
-    return GBits{reinterpret_cast<uint64_t*>(plane(q)) + x, words_of(ny), ld};
-  }
-  __device__ __forceinline__ GSets sets(int q) const {
-    return GSets{reinterpret_cast<uint64_t*>(plane(q)) + x, words_of(ny), ld};
+    return Strided<U>{
+        reinterpret_cast<U*>(arrays + plane_offset(q, nc, nm, (int)sizeof(T), nb)) + threadIdx.x,
+        nb};
   }
 };
 
@@ -513,6 +589,33 @@ struct Block {
     region = ycol + ny * B;
   }
 };
+// The global form's block (B = 0: blockDim.x threads), with its valid-year
+// words between the year axis and the y columns.
+template <typename T>
+struct Block<T, 0> {
+  uint64_t* bar;
+  T* ts;
+  uint64_t* vw;  // the valid-year words
+  T* ycol;
+  T* region;
+  __device__ Block(unsigned char* smem, int ny) {
+    const int nb = nthreads<0>();
+    bar = reinterpret_cast<uint64_t*>(smem);
+    ts = reinterpret_cast<T*>(smem + 16);
+    vw = reinterpret_cast<uint64_t*>(smem + 16 + (ny * (int)sizeof(T) + 15) / 16 * 16);
+    ycol = reinterpret_cast<T*>(vw + words_of(ny) * nb);
+    region = ycol + ny * nb;
+  }
+};
+
+// The global form's valid-year set of the thread, empty: its words in
+// the block's columns.
+template <typename T>
+__device__ __forceinline__ GBits global_valid_set(const Block<T, 0>& blk, int ny) {
+  const GBits b{blk.vw + threadIdx.x, words_of(ny), nthreads<0>()};
+  b.clear();
+  return b;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -553,15 +656,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Bring the block's slab — `npx` contiguous pixel rows of NY values and NY
-// mask bytes — into shared memory and compact each live thread's row into
+// mask bytes — into its memory and compact each live thread's row into
 // its columns: the valid years (mask set, value finite) at positions
 // 0..n-1 in year order, then the raw values of the other years in year
 // order.  Fills the year axis and the t columns; returns the thread's
-// valid-year word.  Every thread of the block must call it.
-template <typename T, int B, int W>
-__device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ years,
-                                const T* __restrict__ vals, const uint8_t* __restrict__ mask,
-                                int npx, int ny) {
+// valid-year set (capacity C's).  The block's memory is shared memory but
+// in the global form's scratch tier, so an aligned slab comes in by bulk
+// copy.  Every thread of the block must call it.
+template <typename T, int B, class C>
+__device__ typename Store<C>::Set load_compact(const Block<T, B>& blk, const T* __restrict__ years,
+                                               const T* __restrict__ vals,
+                                               const uint8_t* __restrict__ mask, int npx,
+                                               int ny) {
+  const int nb = nthreads<B>();
   const int r = threadIdx.x;
   T* vland = blk.region;
   uint8_t* mland = reinterpret_cast<uint8_t*>(blk.ycol);
@@ -570,14 +677,14 @@ __device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ ye
   // one bulk copy each when both slabs are whole 16-byte runs; the ragged
   // last block of an odd-sized call, or an unaligned view, loads per thread
   const bool bulk =
-      ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(mask) | vbytes | mbytes) &
-       15u) == 0;
-  for (int j = r; j < ny; j += B) blk.ts[j] = years[j];
+      !C::SCRATCH && ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(mask) |
+                       vbytes | mbytes) & 15u) == 0;
+  for (int j = r; j < ny; j += nb) blk.ts[j] = years[j];
   if (bulk) {
     if (r == 0) mbar_init(blk.bar);
   } else {
-    for (int e = r; e < npx * ny; e += B) vland[e] = vals[e];
-    for (int e = r; e < npx * ny; e += B) mland[e] = mask[e];
+    for (int e = r; e < npx * ny; e += nb) vland[e] = vals[e];
+    for (int e = r; e < npx * ny; e += nb) mland[e] = mask[e];
   }
   __syncthreads();
   if (bulk) {
@@ -593,7 +700,10 @@ __device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ ye
   // of a warp (rows NY apart) fall in different banks
   const int j0 = live ? r % ny : 0;
   const T* vrow = vland + r * ny;
-  Bits<W> valid = Bits<W>::none();
+  // (the fixed forms' set starts as none() in registers, as it was; a
+  // helper returning either kind of set changed their code)
+  typename Store<C>::Set valid = Store<C>::Set::none();
+  if constexpr (C::GLOBAL) valid = global_valid_set(blk, ny);
   if (live) {
     const uint8_t* mrow = mland + r * ny;
     for (int c = 0, j = j0; c < ny; ++c) {
@@ -607,39 +717,14 @@ __device__ Bits<W> load_compact(const Block<T, B>& blk, const T* __restrict__ ye
     for (int c = 0, j = j0; c < ny; ++c) {
       const int below = valid.count_below(j);
       const int pos = valid.test(j) ? below : n + (j - below);
-      blk.ycol[pos * B + r] = vrow[j];
+      blk.ycol[pos * nb + r] = vrow[j];
       if (++j == ny) j = 0;
     }
   }
   __syncthreads();  // the value slab is read: its bytes become the t columns
   if (live) {
     int i = 0;
-    valid.each([&](int j) { blk.region[(i++) * B + r] = blk.ts[j]; });
-  }
-  return valid;
-}
-
-// The global form's load: the thread reads its own row of the caller's
-// values and mask and compacts it into its scratch columns, as
-// load_compact does into shared memory; returns its valid-year set.
-template <typename T>
-__device__ GBits load_global(const Mem<T, Global>& mem, const T* __restrict__ years,
-                             const T* __restrict__ vrow, const uint8_t* __restrict__ mrow,
-                             int ny) {
-  const GBits valid = mem.set(P_VALID);
-  valid.clear();
-  for (int j = 0; j < ny; ++j) {
-    if (mrow[j] && isfinite(vrow[j])) valid.set(j);
-  }
-  const int n = valid.count();
-  const Strided<T> y = mem.template arr<T>(P_Y), t = mem.template arr<T>(P_T);
-  for (int j = 0, c = 0, d = 0; j < ny; ++j) {
-    if (valid.test(j)) {
-      y[c] = vrow[j];
-      t[c++] = years[j];
-    } else {
-      y[n + d++] = vrow[j];
-    }
+    valid.each([&](int j) { blk.region[(i++) * nb + r] = blk.ts[j]; });
   }
   return valid;
 }
@@ -689,14 +774,14 @@ __device__ __forceinline__ int bit_positions(const S& vm, A& vp) {
 }
 
 // One thread's view of its pixel's compacted series in its columns: the
-// stride is the block B in shared memory, or (B = 0, the global form) the
-// launch's pixels `ld` in the scratch.
+// stride is the block B, or (B = 0, the global form) its runtime block
+// `ld`.
 template <typename T, int B>
 struct Series {
   T* yc;        // y at position i: yc[i * B] (despiked in place)
   const T* tc;  // t at position i: tc[i * B]
   int n;        // valid years
-  long long ld;
+  std::conditional_t<(B > 0), long long, int> ld;
   __device__ __forceinline__ T& y(int i) {
     if constexpr (B > 0) return yc[i * B];
     else return yc[i * ld];
@@ -794,10 +879,10 @@ struct Verts {
     TArr sa;    // cull: sa[g] for segment g = (vp[g], vp[g + 1])
   };
   T t_lo, t_rng, y_lo, y_rng;
-  // the global form's arrays are views of the scratch
+  // the scratch tier's arrays are views of the block's region
   template <class M>
   __device__ __forceinline__ void bind(const M& mem) {
-    if constexpr (C::GLOBAL) {
+    if constexpr (C::SCRATCH) {
       vp = mem.template arr<int>(P_VP);
       si = mem.template arr<int>(P_SI);
       sdev = mem.template arr<T>(P_SDEV);
@@ -881,11 +966,17 @@ __device__ void cull_init(const Series<T, B>& s, Verts<T, C>& v, O& ops) {
 
 // Drop the min-angle interior vertex (the first of the smallest) while the
 // count exceeds keep_above (>= 2); only the merged segment's arctangent is
-// recomputed.
+// recomputed.  The global form's returns the removed vertex's position,
+// -1 when none was.
 template <typename T, int B, class C, class O>
-__device__ void remove_weakest(const Series<T, B>& s, Verts<T, C>& v, int keep_above, O& ops) {
+__device__ std::conditional_t<C::GLOBAL, int, void> remove_weakest(const Series<T, B>& s,
+                                                                   Verts<T, C>& v,
+                                                                   int keep_above, O& ops) {
   const int k = v.k;
-  if (k <= keep_above) return;
+  if (k <= keep_above) {
+    if constexpr (C::GLOBAL) return -1;
+    else return;
+  }
   ops.add(3LL * (k - 2));
   T best = 0;
   int jmin = -1;
@@ -896,10 +987,12 @@ __device__ void remove_weakest(const Series<T, B>& s, Verts<T, C>& v, int keep_a
       jmin = j;
     }
   }
+  const int gone = v.vp[jmin];
   for (int j = jmin; j + 1 < k; ++j) v.vp[j] = v.vp[j + 1];
   for (int g = jmin; g + 2 < k; ++g) v.sa[g] = v.sa[g + 1];
   v.k = k - 1;
   v.sa[jmin - 1] = seg_atan(s, v, v.vp[jmin - 1], v.vp[jmin], ops);
+  if constexpr (C::GLOBAL) return gone;
 }
 
 // Anchored fit + point-to-point fallback for the vertices vp[0..k-1].
@@ -909,8 +1002,8 @@ __device__ void remove_weakest(const Series<T, B>& s, Verts<T, C>& v, int keep_a
 template <bool REFIT, class C, typename T, int B, class VP, class VF, class M, class O>
 __device__ T fit_model(const Series<T, B>& s, const VP& vp, const int k, T y_range,
                        const Params& p, VF& vf, const M& mem, O& ops) {
-  // per-vertex arrays of the refit, in the scratch in the global form
-  using Keep = std::conditional_t<C::GLOBAL, Strided<T>, Local<T, REFIT ? C::NC : 1>>;
+  // per-vertex arrays of the refit, in the block's region in the scratch tier
+  using Keep = std::conditional_t<C::SCRATCH, Strided<T>, Local<T, REFIT ? C::NC : 1>>;
   // regression: 6 per year per pass (two passes after segment 0's OLS,
   // whose residual pass is 7 per year in the centred frame); p2p: 6 per
   // year; ~24 per vertex for slopes, clamps, rates and anchors
@@ -926,7 +1019,7 @@ __device__ T fit_model(const Series<T, B>& s, const VP& vp, const int k, T y_ran
     sse_reg = sse_reg + r * r;
   }
   Keep vreg, rate;
-  if constexpr (REFIT && C::GLOBAL) {
+  if constexpr (REFIT && C::SCRATCH) {
     vreg = mem.template arr<T>(P_VREG);
     rate = mem.template arr<T>(P_RATE);
   }
@@ -1161,7 +1254,7 @@ struct PixelResult {
   T mean, rmse, pof;
   template <class M>
   __device__ __forceinline__ void bind(const M& mem) {
-    if constexpr (C::GLOBAL) {
+    if constexpr (C::SCRATCH) {
       vp = mem.template arr<int>(P_RVP);
       vf = mem.template arr<T>(P_RVF);
     }
@@ -1205,20 +1298,31 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
       cull_init(s, v, ops);
       for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
       ops.mark(CULL);
-      // Stage 4 — model family: vertex word + SSE per member
+      // Stage 4 — model family: vertex word + SSE per member (the global
+      // form: member 0's vertices, in res.vp, and the removals)
       typename Store<C>::Sets fam_vm;
       typename Store<C>::template MArr<T> fam_sse, fam_p, fam_score;
-      if constexpr (C::GLOBAL) {
-        fam_vm = mem.sets(P_FAMVM);
+      if constexpr (C::SCRATCH) {
+        fam_vm.rm = mem.template arr<int>(P_FRM);
         fam_sse = mem.template arr<T>(P_FSSE);
         fam_p = mem.template arr<T>(P_FP);
         fam_score = mem.template arr<T>(P_FSCORE);
       }
       T* const no_vf = nullptr;
       for (int m = 0; m < p.nm; ++m) {
-        v.word_into(fam_vm[m]);
+        if constexpr (C::GLOBAL) {
+          if (m == 0) fam_vm.start(v, res.vp);
+        } else {
+          v.word_into(fam_vm[m]);
+        }
         fam_sse[m] = fit_model<false, C>(s, v.vp, v.k, y_range, p, no_vf, mem, ops);
-        if (m + 1 < p.nm) remove_weakest(s, v, 2, ops);
+        if (m + 1 < p.nm) {
+          if constexpr (C::GLOBAL) {
+            fam_vm.rm[m] = remove_weakest(s, v, 2, ops);
+          } else {
+            remove_weakest(s, v, 2, ops);
+          }
+        }
       }
       ops.mark(FAMILY);
       // scoring + selection
@@ -1232,8 +1336,16 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         ss0 = ss0 + d * d;
       }
       T best = 0;
+      int km = 0;  // the global form: member m's vertex count
+      if constexpr (C::GLOBAL) km = fam_vm.k0;
       for (int m = 0; m < p.nm; ++m) {
-        T ms = (T)(fam_vm[m].count() - 1);
+        T ms;
+        if constexpr (C::GLOBAL) {
+          ms = (T)(km - 1);
+          if (m + 1 < p.nm && fam_vm.rm[m] >= 0) --km;
+        } else {
+          ms = (T)(fam_vm[m].count() - 1);
+        }
         f_test(ss0, fam_sse[m], n_f, ms, p, fam_p[m], fam_score[m], ops);
         best = m == 0 ? fam_score[0] : t_min(best, fam_score[m]);
       }
@@ -1252,7 +1364,11 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
         // trades arithmetic for registers; the function needs none of it
         // (the family loop computed the same values), so the tally for the
         // bound leaves it out.
-        res.k = bit_positions(fam_vm[chosen], res.vp);
+        if constexpr (C::GLOBAL) {
+          res.k = fam_vm.member(chosen, res.vp);
+        } else {
+          res.k = bit_positions(fam_vm[chosen], res.vp);
+        }
         NoOps refit_ops;
         const T sse_c = fit_model<true, C>(s, res.vp, res.k, y_range, p, res.vf, mem, refit_ops);
         ops.add(10LL * ny + 4LL * p.nm + 2);
@@ -1284,23 +1400,19 @@ __device__ void segment_pixel(Series<T, B>& s, int ny, const Params& p, PixelRes
 // its row of `w` values in the staging tile (row stride w | 1, odd, so the
 // lanes of a warp write 32 different banks), then the block copies the
 // tile to `dst` (the block's first row) in coalesced runs.  Every thread of
-// the block must call it.  The global form (DIRECT) has no staging tile:
-// each thread writes its own row.
-template <typename U, int B, bool DIRECT = false, class F>
+// the block must call it.
+template <typename U, int B, class F>
 __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* stage, bool live,
                                      const F& fill) {
-  if constexpr (DIRECT) {
-    if (live) fill(dst + threadIdx.x * w);
-    return;
-  }
+  const int nb = nthreads<B>();
   U* st = reinterpret_cast<U*>(stage);
   const int W = w | 1;
   if (live) fill(st + threadIdx.x * W);
   __syncthreads();
   const int total = npx * w;
   int row = threadIdx.x / w, col = threadIdx.x - row * w;
-  const int dr = B / w, dc = B - dr * w;
-  for (int e = threadIdx.x; e < total; e += B) {
+  const int dr = nb / w, dc = nb - dr * w;
+  for (int e = threadIdx.x; e < total; e += nb) {
     dst[e] = st[row * W + col];
     row += dr;
     col += dc;
@@ -1312,49 +1424,31 @@ __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* 
   __syncthreads();
 }
 
-// The series of the thread's pixel: in its shared-memory columns (the
-// block's slab loaded first; every thread of the block must call it), or
-// in the global form in its scratch columns (live threads only).  Returns
-// the valid-year set.
-template <typename T, int B, class C, int S>
-__device__ __forceinline__ typename Store<C>::Set load_series(
-    const Block<T, B>& blk, const Mem<T, C>& mem, const T* __restrict__ years,
-    const T* __restrict__ values, const uint8_t* __restrict__ mask, int npx, int ny,
-    Series<T, S>& s) {
-  const int r = threadIdx.x;
-  if constexpr (C::GLOBAL) {
-    const GBits valid = load_global(mem, years, values + r * ny, mask + r * ny, ny);
-    s = Series<T, S>{mem.template arr<T>(P_Y).p, mem.template arr<T>(P_T).p, valid.count(),
-                     mem.ld};
-    return valid;
-  } else {
-    const Bits<C::WORDS> valid = load_compact<T, B, C::WORDS>(blk, years, values, mask, npx, ny);
-    s = Series<T, S>{blk.ycol + r, blk.region + r, valid.count()};
-    return valid;
-  }
-}
-
 template <typename T, class O, int B, class C>
-__global__ void __launch_bounds__(B)
+__global__ void __launch_bounds__(B > 0 ? B : GLOBAL_MAX_BLOCK)
 segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
                      const uint8_t* __restrict__ mask, long long px, int ny, Outs<T> o,
                      Params p, long long* __restrict__ stats, unsigned char* scratch) {
-  constexpr bool G = C::GLOBAL;
-  constexpr int S = G ? 0 : B;  // the series' column stride
   O ops;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Block<T, B> blk(smem, ny);
-  const long long base = (long long)blockIdx.x * B;
-  const int npx = (int)(px - base < B ? px - base : B);
+  const int nb = nthreads<B>();
+  // the block's memory: its shared memory, or its region of the scratch
+  // tier (chosen here, not in a helper: the fixed forms' code must stay
+  // as it was, bit for bit and register for register)
+  unsigned char* bmem = smem;
+  if constexpr (C::SCRATCH) {
+    bmem = scratch +
+           (long long)blockIdx.x * global_region_bytes(ny, p.nc, p.nm, (int)sizeof(T), nb);
+  }
+  const Block<T, B> blk(bmem, ny);
+  const long long base = (long long)blockIdx.x * nb;
+  const int npx = (int)(px - base < nb ? px - base : nb);
   const int r = threadIdx.x;
   const bool live = r < npx;
-  if constexpr (G) {
-    if (!live) return;  // the global form has no block-wide barrier
-  }
-  const Mem<T, C> mem(scratch, px, base + r, ny, p);
-  Series<T, S> s;
+  const Mem<T, C> mem(bmem, ny, nb, p);
   const typename Store<C>::Set valid =
-      load_series<T, B, C>(blk, mem, years, values + base * ny, mask + base * ny, npx, ny, s);
+      load_compact<T, B, C>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  Series<T, B> s{blk.ycol + r, blk.region + r, valid.count(), nb};
   const int n = s.n;
   ops.mark(LOAD);
 
@@ -1365,12 +1459,12 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   if (live) segment_pixel(s, ny, p, res, mem, ops);
 
   // ---- output: every thread, one staged field at a time ----------------
-  if constexpr (!G) __syncthreads();  // every t column is read: the region becomes the staging tile
+  __syncthreads();  // every t column is read: the region becomes the staging tile
   void* stage = blk.region;
-  const T* ts = G ? years : blk.ts;
+  const T* ts = blk.ts;
   const int k = res.k;
   typename Store<C>::template Arr<int> vyi;  // year index of each vertex
-  if constexpr (G) vyi = mem.template arr<int>(P_VYI);
+  if constexpr (C::SCRATCH) vyi = mem.template arr<int>(P_VYI);
   for (int j = 0; j < k; ++j) vyi[j] = nth_bit(valid, res.vp[j]);
   const T t_hi = n > 0 ? ts[valid.highest()] : (T)0;
   // vertex slot i's year; dead slots repeat t_hi
@@ -1378,7 +1472,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
 
   // despiked: the despiked series at valid years; elsewhere the raw value
   // (a fitted model) or the mean (the flat model)
-  emit<T, B, G>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.despiked + base * ny, ny, npx, stage, live, [&](T* row) {
     for (int j = 0, c = 0, d = 0; j < ny; ++j) {
       if (valid.test(j)) {
         row[j] = s.y(c++);
@@ -1390,7 +1484,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
   });
   // fitted trajectory over every year: np.interp through the vertices,
   // dead slots repeating (t_hi, last fit); the mean for the flat model
-  emit<T, B, G>(o.fitted + base * ny, ny, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.fitted + base * ny, ny, npx, stage, live, [&](T* row) {
     if (!res.mv) {
       for (int j = 0; j < ny; ++j) row[j] = res.mean;
       return;
@@ -1418,25 +1512,25 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
     }
   });
   const int nv = p.nv, nm = p.nm;
-  emit<int32_t, B, G>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
+  emit<int32_t, B>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? (int32_t)vyi[j] : -1;
   });
-  emit<T, B, G>(o.vyear + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.vyear + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? ts[vyi[j]] : (T)0;
   });
-  emit<T, B, G>(o.vsrc + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.vsrc + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? s.y(res.vp[j]) : (T)0;
   });
-  emit<T, B, G>(o.vfit + base * nv, nv, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.vfit + base * nv, nv, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nv; ++j) row[j] = j < k ? res.vf[j] : (T)0;
   });
-  emit<T, B, G>(o.smag + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.smag + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? res.vf[j + 1] - res.vf[j] : (T)0;
   });
-  emit<T, B, G>(o.sdur + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.sdur + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) row[j] = j < k - 1 ? xv(j + 1) - xv(j) : (T)0;
   });
-  emit<T, B, G>(o.srate + base * nm, nm, npx, stage, live, [&](T* row) {
+  emit<T, B>(o.srate + base * nm, nm, npx, stage, live, [&](T* row) {
     for (int j = 0; j < nm; ++j) {
       T rate = 0;
       if (j < k - 1) {
@@ -1468,24 +1562,27 @@ struct FamilyOuts {
 
 // Stages 1-4a for every pixel: despiked series, family vertex sets, SSEs.
 template <typename T, class O, int B, class C>
-__global__ void __launch_bounds__(B)
+__global__ void __launch_bounds__(B > 0 ? B : GLOBAL_MAX_BLOCK)
 family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
                     const uint8_t* __restrict__ mask, long long px, int ny, FamilyOuts<T> o,
                     Params p, long long* __restrict__ stats, unsigned char* scratch) {
-  constexpr bool G = C::GLOBAL;
   O ops;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Block<T, B> blk(smem, ny);
-  const long long base = (long long)blockIdx.x * B;
-  const int npx = (int)(px - base < B ? px - base : B);
-  if constexpr (G) {
-    if ((int)threadIdx.x >= npx) return;
+  const int nb = nthreads<B>();
+  unsigned char* bmem = smem;  // as in segment_fused_kernel
+  if constexpr (C::SCRATCH) {
+    bmem = scratch +
+           (long long)blockIdx.x * global_region_bytes(ny, p.nc, p.nm, (int)sizeof(T), nb);
   }
-  const Mem<T, C> mem(scratch, px, base + threadIdx.x, ny, p);
-  Series<T, G ? 0 : B> s;
+  const Block<T, B> blk(bmem, ny);
+  const long long base = (long long)blockIdx.x * nb;
+  const int npx = (int)(px - base < nb ? px - base : nb);
+  const Mem<T, C> mem(bmem, ny, nb, p);
   const typename Store<C>::Set valid =
-      load_series<T, B, C>(blk, mem, years, values + base * ny, mask + base * ny, npx, ny, s);
-  if ((int)threadIdx.x >= npx) return;
+      load_compact<T, B, C>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  const int r = threadIdx.x;
+  Series<T, B> s{blk.ycol + r, blk.region + r, valid.count(), nb};
+  if (r >= npx) return;
   const long long pix = base + threadIdx.x;
   const long long ld = o.ld;
   const int n = s.n;
@@ -1520,16 +1617,29 @@ family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
   // Stage 2 — candidates + angle cull (both no-ops on fewer than 3 vertices)
   find_candidates(s, v, p, ops);
   cull_init(s, v, ops);
-  for (int r = 0; r < p.overshoot; ++r) remove_weakest(s, v, p.nv, ops);
+  for (int q = 0; q < p.overshoot; ++q) remove_weakest(s, v, p.nv, ops);
   // Stage 4a — model family, written member by member
   for (int m = 0; m < p.nm; ++m) {
     // the member's vertex set on the year axis
-    typename Store<C>::Set year_word;
-    if constexpr (G) year_word = mem.set(P_YEARWORD);
-    year_word.clear();
-    for (int j = 0; j < v.k; ++j) year_word.set(nth_bit(valid, v.vp[j]));
-    uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
-    for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)year_word.test(j);
+    if constexpr (C::GLOBAL) {
+      // the valid years walked once beside the member's ascending positions
+      uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
+      for (int j = 0, c = 0, i = 0; j < ny; ++j) {
+        bool on = false;
+        if (valid.test(j)) {
+          on = i < v.k && v.vp[i] == c;
+          i += on;
+          ++c;
+        }
+        row[j * ld] = (uint8_t)on;
+      }
+    } else {
+      typename Store<C>::Set year_word;
+      year_word.clear();
+      for (int j = 0; j < v.k; ++j) year_word.set(nth_bit(valid, v.vp[j]));
+      uint8_t* row = o.vmasks + (long long)m * ny * ld + pix;
+      for (int j = 0; j < ny; ++j) row[j * ld] = (uint8_t)year_word.test(j);
+    }
     // below two vertices (fewer than two valid years) the fit is the
     // series itself: SSE 0, as in the plain version
     T* const no_vf = nullptr;
@@ -1562,15 +1672,23 @@ Params make_params(int max_segments, int overshoot, double spike, double rt, int
 
 template <class C>
 bool bad_shape(int ny, const Params& p, long long px) {
-  return ny < 1 || ny > C::NY || (!C::GLOBAL && p.nc > C::NC) || p.nm < 1 || p.overshoot < 0 ||
-         px < 0;
+  return ny < 1 || ny > C::NY || p.nc > C::NC || p.nm < 1 || p.overshoot < 0 || px < 0;
 }
 
-// Dynamic shared-memory bytes of one launch of capacity C (the global form
-// uses none).
+// Whether `block` is a block the launch of capacity C may take: its own
+// for a fixed capacity, 32, 64 or 128 threads for the global form.
 template <class C>
-long long smem_of(int ny, int elem, int block) {
-  if constexpr (C::GLOBAL) return 0;
+bool block_ok(int block, int own) {
+  if constexpr (C::GLOBAL) return block == 32 || block == 64 || block == GLOBAL_MAX_BLOCK;
+  return block == own;
+}
+
+// Dynamic shared-memory bytes of one launch of capacity C at `nc`
+// candidates (the global form's scratch tier uses none).
+template <class C>
+long long smem_of(int ny, int nc, int elem, int block) {
+  if constexpr (C::SCRATCH) return 0;
+  if constexpr (C::GLOBAL) return global_smem_bytes(ny, nc, elem, block);
   return smem_bytes(ny, elem, block, C::NC);
 }
 
@@ -1593,32 +1711,34 @@ int start(K kernel, long long px, int block, long long bytes, cudaStream_t st, A
 }
 
 // One launch of the fused kernel of capacity C with policy O at block
-// size B (O's per-pixel record, if any, goes to `stats`).
-// `scratch`: the global form's scratch for `px` pixels (plane_offset of
-// NPLANE bytes); null for a fixed capacity.
+// size B (O's per-pixel record, if any, goes to `stats`); the global
+// form (B = 0) runs `block` threads a block.  `scratch`: the scratch
+// tier's allocation, global_region_bytes per block; null otherwise.
 template <typename T, class O, class C = Narrow, int B = block_of<T, C>()>
 int launch_fused(const void* years, const void* values, const void* mask, long long px, int ny,
                  const Outs<T>& o, const Params& p, void* stream, long long* stats,
-                 void* scratch = nullptr) {
-  if (bad_shape<C>(ny, p, px) || (C::GLOBAL && scratch == nullptr)) {
+                 void* scratch = nullptr, int block = B) {
+  if (bad_shape<C>(ny, p, px) || (C::SCRATCH && scratch == nullptr) || !block_ok<C>(block, B)) {
     return (int)cudaErrorInvalidValue;
   }
-  return start(segment_fused_kernel<T, O, B, C>, px, B, smem_of<C>(ny, (int)sizeof(T), B),
-               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
-               ny, o, p, stats, (unsigned char*)scratch);
+  return start(segment_fused_kernel<T, O, B, C>, px, block,
+               smem_of<C>(ny, p.nc, (int)sizeof(T), block), (cudaStream_t)stream,
+               (const T*)years, (const T*)values, (const uint8_t*)mask, px, ny, o, p, stats,
+               (unsigned char*)scratch);
 }
 
 template <typename T, class O, class C = Narrow>
 int launch_family(const void* years, const void* values, const void* mask, long long px, int ny,
                   const FamilyOuts<T>& o, const Params& p, void* stream, long long* stats,
-                  void* scratch = nullptr) {
+                  void* scratch = nullptr, int block = block_of<T, C>()) {
   constexpr int B = block_of<T, C>();
-  if (bad_shape<C>(ny, p, px) || (C::GLOBAL && scratch == nullptr)) {
+  if (bad_shape<C>(ny, p, px) || (C::SCRATCH && scratch == nullptr) || !block_ok<C>(block, B)) {
     return (int)cudaErrorInvalidValue;
   }
-  return start(family_stats_kernel<T, O, B, C>, px, B, smem_of<C>(ny, (int)sizeof(T), B),
-               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask, px,
-               ny, o, p, stats, (unsigned char*)scratch);
+  return start(family_stats_kernel<T, O, B, C>, px, block,
+               smem_of<C>(ny, p.nc, (int)sizeof(T), block), (cudaStream_t)stream,
+               (const T*)years, (const T*)values, (const uint8_t*)mask, px, ny, o, p, stats,
+               (unsigned char*)scratch);
 }
 
 // Resident blocks per SM of `kernel` as the production launch sets it up
@@ -1642,20 +1762,48 @@ int with_sweep_block(int block, F f) {
   }
 }
 
+// Registers and local bytes (cudaFuncGetAttributes) of `kernel`: out =
+// {numRegs, localSizeBytes, sharedSizeBytes (static), maxThreadsPerBlock}.
+template <class K>
+int attrs_of(K kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
+}
+
 // Resident blocks per SM (CUDA occupancy calculator) of a production
-// kernel of capacity C at `ny` years and its own block size: which = 0
-// fused, 1 family.  Returns a CUDA error code.
+// kernel of capacity C at `ny` years, `nc` candidates and block `block`
+// (a fixed capacity's own): which = 0 fused, 1 family.  Returns a CUDA
+// error code.
 template <class C>
-int occupancy_of(int which, int f64, int ny, int block, int* blocks) {
+int occupancy_of(int which, int f64, int ny, int nc, int block, int* blocks) {
   constexpr int B4 = block_of<float, C>(), B8 = block_of<double, C>();
-  if (block != (f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
-  const long long b4 = smem_of<C>(ny, 4, B4), b8 = smem_of<C>(ny, 8, B8);
+  if (!block_ok<C>(block, f64 ? B8 : B4)) return (int)cudaErrorInvalidValue;
+  const long long b4 = smem_of<C>(ny, nc, 4, block), b8 = smem_of<C>(ny, nc, 8, block);
   if (which == 0) {
-    return f64 ? occupancy(segment_fused_kernel<double, NoOps, B8, C>, B8, b8, blocks)
-               : occupancy(segment_fused_kernel<float, NoOps, B4, C>, B4, b4, blocks);
+    return f64 ? occupancy(segment_fused_kernel<double, NoOps, B8, C>, block, b8, blocks)
+               : occupancy(segment_fused_kernel<float, NoOps, B4, C>, block, b4, blocks);
   }
-  return f64 ? occupancy(family_stats_kernel<double, NoOps, B8, C>, B8, b8, blocks)
-             : occupancy(family_stats_kernel<float, NoOps, B4, C>, B4, b4, blocks);
+  return f64 ? occupancy(family_stats_kernel<double, NoOps, B8, C>, block, b8, blocks)
+             : occupancy(family_stats_kernel<float, NoOps, B4, C>, block, b4, blocks);
+}
+
+// cudaFuncGetAttributes of a production kernel of capacity C: which = 0
+// fused, 1 family.
+template <class C>
+int attrs_of_cap(int which, int f64, int* out) {
+  constexpr int B4 = block_of<float, C>(), B8 = block_of<double, C>();
+  if (which == 0) {
+    return f64 ? attrs_of(segment_fused_kernel<double, NoOps, B8, C>, out)
+               : attrs_of(segment_fused_kernel<float, NoOps, B4, C>, out);
+  }
+  return f64 ? attrs_of(family_stats_kernel<double, NoOps, B8, C>, out)
+             : attrs_of(family_stats_kernel<float, NoOps, B4, C>, out);
 }
 
 template <typename T>
@@ -1706,6 +1854,11 @@ FamilyOuts<T> make_family_outs(void* despiked, void* vmasks, void* sses, long lo
 
 extern "C" {
 
+// The library is built from two objects of this file compiled at once:
+// LT_PART 1 holds the fixed forms' entries, 2 the global form's (without
+// LT_PART, both).
+#if !defined(LT_PART) || LT_PART == 1
+
 // Capacity bounds the Python wrapper checks before a launch, one query
 // per fixed instantiation (narrow, wide); the global form has none.
 int lt_segment_max_ny() { return Narrow::NY; }
@@ -1718,23 +1871,13 @@ int lt_segment_wide_max_nc() { return Wide::NC; }
 int lt_segment_wide_block(int elem_bytes) {
   return elem_bytes == 4 ? block_of<float, Wide>() : block_of<double, Wide>();
 }
-int lt_segment_global_block(int elem_bytes) {
-  return elem_bytes == 4 ? block_of<float, Global>() : block_of<double, Global>();
-}
 int lt_segment_nstage() { return NSTAGE; }
 
 // Dynamic shared-memory bytes of one block of `block` threads at `ny`
-// years and `elem_bytes`-byte values of the narrow (cap = 0), wide (1) or
-// global (2) instantiation (both kernels use the same plan).
+// years and `elem_bytes`-byte values of the narrow (cap = 0) or wide (1)
+// instantiation (both kernels use the same plan).
 long long lt_segment_smem_bytes(int ny, int elem_bytes, int block, int cap) {
-  if (cap == 2) return smem_of<Global>(ny, elem_bytes, block);
   return smem_bytes(ny, elem_bytes, block, cap ? Wide::NC : Narrow::NC);
-}
-
-// Bytes of the global form's scratch for `px` pixels at `ny` years, `nc`
-// candidates and `nm` family members (both kernels use the same plan).
-long long lt_segment_global_scratch_bytes(int ny, int nc, int nm, int elem_bytes, long long px) {
-  return plane_offset(NPLANE, ny, nc, nm, elem_bytes, px);
 }
 
 int lt_segment_fused_f32(LT_ARGS) { return launch_fused<float, NoOps>(LT_CALL(float), nullptr); }
@@ -1745,13 +1888,6 @@ int lt_segment_fused_wide_f32(LT_ARGS) {
 int lt_segment_fused_wide_f64(LT_ARGS) {
   return launch_fused<double, NoOps, Wide>(LT_CALL(double), nullptr);
 }
-// The global form: `scratch` holds lt_segment_global_scratch_bytes(px) bytes.
-int lt_segment_fused_global_f32(LT_ARGS, void *scratch) {
-  return launch_fused<float, NoOps, Global>(LT_CALL(float), nullptr, scratch);
-}
-int lt_segment_fused_global_f64(LT_ARGS, void *scratch) {
-  return launch_fused<double, NoOps, Global>(LT_CALL(double), nullptr, scratch);
-}
 
 // The float32 kernel with its per-pixel operation tally written to
 // `op_count` (PX int64) — the roofline bound's operation count.
@@ -1761,9 +1897,6 @@ int lt_segment_fused_f32_opcount(LT_ARGS, void *op_count) {
 int lt_segment_fused_wide_f32_opcount(LT_ARGS, void *op_count) {
   return launch_fused<float, CountOps, Wide>(LT_CALL(float), (long long *)op_count);
 }
-int lt_segment_fused_global_f32_opcount(LT_ARGS, void *scratch, void *op_count) {
-  return launch_fused<float, CountOps, Global>(LT_CALL(float), (long long *)op_count, scratch);
-}
 
 // The float32 kernel with each pixel's clock64() cycles per stage and
 // their total written to `cycles` (PX x (NSTAGE + 1) int64, row-major).
@@ -1772,19 +1905,17 @@ int lt_segment_fused_f32_stagecycles(LT_ARGS, void *cycles) {
 }
 
 // The float32 kernel at a block size of the sweep (128, 256 or 512
-// threads).
+// threads).  (The global form's sweep is its own entry at another block.)
 int lt_segment_fused_f32_block(LT_ARGS, int block) {
   return with_sweep_block(block, [&](auto b) {
     return launch_fused<float, NoOps, Narrow, decltype(b)::value>(LT_CALL(float), nullptr);
   });
 }
 
-// As occupancy_of for the narrow (cap = 0), wide (1) or global (2)
-// instantiation; the narrow float32 fused kernel also at the sweep's block
-// sizes.
+// As occupancy_of for the narrow (cap = 0) or wide (1) instantiation; the
+// narrow float32 fused kernel also at the sweep's block sizes.
 int lt_segment_occupancy(int which, int f64, int ny, int block, int cap, int *blocks) {
-  if (cap == 2) return occupancy_of<Global>(which, f64, ny, block, blocks);
-  if (cap == 1) return occupancy_of<Wide>(which, f64, ny, block, blocks);
+  if (cap == 1) return occupancy_of<Wide>(which, f64, ny, 0, block, blocks);
   if (which == 0 && !f64) {
     return with_sweep_block(block, [&](auto b) {
       constexpr int B = decltype(b)::value;
@@ -1792,47 +1923,128 @@ int lt_segment_occupancy(int which, int f64, int ny, int block, int cap, int *bl
                        smem_bytes(ny, 4, B, Narrow::NC), blocks);
     });
   }
-  return occupancy_of<Narrow>(which, f64, ny, block, blocks);
+  return occupancy_of<Narrow>(which, f64, ny, 0, block, blocks);
 }
+
+// cudaFuncGetAttributes of the production kernel `which` (0 fused, 1
+// family) of the narrow (cap = 0) or wide (1) instantiation into out[4]:
+// registers, local bytes, static shared bytes, max threads a block.
+int lt_segment_kernel_attrs(int which, int f64, int cap, int *out) {
+  if (cap == 1) return attrs_of_cap<Wide>(which, f64, out);
+  return attrs_of_cap<Narrow>(which, f64, out);
+}
+
+#endif  // LT_PART 1
+#if !defined(LT_PART) || LT_PART == 2
+
+// The global form's plan (both kernels use it): the shared tier's block
+// at `ny` years, `elem_bytes`-byte values and `nc` candidates (0: the
+// scratch tier), its shared bytes at a block, the local arrays' capacity,
+// and the scratch tier's bytes for `px` pixels (CUDA_BLOCK a block).
+int lt_segment_global_block(int ny, int elem_bytes, int nc) {
+  return global_block(ny, elem_bytes, nc);
+}
+long long lt_segment_global_smem_bytes(int ny, int nc, int elem_bytes, int block) {
+  return global_smem_bytes(ny, nc, elem_bytes, block);
+}
+int lt_segment_global_local_nc() { return LOCAL_NC; }
+long long lt_segment_global_scratch_bytes(int ny, int nc, int nm, int elem_bytes, long long px) {
+  return (px + CUDA_BLOCK - 1) / CUDA_BLOCK *
+         global_region_bytes(ny, nc, nm, elem_bytes, CUDA_BLOCK);
+}
+
+// The global form at `block` threads a block: the shared tier (tier = 0),
+// or the scratch tier (1), whose `scratch` holds
+// lt_segment_global_scratch_bytes(px) bytes.
+int lt_segment_fused_global_f32(LT_ARGS, void *scratch, int block, int tier) {
+  return tier ? launch_fused<float, NoOps, GScratch>(LT_CALL(float), nullptr, scratch, block)
+              : launch_fused<float, NoOps, GShared>(LT_CALL(float), nullptr, nullptr, block);
+}
+int lt_segment_fused_global_f64(LT_ARGS, void *scratch, int block, int tier) {
+  return tier ? launch_fused<double, NoOps, GScratch>(LT_CALL(double), nullptr, scratch, block)
+              : launch_fused<double, NoOps, GShared>(LT_CALL(double), nullptr, nullptr, block);
+}
+
+// The global form's instrumented entries (op tally, stage cycles) are its
+// shared tier's (tier = 0).
+int lt_segment_fused_global_f32_opcount(LT_ARGS, void *scratch, int block, int tier,
+                                        void *op_count) {
+  if (tier || scratch) return (int)cudaErrorInvalidValue;
+  return launch_fused<float, CountOps, GShared>(LT_CALL(float), (long long *)op_count, nullptr,
+                                                block);
+}
+int lt_segment_fused_global_f32_stagecycles(LT_ARGS, void *scratch, int block, int tier,
+                                            void *cycles) {
+  if (tier || scratch) return (int)cudaErrorInvalidValue;
+  return launch_fused<float, StageCycles, GShared>(LT_CALL(float), (long long *)cycles, nullptr,
+                                                   block);
+}
+
+// As occupancy_of for the global form's shared tier at `nc` candidates and
+// `block` threads.
+int lt_segment_global_occupancy(int which, int f64, int ny, int nc, int block, int *blocks) {
+  return occupancy_of<GShared>(which, f64, ny, nc, block, blocks);
+}
+
+// As lt_segment_kernel_attrs for the global form's shared (tier = 0) or
+// scratch (1) tier.
+int lt_segment_global_kernel_attrs(int which, int f64, int tier, int *out) {
+  return tier ? attrs_of_cap<GScratch>(which, f64, out) : attrs_of_cap<GShared>(which, f64, out);
+}
+
+#endif  // LT_PART 2
 
 #define LT_FAMILY_ARGS                                                                       \
   const void *years, const void *values, const void *mask, long long px, int ny,            \
       void *despiked, void *vmasks, void *sses, long long out_ld, int max_segments,          \
       int overshoot, double spike, double rt, int prevent, void *stream
-#define LT_FAMILY(T, O, C, stats, scratch)                                                    \
+#define LT_FAMILY(T, O, C, stats, scratch, block)                                             \
   launch_family<T, O, C>(years, values, mask, px, ny,                                        \
                       make_family_outs<T>(despiked, vmasks, sses, out_ld),                   \
                       make_params(max_segments, overshoot, spike, rt, prevent, 0.0, 1.0, 0, 0), \
-                      stream, stats, scratch)
+                      stream, stats, scratch, block)
+#if !defined(LT_PART) || LT_PART == 1
 
 int lt_family_stats_f32(LT_FAMILY_ARGS) {
-  return LT_FAMILY(float, NoOps, Narrow, nullptr, nullptr);
+  return LT_FAMILY(float, NoOps, Narrow, nullptr, nullptr, (block_of<float, Narrow>()));
 }
 int lt_family_stats_f64(LT_FAMILY_ARGS) {
-  return LT_FAMILY(double, NoOps, Narrow, nullptr, nullptr);
+  return LT_FAMILY(double, NoOps, Narrow, nullptr, nullptr, (block_of<double, Narrow>()));
 }
 int lt_family_stats_wide_f32(LT_FAMILY_ARGS) {
-  return LT_FAMILY(float, NoOps, Wide, nullptr, nullptr);
+  return LT_FAMILY(float, NoOps, Wide, nullptr, nullptr, (block_of<float, Wide>()));
 }
 int lt_family_stats_wide_f64(LT_FAMILY_ARGS) {
-  return LT_FAMILY(double, NoOps, Wide, nullptr, nullptr);
-}
-int lt_family_stats_global_f32(LT_FAMILY_ARGS, void *scratch) {
-  return LT_FAMILY(float, NoOps, Global, nullptr, scratch);
-}
-int lt_family_stats_global_f64(LT_FAMILY_ARGS, void *scratch) {
-  return LT_FAMILY(double, NoOps, Global, nullptr, scratch);
+  return LT_FAMILY(double, NoOps, Wide, nullptr, nullptr, (block_of<double, Wide>()));
 }
 
 // The float32 family kernel with its per-pixel operation tally.
 int lt_family_stats_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return LT_FAMILY(float, CountOps, Narrow, (long long *)op_count, nullptr);
+  return LT_FAMILY(float, CountOps, Narrow, (long long *)op_count, nullptr,
+                   (block_of<float, Narrow>()));
 }
 int lt_family_stats_wide_f32_opcount(LT_FAMILY_ARGS, void *op_count) {
-  return LT_FAMILY(float, CountOps, Wide, (long long *)op_count, nullptr);
+  return LT_FAMILY(float, CountOps, Wide, (long long *)op_count, nullptr,
+                   (block_of<float, Wide>()));
 }
-int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, void *op_count) {
-  return LT_FAMILY(float, CountOps, Global, (long long *)op_count, scratch);
+
+#endif  // LT_PART 1
+#if !defined(LT_PART) || LT_PART == 2
+
+int lt_family_stats_global_f32(LT_FAMILY_ARGS, void *scratch, int block, int tier) {
+  return tier ? LT_FAMILY(float, NoOps, GScratch, nullptr, scratch, block)
+              : LT_FAMILY(float, NoOps, GShared, nullptr, nullptr, block);
 }
+int lt_family_stats_global_f64(LT_FAMILY_ARGS, void *scratch, int block, int tier) {
+  return tier ? LT_FAMILY(double, NoOps, GScratch, nullptr, scratch, block)
+              : LT_FAMILY(double, NoOps, GShared, nullptr, nullptr, block);
+}
+int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, int block, int tier,
+                                       void *op_count) {
+  if (tier || scratch) return (int)cudaErrorInvalidValue;
+  return LT_FAMILY(float, CountOps, GShared, (long long *)op_count, nullptr, block);
+}
+
+#endif  // LT_PART 2
 
 }  // extern "C"

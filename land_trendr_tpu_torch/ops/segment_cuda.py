@@ -9,7 +9,8 @@ Counterpart of ``land_trendr_tpu/ops/segment_pallas.py``:
 despiked series, family vertex sets, SSEs).
 
 * **Build.**  The kernel is compiled at first use with ``nvcc`` for
-  ``sm_90a`` into a shared library with a plain C interface
+  ``sm_90a`` (two processes at once, the fixed forms and the global form,
+  from the one source) into a shared library with a plain C interface
   (``land_trendr_tpu_torch/_build/``, named by the source's hash, so an
   edited source is rebuilt) and loaded with :mod:`ctypes`.  Nothing is
   built or imported when this module is imported.
@@ -18,19 +19,24 @@ despiked series, family vertex sets, SSEs).
   candidates, ``max_segments + 1 + vertex_count_overshoot``), which every
   40-year stack takes, the wide one (up to :data:`WIDE_NY` years and
   :data:`WIDE_NC` candidates, half the block), and the global form, whose
-  NY and candidate count are runtime values: its series, sets and
-  per-thread arrays live in a global-memory scratch the wrapper allocates
-  per launch (:func:`global_scratch_bytes`), the launch cut to
+  NY, candidate count and block are runtime values (:func:`global_plan`).
+  Its shared tier keeps the series in shared memory as the fixed forms do,
+  at the block of :data:`GLOBAL_SWEEP` an SM holds the most warps of, and its
+  per-thread arrays in locals of :data:`GLOBAL_LOCAL_NC`; its scratch tier,
+  for a NY that not even a block of 32 holds or more candidates than that,
+  keeps the same layout in a device-memory scratch the wrapper allocates
+  per call (:func:`global_scratch_bytes`), the launch cut to
   :data:`GLOBAL_SCRATCH_BUDGET` bytes of it (:func:`global_chunk`).
-  :func:`instantiation` picks one from NY and the params; nothing is
+  :func:`instantiation` picks the form from NY and the params; nothing is
   refused for its size.
 * **Launch.**  The kernel runs on PyTorch's current stream of the input's
   device, one thread per pixel.  It reads the caller's pixel-major
   ``(PX, NY)`` values and bool mask as they are (no transposed or cleaned
   copy: the kernel tests ``isfinite`` itself) and the fused kernel writes
   its outputs pixel-major, so :class:`SegOutputs` holds the tensors the
-  kernel wrote.  Each block of the narrow and wide forms brings its
-  contiguous slab into shared memory (:func:`smem_bytes` is its plan).
+  kernel wrote.  Each block brings its contiguous slab into shared memory
+  (:func:`smem_bytes` is its plan; a block of the global form's scratch
+  tier, into its region of the scratch).
   The C entry returns ``cudaGetLastError()`` and the wrapper raises on a
   non-zero code.  Every launch of the narrow fused kernel adds one to
   :data:`LAUNCHES`, of the wide and global ones to :data:`WIDE_LAUNCHES`
@@ -55,6 +61,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -73,10 +80,11 @@ __all__ = [
     "CAPS",
     "CUDA_BLOCK",
     "FAMILY_LAUNCHES",
-    "GLOBAL_BLOCKS",
     "GLOBAL_FAMILY_LAUNCHES",
     "GLOBAL_LAUNCHES",
+    "GLOBAL_LOCAL_NC",
     "GLOBAL_SCRATCH_BUDGET",
+    "GLOBAL_SWEEP",
     "LAUNCHES",
     "NARROW_NC",
     "NARROW_NY",
@@ -97,8 +105,11 @@ __all__ = [
     "cuda_segment_pixels_chunked",
     "cuda_segment_stage_cycles",
     "global_chunk",
+    "global_plan",
+    "GlobalPlan",
     "global_scratch_bytes",
     "instantiation",
+    "kernel_attributes",
     "launch_counts",
     "load_library",
     "occupancy",
@@ -116,12 +127,19 @@ BLOCKS = {torch.float32: 256, torch.float64: 128}
 #: threads per block of both wide kernels: half the narrow blocks, so that
 #: NY = 128 fits a block's shared memory (64 still divides the chunk granule)
 WIDE_BLOCKS = {torch.float32: 128, torch.float64: 64}
-#: threads per block of both global forms, which hold nothing in shared
-#: memory: the chunk granule
-GLOBAL_BLOCKS = {torch.float32: 128, torch.float64: 128}
+#: candidates the global form's shared tier holds in its per-thread local
+#: arrays; more take the scratch tier
+GLOBAL_LOCAL_NC = 64
 #: block sizes of the float32 fused kernel's block-size sweep: the
 #: float64 block, the float32 block, and the largest that holds NY = 40
 SWEEP = (128, 256, 512)
+#: the global form's blocks: its shared tier runs the one an SM holds the
+#: most warps of (:func:`global_plan`), and the float32 fused kernel's
+#: block-size sweep runs each that fits
+GLOBAL_SWEEP = (32, 64, 128)
+#: shared bytes of one SM on sm_90, and what the system keeps of them per
+#: resident block (the occupancy the global plan's block is picked by)
+SM_SMEM, SMEM_PER_BLOCK = 233_472, 1_024
 #: shared-memory bytes one block may use on sm_90
 SMEM_LIMIT = 232_448
 #: capacity bounds (years, candidates) of each instantiation: the narrow
@@ -130,8 +148,9 @@ SMEM_LIMIT = 232_448
 CAPS = {"narrow": (64, 16), "wide": (128, 32), "global": (None, None)}
 NARROW_NY, NARROW_NC = CAPS["narrow"]
 WIDE_NY, WIDE_NC = CAPS["wide"]
-#: bytes of global-memory scratch one launch of a global form may
-#: allocate; the launch loop cuts the pixels of a call to stay within it
+#: bytes of device-memory scratch one launch of the global form's scratch
+#: tier may allocate; the launch loop cuts the pixels of a call to stay
+#: within it (the shared tier allocates none)
 GLOBAL_SCRATCH_BUDGET = 1 << 30
 
 #: the fused kernel's stages, in the order of the columns of
@@ -172,9 +191,13 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: the library's parts: the source compiled once per part (``-DLT_PART``:
+#: 1 the fixed forms, 2 the global form), all started together, then
+#: linked into one shared library
+_PARTS = (1, 2)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -220,21 +243,38 @@ def _built() -> tuple[str, dict]:
     log_path = _BUILD_DIR / f"segment_fused_{digest}.ptxas.txt"
     info = {"path": str(lib), "built": False, "build_s": 0.0, "ptxas": ""}
     if not lib.exists():
-        tmp = _BUILD_DIR / f".tmp_{os.getpid()}_{lib.name}"
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        info["build_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SRC.name}:\n"
-                f"{proc.stderr[-4000:]}"
-            )
         # per-process temp names: concurrent builders (the processes of a
         # pod on a cold _build/) each rename their own identical copy
-        log_tmp = _BUILD_DIR / f".tmp_{os.getpid()}_{log_path.name}"
-        log_tmp.write_text(proc.stderr)
+        tag = f".tmp_{os.getpid()}_"
+        tmp = _BUILD_DIR / f"{tag}{lib.name}"
+        objs = [_BUILD_DIR / f"{tag}segment_fused_{digest}_{n}.o" for n in _PARTS]
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        try:
+            parts = [subprocess.Popen([nvcc, *_NVCC_FLAGS, f"-DLT_PART={n}", "-c", "-o",
+                                       str(obj), str(_SRC)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for n, obj in zip(_PARTS, objs)]
+            logs = [p.communicate() for p in parts]
+            failed = [(p.returncode, err) for p, (_, err) in zip(parts, logs) if p.returncode]
+            if not failed:
+                link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                       *map(str, objs)],
+                                      capture_output=True, text=True, check=False)
+                if link.returncode:
+                    failed.append((link.returncode, link.stderr))
+            info["build_s"] = time.perf_counter() - t0
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({failed[0][0]}) building {_SRC.name}:\n"
+                    f"{failed[0][1][-4000:]}"
+                )
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        log_tmp = _BUILD_DIR / f"{tag}{log_path.name}"
+        log_tmp.write_text("".join(err for _, err in logs))
         os.replace(log_tmp, log_path)
         os.replace(tmp, lib)  # atomic: a concurrent builder's copy is identical
         info["built"] = True
@@ -254,16 +294,25 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     for name in ("lt_segment_fused_f32_opcount", "lt_segment_fused_wide_f32_opcount",
-                 "lt_segment_fused_f32_stagecycles",
-                 "lt_segment_fused_global_f32", "lt_segment_fused_global_f64"):
+                 "lt_segment_fused_f32_stagecycles"):
         getattr(lib, name).argtypes = [*_ARGTYPES, _P]
         getattr(lib, name).restype = ctypes.c_int
-    lib.lt_segment_fused_global_f32_opcount.argtypes = [*_ARGTYPES, _P, _P]
-    lib.lt_segment_fused_global_f32_opcount.restype = ctypes.c_int
+    # the global form's entries take (scratch, block, tier) after the stream
+    for name in ("lt_segment_fused_global_f32", "lt_segment_fused_global_f64"):
+        getattr(lib, name).argtypes = [*_ARGTYPES, _P, _I, _I]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("lt_segment_fused_global_f32_opcount", "lt_segment_fused_global_f32_stagecycles"):
+        getattr(lib, name).argtypes = [*_ARGTYPES, _P, _I, _I, _P]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("lt_segment_kernel_attrs", "lt_segment_global_kernel_attrs"):
+        getattr(lib, name).argtypes = [_I, _I, _I, _P]
+        getattr(lib, name).restype = ctypes.c_int
     lib.lt_segment_fused_f32_block.argtypes = [*_ARGTYPES, _I]
     lib.lt_segment_fused_f32_block.restype = ctypes.c_int
     lib.lt_segment_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
     lib.lt_segment_occupancy.restype = ctypes.c_int
+    lib.lt_segment_global_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
+    lib.lt_segment_global_occupancy.restype = ctypes.c_int
     lib.lt_segment_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lt_segment_smem_bytes.restype = ctypes.c_longlong
     for name in ("lt_family_stats_f32", "lt_family_stats_f64",
@@ -271,57 +320,77 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _FAMILY_ARGTYPES
         fn.restype = ctypes.c_int
-    for name in ("lt_family_stats_f32_opcount", "lt_family_stats_wide_f32_opcount",
-                 "lt_family_stats_global_f32", "lt_family_stats_global_f64"):
+    for name in ("lt_family_stats_f32_opcount", "lt_family_stats_wide_f32_opcount"):
         getattr(lib, name).argtypes = [*_FAMILY_ARGTYPES, _P]
         getattr(lib, name).restype = ctypes.c_int
-    lib.lt_family_stats_global_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P, _P]
+    for name in ("lt_family_stats_global_f32", "lt_family_stats_global_f64"):
+        getattr(lib, name).argtypes = [*_FAMILY_ARGTYPES, _P, _I, _I]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.lt_family_stats_global_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P, _I, _I, _P]
     lib.lt_family_stats_global_f32_opcount.restype = ctypes.c_int
+    lib.lt_segment_global_block.argtypes = [_I, _I, _I]
+    lib.lt_segment_global_block.restype = ctypes.c_int
+    lib.lt_segment_global_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.lt_segment_global_smem_bytes.restype = ctypes.c_longlong
     lib.lt_segment_global_scratch_bytes.argtypes = [_I, _I, _I, _I, _LL]
     lib.lt_segment_global_scratch_bytes.restype = ctypes.c_longlong
     for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_wide_max_ny",
-                 "lt_segment_wide_max_nc", "lt_segment_nstage"):
+                 "lt_segment_wide_max_nc", "lt_segment_nstage", "lt_segment_global_local_nc"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
-    for name in ("lt_segment_block", "lt_segment_wide_block", "lt_segment_global_block"):
+    for name in ("lt_segment_block", "lt_segment_wide_block"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [_I]
+    _check_plans(lib)
+    return lib
+
+
+def _check_plans(lib: ctypes.CDLL) -> None:
+    """Raise unless the kernel library's capacities and its shared-memory,
+    block and scratch plans equal this module's."""
     caps = (
         (lib.lt_segment_max_ny(), lib.lt_segment_max_nc(),
          lib.lt_segment_block(4), lib.lt_segment_block(8)),
         (lib.lt_segment_wide_max_ny(), lib.lt_segment_wide_max_nc(),
          lib.lt_segment_wide_block(4), lib.lt_segment_wide_block(8)),
-        (lib.lt_segment_global_block(4), lib.lt_segment_global_block(8)),
+        lib.lt_segment_global_local_nc(),
         lib.lt_segment_nstage(),
     )
     want = tuple(
         (*CAPS[cap], block_of(torch.float32, cap), block_of(torch.float64, cap))
         for cap in ("narrow", "wide")
-    ) + ((block_of(torch.float32, "global"), block_of(torch.float64, "global")), len(STAGES))
+    ) + (GLOBAL_LOCAL_NC, len(STAGES))
     if caps != want:
         raise RuntimeError(f"kernel capacities {caps} != wrapper's {want}")
-    for code, cap in enumerate(_CAP_CODES):
-        for ny in (1, 2, 40, CAPS[cap][0] or 300):
+    for code, cap in enumerate(("narrow", "wide")):
+        for ny in (1, 2, 40, CAPS[cap][0]):
             for elem in (4, 8):
                 for block in (*SWEEP, *WIDE_BLOCKS.values()):
                     got = lib.lt_segment_smem_bytes(ny, elem, block, code)
-                    plan = _smem_plan(ny, elem, block, cap)
+                    plan = _smem_plan(ny, elem, block, CAPS[cap][1])
                     if got != plan:
                         raise RuntimeError(
                             f"kernel's shared-memory plan {got} B (ny={ny}, {elem}-byte "
                             f"values, block {block}, {cap}) != wrapper's {plan} B"
                         )
-    for ny, nc, nm in ((1, 4, 1), (40, 10, 6), (160, 40, 36), (300, 9, 5)):
-        for elem in (4, 8):
-            for px in (1, 129, 65_536):
-                got = lib.lt_segment_global_scratch_bytes(ny, nc, nm, elem, px)
-                plan = _scratch_plan(ny, nc, nm, elem, px)
+    # the global plan on each side of its tier boundaries (the scratch tier
+    # from NY 444 in float64 and 880 in float32, and above 64 candidates)
+    for ny in (1, 40, 160, 443, 444, 879, 880, 1000):
+        for nc in (4, 10, 40, GLOBAL_LOCAL_NC, GLOBAL_LOCAL_NC + 1):
+            for elem in (4, 8):
+                got = (lib.lt_segment_global_block(ny, elem, nc),
+                       [lib.lt_segment_global_smem_bytes(ny, nc, elem, b) for b in GLOBAL_SWEEP],
+                       [lib.lt_segment_global_scratch_bytes(ny, nc, nc - 3, elem, px)
+                        for px in (1, 129, 65_536)])
+                plan = (_global_block(ny, elem, nc),
+                        [_global_smem_plan(ny, nc, elem, b) for b in GLOBAL_SWEEP],
+                        [_scratch_plan(ny, nc, nc - 3, elem, px) for px in (1, 129, 65_536)])
                 if got != plan:
                     raise RuntimeError(
-                        f"kernel's scratch plan {got} B (ny={ny}, nc={nc}, nm={nm}, "
-                        f"{elem}-byte values, {px} px) != wrapper's {plan} B"
+                        f"kernel's global plan {got} (ny={ny}, nc={nc}, {elem}-byte values: "
+                        f"block, shared bytes at {GLOBAL_SWEEP}, scratch bytes) != wrapper's "
+                        f"{plan}"
                     )
-    return lib
 
 
 def build_info(force: bool = False) -> dict:
@@ -361,58 +430,121 @@ def _holds(cap: str, ny: int, params: LTParams) -> bool:
 
 
 def block_of(dtype: torch.dtype, cap: str = "narrow") -> int:
-    """Threads per block of both kernels of instantiation ``cap``."""
-    return {"narrow": BLOCKS, "wide": WIDE_BLOCKS, "global": GLOBAL_BLOCKS}[cap][dtype]
+    """Threads per block of both kernels of the fixed instantiation ``cap``
+    (the global form's block follows the shape: :func:`global_plan`)."""
+    if cap not in ("narrow", "wide"):
+        raise ValueError(f"the {cap} form's block follows the shape: see global_plan")
+    return {"narrow": BLOCKS, "wide": WIDE_BLOCKS}[cap][dtype]
 
 
-def _smem_plan(ny: int, elem: int, block: int, cap: str = "narrow") -> int:
+def _elem(dtype: torch.dtype) -> int:
+    if dtype not in BLOCKS:
+        raise TypeError(f"values must be float32 or float64; got {dtype}")
+    return 8 if dtype == torch.float64 else 4
+
+
+def _smem_plan(ny: int, elem: int, block: int, nc: int) -> int:
     """Dynamic shared-memory bytes of one block (``smem_bytes`` in the
     source): a 16-byte mbarrier, the year axis rounded up to 16 bytes, the
     y columns (NY per thread; the mask slab lands there), and the t
-    columns (W = max(NY, NC) | 1 per thread for the instantiation's
-    candidate capacity NC; the value slab lands there and the output
-    staging tile reuses them).  The global form uses none."""
-    if cap == "global":
-        return 0
-    width = max(ny, CAPS[cap][1]) | 1
+    columns (W = max(NY, NC) | 1 per thread for the candidate capacity NC;
+    the value slab lands there and the output staging tile reuses them)."""
+    width = max(ny, nc) | 1
     return 16 + (ny * elem + 15) // 16 * 16 + block * (ny + width) * elem
 
 
+def _global_smem_plan(ny: int, nc: int, elem: int, block: int) -> int:
+    """The global form's block (``global_smem_bytes`` in the source): the
+    fixed forms' layout at the launch's NC, with the valid-year set as
+    ceil(NY / 64) columns of 64-bit words beside it."""
+    return _smem_plan(ny, elem, block, nc) + (ny + 63) // 64 * block * 8
+
+
+def _global_block(ny: int, elem: int, nc: int) -> int:
+    """The global form's shared-tier block (``global_block`` in the
+    source): of the blocks of :data:`GLOBAL_SWEEP` that fit in
+    :data:`SMEM_LIMIT` bytes, the one an SM holds the most warps of
+    (:data:`SM_SMEM` over each block's bytes plus :data:`SMEM_PER_BLOCK`,
+    at most 32 blocks and 64 warps), ties to the larger; 0 — the scratch
+    tier — when none fits or there are more than :data:`GLOBAL_LOCAL_NC`
+    candidates."""
+    if nc > GLOBAL_LOCAL_NC:
+        return 0
+    best, best_warps = 0, 0
+    for b in sorted(GLOBAL_SWEEP, reverse=True):
+        n = _global_smem_plan(ny, nc, elem, b)
+        if n > SMEM_LIMIT:
+            continue
+        warps = min(SM_SMEM // (n + SMEM_PER_BLOCK), 32, 2048 // b) * b // 32
+        if warps > best_warps:
+            best, best_warps = b, warps
+    return best
+
+
 def _scratch_plan(ny: int, nc: int, nm: int, elem: int, px: int) -> int:
-    """Bytes of the global form's scratch for ``px`` pixels
-    (``plane_offset(NPLANE)`` in the source): one plane per per-pixel
-    array, laid out [position][pixel] and rounded up to 16 bytes — the y
-    and t columns (NY values each), the valid-year set, the family's NM
-    sets and the family kernel's member set (NY/64 rounded up 64-bit words
-    each), then NC ints (vertices, farthest points), NC values (segment
-    deviations), NM values each (SSEs, p-values, scores), NC ints and
-    values (the chosen vertices and fits), NC values each (regression
-    anchors, rates) and NC ints (vertex years)."""
-    words = (ny + 63) // 64
-    planes = (
-        (ny, elem), (ny, elem), (words, 8), (nm * words, 8), (words, 8),
-        (nc, 4), (nc, 4), (nc, elem), (nm, elem), (nm, elem), (nm, elem),
-        (nc, 4), (nc, elem), (nc, elem), (nc, elem), (nc, 4),
-    )
-    return sum((rows * size * px + 15) // 16 * 16 for rows, size in planes)
+    """Bytes of the global form's scratch tier for ``px`` pixels
+    (``lt_segment_global_scratch_bytes`` in the source): one region per
+    block of :data:`CUDA_BLOCK` threads, each the block's layout
+    (:func:`_global_smem_plan`) and then the per-thread arrays as planes
+    [position][thread] — NC ints x 4 (vertices, farthest points, the chosen
+    vertices, their years), NM ints (the family's removals), NC values x 4
+    (deviations, the chosen fits, regression anchors, rates) and NM values
+    x 3 (SSEs, p-values, scores)."""
+    arrays = ((4 * nc + nm) * 4 + (4 * nc + 3 * nm) * elem) * CUDA_BLOCK
+    region = _global_smem_plan(ny, nc, elem, CUDA_BLOCK) + arrays
+    return -(-px // CUDA_BLOCK) * region
+
+
+class GlobalPlan(NamedTuple):
+    """A launch plan of the global form: its tier (``"shared"`` or
+    ``"scratch"``), threads per block, dynamic shared bytes per block, and
+    scratch bytes per :data:`CUDA_BLOCK`-pixel block (0 in the shared tier)."""
+
+    tier: str
+    block: int
+    smem: int
+    scratch_per_block: int
+
+
+def global_plan(ny: int, params: LTParams, dtype: torch.dtype = torch.float32, *,
+                _tier: "str | None" = None) -> GlobalPlan:
+    """The global form's plan at ``ny`` years and ``params``' candidates:
+    the shared tier at the block of :data:`GLOBAL_SWEEP` an SM holds the
+    most warps of (:func:`_global_block`), else the scratch tier (blocks of
+    :data:`CUDA_BLOCK`).  ``_tier`` is a test hook, which no caller of the
+    port passes: it forces one tier, so that the tests hold the scratch
+    tier to the shared one on the same shapes; forcing the shared tier on a
+    shape it cannot hold raises :class:`ValueError`."""
+    elem, nc = _elem(dtype), params.max_candidates
+    if ny < 1:
+        raise ValueError(f"NY={ny}: a series needs a year")
+    if _tier not in (None, "shared", "scratch"):
+        raise ValueError(f"tier {_tier!r} is not 'shared' or 'scratch'")
+    block = _global_block(ny, elem, nc)
+    if _tier == "shared" and not block:
+        raise ValueError(
+            f"the global form's shared tier holds NY={ny} at {nc} candidates in no block of "
+            f"{GLOBAL_SWEEP} ({dtype}, at most {GLOBAL_LOCAL_NC} candidates)")
+    if block and _tier != "scratch":
+        return GlobalPlan("shared", block, _global_smem_plan(ny, nc, elem, block), 0)
+    return GlobalPlan("scratch", CUDA_BLOCK, 0,
+                      _scratch_plan(ny, nc, params.max_segments, elem, CUDA_BLOCK))
 
 
 def global_scratch_bytes(ny: int, params: LTParams, dtype: torch.dtype = torch.float32,
                          px: int = 1) -> int:
-    """Bytes of global-memory scratch one launch of either global form
-    needs for ``px`` pixels at ``ny`` years and ``params``' candidates."""
-    if dtype not in BLOCKS:
-        raise TypeError(f"values must be float32 or float64; got {dtype}")
-    return _scratch_plan(ny, params.max_candidates, params.max_segments,
-                         8 if dtype == torch.float64 else 4, px)
+    """Bytes of device-memory scratch one launch of the global form's
+    scratch tier needs for ``px`` pixels at ``ny`` years and ``params``'
+    candidates."""
+    return _scratch_plan(ny, params.max_candidates, params.max_segments, _elem(dtype), px)
 
 
 def global_chunk(ny: int, params: LTParams, dtype: torch.dtype = torch.float32,
                  budget: "int | None" = None) -> int:
-    """Pixels per launch of the global forms: the most, a multiple of
-    :data:`CUDA_BLOCK`, whose scratch stays within ``budget`` bytes
-    (default :data:`GLOBAL_SCRATCH_BUDGET`); raises :class:`ValueError`
-    when not even one block's fits."""
+    """Pixels per launch of the global form's scratch tier: the most, a
+    multiple of :data:`CUDA_BLOCK`, whose scratch stays within ``budget``
+    bytes (default :data:`GLOBAL_SCRATCH_BUDGET`); raises
+    :class:`ValueError` when not even one block's fits."""
     budget = GLOBAL_SCRATCH_BUDGET if budget is None else budget
     per_block = global_scratch_bytes(ny, params, dtype, CUDA_BLOCK)
     if per_block > budget:
@@ -420,33 +552,37 @@ def global_chunk(ny: int, params: LTParams, dtype: torch.dtype = torch.float32,
             f"one block of {CUDA_BLOCK} px at NY={ny} needs {per_block:,} B of scratch; "
             f"the budget is {budget:,} B"
         )
-    # whole blocks fill every plane in whole 16-byte runs: the plan is
-    # linear in the blocks
+    # the scratch is whole blocks' regions: the plan is linear in the blocks
     return budget // per_block * CUDA_BLOCK
 
 
 def smem_bytes(ny: int, dtype: torch.dtype = torch.float32, block: "int | None" = None,
-               cap: str = "narrow") -> int:
+               cap: str = "narrow", nc: "int | None" = None) -> int:
     """Dynamic shared-memory bytes per block of both kernels of
     instantiation ``cap`` at ``ny`` years for ``dtype`` values and
     ``block`` threads (default: the instantiation's block for the dtype,
     :func:`block_of`); raises :class:`ValueError` when a block may not
     hold that much on sm_90 (more than :data:`SMEM_LIMIT` bytes).  The
-    global form holds any NY in none."""
-    if dtype not in BLOCKS:
-        raise TypeError(f"values must be float32 or float64; got {dtype}")
-    block = block_of(dtype, cap) if block is None else block
-    max_ny = CAPS[cap][0]
-    if max_ny is None:
+    global form's block also holds the valid-year words and follows the
+    candidates ``nc`` (required; its block defaults to :func:`global_plan`'s
+    shared tier, and a shape only the scratch tier holds raises)."""
+    elem = _elem(dtype)
+    if cap == "global":
+        if nc is None:
+            raise ValueError("the global form's shared memory follows the candidates: pass nc")
         if ny < 1:
             raise ValueError(f"NY={ny}: a series needs a year")
-        return _smem_plan(ny, 8 if dtype == torch.float64 else 4, block, cap)
-    if not 1 <= ny <= max_ny:
-        raise ValueError(f"NY={ny} outside the {cap} kernel's 1..{max_ny}-year capacity")
-    n = _smem_plan(ny, 8 if dtype == torch.float64 else 4, block, cap)
-    if n > SMEM_LIMIT:
+        block = block or _global_block(ny, elem, nc)
+        n = _global_smem_plan(ny, nc, elem, block or 32)
+    else:
+        block = block_of(dtype, cap) if block is None else block
+        max_ny = CAPS[cap][0]
+        if not 1 <= ny <= max_ny:
+            raise ValueError(f"NY={ny} outside the {cap} kernel's 1..{max_ny}-year capacity")
+        n = _smem_plan(ny, elem, block, CAPS[cap][1])
+    if n > SMEM_LIMIT or not block:
         raise ValueError(
-            f"a block of {block} threads at NY={ny} ({dtype}) needs {n:,} B of shared "
+            f"a block of {block or 32} threads at NY={ny} ({dtype}) needs {n:,} B of shared "
             f"memory; a block may hold {SMEM_LIMIT:,} B"
         )
     return n
@@ -494,7 +630,7 @@ def _plan_cap(ny: int, params: LTParams, cap: "str | None") -> str:
 
 
 class _Scratch:
-    """The global forms' scratch of one call: allocated once for the
+    """The global form's scratch tier for one call: allocated once for the
     largest piece, and the pieces each launch takes (:func:`global_chunk`
     pixels, the last one ragged)."""
 
@@ -512,21 +648,45 @@ class _Scratch:
             yield s, min(self.chunk, start + count - s)
 
 
-class _Launch:
+class _Planned:
+    """The form of one call of either kernel and its plan: ``cap`` forces a
+    form (tests, the smoke) and ``_tier`` the global form's tier (the test
+    hook of :func:`global_plan`)."""
+
+    def _plan(self, values, params: LTParams, cap: "str | None", _tier: "str | None") -> None:
+        self.dtype = values.dtype
+        self.params = params
+        self.px, self.ny = values.shape
+        self.cap = _plan_cap(self.ny, params, cap)
+        if _tier is not None and self.cap != "global":
+            raise ValueError(f"tier {_tier!r} is the global form's; the form is {self.cap}")
+        self.plan = (global_plan(self.ny, params, self.dtype, _tier=_tier)
+                     if self.cap == "global" else None)
+        self.block = self.plan.block if self.plan else block_of(self.dtype, self.cap)
+        self.smem = self.plan.smem if self.plan else smem_bytes(self.ny, self.dtype, cap=self.cap)
+        self.scratch = (
+            _Scratch(self.ny, params, self.dtype, self.px, values.device)
+            if self.plan and self.plan.tier == "scratch" else None
+        )
+
+    def _global_args(self, block: "int | None" = None) -> list:
+        """The global form's (scratch, block, tier) after the stream."""
+        return [None if self.scratch is None else self.scratch.tensor.data_ptr(),
+                self.block if block is None else block, int(self.scratch is not None)]
+
+    def _pieces(self, start: int, count: int):
+        return [(start, count)] if self.scratch is None else self.scratch.pieces(start, count)
+
+
+class _Launch(_Planned):
     """Inputs and pixel-major outputs of one (possibly chunked) kernel call:
     the kernel reads the caller's ``values`` and ``mask`` themselves."""
 
-    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None):
+    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None, *,
+                 _tier: "str | None" = None):
         dev = values.device
-        self.dtype = values.dtype
-        self.params = params
-        px, ny = values.shape
-        self.px, self.ny = px, ny
-        self.cap = _plan_cap(ny, params, cap)
-        self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
-        self.scratch = (
-            _Scratch(ny, params, self.dtype, px, dev) if self.cap == "global" else None
-        )
+        self._plan(values, params, cap, _tier)
+        px, ny = self.px, self.ny
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nv, nm = params.max_vertices, params.max_segments
@@ -547,18 +707,29 @@ class _Launch:
         ``op_count`` (int64, PX) the float32 kernel also writes each
         pixel's floating-point operation tally there, with ``cycles``
         (int64, PX x (len(STAGES) + 1)) each pixel's cycles per stage and
-        their total; ``block`` (one of :data:`SWEEP`) runs the float32
-        kernel built for that block size.  Those three are float32 only,
-        and stage cycles and the sweep narrow only."""
+        their total; ``block`` (one of :data:`SWEEP`, of :data:`GLOBAL_SWEEP`
+        for the global form) runs the float32 kernel at that block size.
+        Those three are float32 only, stage cycles and the sweep are the
+        narrow and global forms' only, and the global form's three are its
+        shared tier's."""
         if self.dtype != torch.float32 and (
                 op_count is not None or cycles is not None or block is not None):
             raise ValueError(
                 f"op counts, stage cycles and the block sweep are float32 kernels; "
                 f"values are {self.dtype}")
-        if self.cap != "narrow" and (cycles is not None or block is not None):
-            raise ValueError("stage cycles and the block sweep are narrow kernels")
-        if block is not None and block not in SWEEP:
-            raise ValueError(f"block {block} is not one of the sweep's {SWEEP}")
+        if self.cap == "wide" and (cycles is not None or block is not None):
+            raise ValueError("stage cycles and the block sweep are the narrow and global "
+                             "kernels'; the wide kernel has neither")
+        if self.scratch is not None and (
+                op_count is not None or cycles is not None or block is not None):
+            raise ValueError("op counts, stage cycles and the block sweep are the global "
+                             "form's shared tier's; this shape takes its scratch tier")
+        sweep = GLOBAL_SWEEP if self.cap == "global" else SWEEP
+        if block is not None and block not in sweep:
+            raise ValueError(f"block {block} is not one of the sweep's {sweep}")
+        if self.plan is not None and block is not None:
+            # raises when a block of that size cannot hold the shape
+            smem_bytes(self.ny, self.dtype, block, "global", self.params.max_candidates)
         lib = load_library()
         form = "" if self.cap == "narrow" else f"_{self.cap}"
         fn = getattr(lib, f"lt_segment_fused{form}_{'f64' if self.dtype == torch.float64 else 'f32'}")
@@ -566,21 +737,21 @@ class _Launch:
         if op_count is not None:
             fn, record = getattr(lib, f"lt_segment_fused{form}_f32_opcount"), op_count
         elif cycles is not None:
-            fn, record = lib.lt_segment_fused_f32_stagecycles, cycles
-        elif block is not None:
+            fn, record = getattr(lib, f"lt_segment_fused{form}_f32_stagecycles"), cycles
+        elif block is not None and self.plan is None:
             fn = lib.lt_segment_fused_f32_block
-        pieces = [(start, count)] if self.scratch is None else self.scratch.pieces(start, count)
-        for first, n in pieces:
-            tail = ([_at(record, first)] if record is not None
-                    else [block] if block is not None else [])
+        for first, n in self._pieces(start, count):
+            tail = [_at(record, first)] if record is not None else []
+            if self.plan is not None:
+                tail = [*self._global_args(block), *tail]
+            elif block is not None:
+                tail = [block]
             self._launch(fn, first, n, tail)
 
     def _launch(self, fn, start: int, count: int, extra: list) -> None:
         """One launch of ``fn`` on pixels ``[start, start + count)``, with
-        the scratch (the global form) and ``extra`` after the stream."""
+        ``extra`` after the stream."""
         global LAUNCHES, WIDE_LAUNCHES, GLOBAL_LAUNCHES
-        if self.scratch is not None:
-            extra = [self.scratch.tensor.data_ptr(), *extra]
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
         with nvtx_range("lt_segment_fused"):
@@ -715,18 +886,21 @@ def cuda_segment_stage_cycles(
     values: torch.Tensor,
     mask: torch.Tensor,
     params: LTParams = LTParams(),
+    cap: "str | None" = None,
 ) -> torch.Tensor:
     """Per-pixel ``clock64()`` cycles of each stage of the float32 fused
     kernel on these inputs: int64 ``(PX, len(STAGES) + 1)``, the stages'
     columns in the order of :data:`STAGES`, then their total (the thread's
     cycles from kernel entry to its last stage mark).  A stage a pixel
     skips counts 0; the output stage includes the block's staging barriers.
-    CUDA tensors only."""
+    The form is picked as a launch picks it (``cap`` forces one); the
+    narrow and global forms have the entry, the wide one not.  CUDA
+    tensors only."""
     _check(years, values, mask)
     if values.dtype != torch.float32 or values.device.type != "cuda":
         raise ValueError("stage cycles come from the float32 kernel on CUDA tensors")
     with torch.cuda.device(values.device):
-        job = _Launch(years, values, mask, params)
+        job = _Launch(years, values, mask, params, cap=cap)
         cycles = torch.zeros((values.shape[0], len(STAGES) + 1), dtype=torch.int64,
                              device=values.device)
         job.run(0, values.shape[0], cycles=cycles)
@@ -734,19 +908,27 @@ def cuda_segment_stage_cycles(
 
 
 def occupancy(kernel: str = "fused", dtype: torch.dtype = torch.float32, ny: int = 40,
-              block: "int | None" = None, cap: str = "narrow") -> dict:
+              block: "int | None" = None, cap: str = "narrow", nc: "int | None" = None) -> dict:
     """Resident blocks and warps per SM of ``kernel`` ("fused" or
     "family") of instantiation ``cap`` at ``ny`` years (CUDA occupancy
     calculator), with the block size and its dynamic shared-memory bytes.
     ``block`` defaults to the instantiation's (:func:`block_of`); others:
-    the narrow float32 fused kernel of the sweep only."""
+    the narrow float32 fused kernel of the sweep only.  The global form is
+    its shared tier at ``nc`` candidates (required), at any block of
+    :data:`GLOBAL_SWEEP` that holds the shape (default :func:`global_plan`'s)."""
     lib = load_library()
-    block = block_of(dtype, cap) if block is None else block
+    smem = smem_bytes(ny, dtype, block, cap, nc)
+    if block is None:
+        block = (_global_block(ny, _elem(dtype), nc) if cap == "global"
+                 else block_of(dtype, cap))
     blocks = ctypes.c_int(0)
     which = {"fused": 0, "family": 1}[kernel]
     f64 = int(dtype == torch.float64)
-    rc = lib.lt_segment_occupancy(which, f64, ny, block, _CAP_CODES.index(cap),
-                                  ctypes.addressof(blocks))
+    if cap == "global":
+        rc = lib.lt_segment_global_occupancy(which, f64, ny, nc, block, ctypes.addressof(blocks))
+    else:
+        rc = lib.lt_segment_occupancy(which, f64, ny, block, _CAP_CODES.index(cap),
+                                      ctypes.addressof(blocks))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
     return {
@@ -754,27 +936,45 @@ def occupancy(kernel: str = "fused", dtype: torch.dtype = torch.float32, ny: int
         "cap": cap,
         "dtype": str(dtype).replace("torch.", ""),
         "block": block,
-        "smem_bytes": smem_bytes(ny, dtype, block, cap),
+        "smem_bytes": smem,
         "blocks_per_sm": blocks.value,
         "warps_per_sm": blocks.value * block // 32,
     }
 
 
-class _FamilyLaunch:
+def kernel_attributes() -> "list[dict]":
+    """Registers a thread and local (stack) bytes of every production
+    instantiation of both kernels (``cudaFuncGetAttributes``; the global
+    form's two tiers as ``global`` and ``global_scratch``), with its static
+    shared bytes and its most threads a block: one dict each."""
+    lib = load_library()
+    rows = []
+    for kernel, which in (("fused", 0), ("family", 1)):
+        for cap, fn, code in (("narrow", lib.lt_segment_kernel_attrs, 0),
+                              ("wide", lib.lt_segment_kernel_attrs, 1),
+                              ("global", lib.lt_segment_global_kernel_attrs, 0),
+                              ("global_scratch", lib.lt_segment_global_kernel_attrs, 1)):
+            for dtype in (torch.float32, torch.float64):
+                out = (ctypes.c_int * 4)()
+                rc = fn(which, int(dtype == torch.float64), code, ctypes.addressof(out))
+                if rc != 0:
+                    raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc}")
+                rows.append({"kernel": kernel, "cap": cap,
+                             "dtype": str(dtype).replace("torch.", ""),
+                             "registers": out[0], "local_bytes": out[1],
+                             "static_shared_bytes": out[2], "max_threads": out[3]})
+    return rows
+
+
+class _FamilyLaunch(_Planned):
     """Inputs and year-major outputs of one family-kernel call: the kernel
     reads the caller's ``values`` and ``mask`` themselves."""
 
-    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None):
+    def __init__(self, years, values, mask, params: LTParams, cap: "str | None" = None, *,
+                 _tier: "str | None" = None):
         dev = values.device
-        self.dtype = values.dtype
-        self.params = params
-        px, ny = values.shape
-        self.px, self.ny = px, ny
-        self.cap = _plan_cap(ny, params, cap)
-        self.smem = smem_bytes(ny, values.dtype, cap=self.cap)
-        self.scratch = (
-            _Scratch(ny, params, self.dtype, px, dev) if self.cap == "global" else None
-        )
+        self._plan(values, params, cap, _tier)
+        px, ny = self.px, self.ny
         self.years = _kernel_years(years, values)
         self.values, self.mask = values, mask
         nm = params.max_segments
@@ -794,12 +994,14 @@ class _FamilyLaunch:
         form = "" if self.cap == "narrow" else f"_{self.cap}"
         fn = getattr(lib, f"lt_family_stats{form}_{'f64' if self.dtype == torch.float64 else 'f32'}")
         if op_count is not None:
+            if self.scratch is not None:
+                raise ValueError("op counts are the global form's shared tier's; this shape "
+                                 "takes its scratch tier")
             fn = getattr(lib, f"lt_family_stats{form}_f32_opcount")
-        pieces = [(0, self.px)] if self.scratch is None else self.scratch.pieces(0, self.px)
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
-        for start, count in pieces:
-            extra = [] if self.scratch is None else [self.scratch.tensor.data_ptr()]
+        for start, count in self._pieces(0, self.px):
+            extra = [] if self.plan is None else self._global_args()
             if op_count is not None:
                 extra.append(_at(op_count, start))
             # a piece writes columns [start, start + count) of the

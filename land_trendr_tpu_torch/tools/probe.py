@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from pathlib import Path
 from typing import Callable
@@ -51,7 +52,7 @@ from land_trendr_tpu_torch.ops.segment_cuda import cuda_family_stats, cuda_segme
 from land_trendr_tpu_torch.runtime.driver import resolve_device
 from land_trendr_tpu_torch.tools.population import make_population
 
-__all__ = ["kernel", "kernel_report", "main", "scaling", "stages"]
+__all__ = ["kernel", "kernel_report", "main", "ptxas_rows", "scaling", "stage_shares", "stages"]
 
 NY = 40
 
@@ -149,6 +150,64 @@ def scaling(px_list: "list[int]", device: str = "cuda", reps: int = 5) -> dict:
     return out
 
 
+def stage_shares(cycles: torch.Tensor) -> "tuple[dict, dict]":
+    """Each stage's share of the summed per-thread cycles and its mean
+    cycles per pixel, from :func:`cuda_segment_stage_cycles`' record."""
+    if not torch.equal(cycles[:, : len(sc.STAGES)].sum(dim=1), cycles[:, -1]):
+        raise RuntimeError("stage cycles do not sum to each thread's total")
+    per_stage = cycles[:, : len(sc.STAGES)].double().sum(dim=0)
+    total = float(per_stage.sum())
+    px = cycles.shape[0]
+    return ({k: float(v) / total for k, v in zip(sc.STAGES, per_stage)},
+            {k: float(v) / px for k, v in zip(sc.STAGES, per_stage)})
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_FORMS = (("CapILi1ELi16E", "narrow"), ("CapILi2ELi32E", "wide"),
+          ("GlobalILb1E", "global_scratch"), ("GlobalILb0E", "global"), ("Global", "global"))
+
+
+def ptxas_rows(text: str) -> "list[dict]":
+    """One row per kernel entry of nvcc's ``-Xptxas -v`` report
+    (:func:`~land_trendr_tpu_torch.ops.segment_cuda.build_info`'s
+    ``ptxas``): which kernel, value type, policy, block bound and form,
+    read from the mangled name, with its registers, stack frame and spill
+    bytes."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            kind = ("fused" if "segment_fused_kernel" in name
+                    else "family" if "family_stats_kernel" in name else None)
+            if kind is None:
+                cur = None
+                continue
+            dt = re.search(r"kernelI([fd])", name)
+            pol = re.search(r"(NoOps|CountOps|StageCycles)", name)
+            blk = re.search(r"(?:NoOps|CountOps|StageCycles)ELi(\d+)E", name)
+            form = next((f for key, f in _FORMS if key in name), "?")
+            cur = {"kernel": kind, "dtype": {"f": "float32", "d": "float64"}[dt.group(1)],
+                   "policy": pol.group(1) if pol else "?",
+                   "block": int(blk.group(1)) if blk else None, "form": form}
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_STACK.search(line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            rows.append(cur)
+            cur = None
+    return rows
+
+
 def kernel_report(years, vals, mask, reps: int = 20) -> dict:
     """Where the time goes inside the float32 kernels on these CUDA inputs.
 
@@ -161,11 +220,7 @@ def kernel_report(years, vals, mask, reps: int = 20) -> dict:
     dev = vals.device
     params = LTParams()
     px = vals.shape[0]
-    cyc = sc.cuda_segment_stage_cycles(years, vals, mask, params)
-    if not torch.equal(cyc[:, : len(sc.STAGES)].sum(dim=1), cyc[:, -1]):
-        raise RuntimeError("stage cycles do not sum to each thread's total")
-    per_stage = cyc[:, : len(sc.STAGES)].double().sum(dim=0)
-    total = float(per_stage.sum())
+    share, per_px = stage_shares(sc.cuda_segment_stage_cycles(years, vals, mask, params))
     job = sc._Launch(years, vals, mask, params)
     fjob = sc._FamilyLaunch(years, vals, mask, params)
     ny = vals.shape[1]
@@ -178,8 +233,8 @@ def kernel_report(years, vals, mask, reps: int = 20) -> dict:
         "px": px,
         "ny": vals.shape[1],
         "device_name": _device_name(dev),
-        "stage_share": {k: float(v) / total for k, v in zip(sc.STAGES, per_stage)},
-        "cycles_per_px": {k: float(v) / px for k, v in zip(sc.STAGES, per_stage)},
+        "stage_share": share,
+        "cycles_per_px": per_px,
         "occupancy": [sc.occupancy(k, d, ny)
                       for k in ("fused", "family") for d in (torch.float32, torch.float64)],
         "block_sweep": sweep,

@@ -19,10 +19,15 @@ Artifacts are digest-compared across the two job workdirs (warm ≡ cold,
 byte-identical), and on the card the kernel launches of each job are
 reported (cold = tiles + 1, warm = tiles).
 
+``--reps N`` runs N cold / warm pairs in turn (each pair a fresh server
+with its own workdir, program cache and ingest store) and reports the pair
+of the median speedup, with every pair's speedup beside it
+(``speedup_reps``); every pair must hold the invariants.
+
 Usage::
 
-    python -m land_trendr_tpu_torch.tools.serve_bench [--smoke] [--out SERVE.json]
-        [--size PX --years N --tile PX] [--device cuda|cpu]
+    python -m land_trendr_tpu_torch.tools.serve_bench [--smoke] [--reps N]
+        [--out SERVE.json] [--size PX --years N --tile PX] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from land_trendr_tpu_torch.runtime.driver import resolve_device
 from land_trendr_tpu_torch.tools.measure import digest_workdir, record_meta, write_json_atomic
 
 __all__ = ["main", "run_bench"]
+
+#: the shared ingest store's budget (MiB) of each server
+SERVE_STORE_MB = 256
 
 
 def _post(port: int, path: str, payload: dict) -> "tuple[int, dict]":
@@ -85,21 +93,20 @@ def _counters() -> dict:
             **segment_cuda.launch_counts()}
 
 
-def run_bench(size: int, years: int, tile: int, root: str, device: str = "cuda") -> dict:
-    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack_c2
+def run_pair(stack_dir: str, tile: int, workdir: str, device: str) -> dict:
+    """One fresh server on ``workdir``: the same lazy-ingest job submitted
+    twice over the API, cold then warm; each leg's final snapshot, client
+    latency and counter deltas."""
     from land_trendr_tpu_torch.serve import SegmentationServer, ServeConfig
 
-    stack_dir = str(Path(root) / "stack")
-    write_stack_c2(stack_dir, make_stack(SceneSpec(
-        width=size, height=size, year_start=2000, year_end=2000 + years - 1, seed=11)))
     cfg = ServeConfig(
-        workdir=str(Path(root) / "serve"),
+        workdir=workdir,
         serve_port=0,
         max_jobs=2,
         # RAM tier OFF: every demand read consults the persistent store, so
         # the warm leg's zero-decode claim is structural
         feed_cache_mb=0,
-        ingest_store_mb=256,
+        ingest_store_mb=SERVE_STORE_MB,
     )
     server = SegmentationServer(cfg, device=device)
     request = {"stack_dir": stack_dir, "tile_size": tile, "lazy": True,
@@ -133,8 +140,22 @@ def run_bench(size: int, years: int, tile: int, root: str, device: str = "cuda")
     t.join(timeout=30)
     if errors:
         raise RuntimeError(f"bench client failed: {errors[0]}")
+    return legs
 
-    def leg_report(leg: str) -> dict:
+
+def run_bench(size: int, years: int, tile: int, root: str, device: str = "cuda",
+              reps: int = 1) -> dict:
+    from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack_c2
+
+    stack_dir = str(Path(root) / "stack")
+    write_stack_c2(stack_dir, make_stack(SceneSpec(
+        width=size, height=size, year_start=2000, year_end=2000 + years - 1, seed=11)))
+    # ``reps`` cold / warm pairs in turn, each a fresh server
+    pairs = [run_pair(stack_dir, tile, str(Path(root) / ("serve" + (f"_{rep}" if reps > 1
+                                                                      else ""))), device)
+             for rep in range(reps)]
+
+    def leg_report(legs: dict, leg: str) -> dict:
         snap = legs[leg]["snap"]
         summary = snap["summary"]
         c = legs[leg]["counters"]
@@ -148,29 +169,45 @@ def run_bench(size: int, years: int, tile: int, root: str, device: str = "cuda")
             "launches": c["LAUNCHES"] + c["WIDE_LAUNCHES"] + c["GLOBAL_LAUNCHES"],
         }
 
-    cold, warm = leg_report("cold"), leg_report("warm")
-    d_cold = digest_workdir(legs["cold"]["snap"]["workdir"])
-    parity_ok = bool(d_cold) and d_cold == digest_workdir(legs["warm"]["snap"]["workdir"])
-    warm_store = warm["ingest_store"] or {}
     tiles = ((size + tile - 1) // tile) ** 2
-    invariants = {
-        "warm_zero_compiles": warm["program_cache"]["misses"] == 0
-        and warm["library_loads"] == 0,
-        "warm_zero_decodes": warm_store.get("misses", -1) == 0 and warm_store.get("hits", 0) > 0,
-        "cold_compiled": cold["program_cache"]["misses"] == 1,
-    }
-    if device == "cuda":
-        # a miss pays one warm-up launch; a hit launches once a tile
-        invariants["launch_arithmetic"] = (cold["launches"] == tiles + 1
-                                           and warm["launches"] == tiles)
+
+    def pair_invariants(cold: dict, warm: dict) -> dict:
+        warm_store = warm["ingest_store"] or {}
+        inv = {
+            "warm_zero_compiles": warm["program_cache"]["misses"] == 0
+            and warm["library_loads"] == 0,
+            "warm_zero_decodes": warm_store.get("misses", -1) == 0
+            and warm_store.get("hits", 0) > 0,
+            "cold_compiled": cold["program_cache"]["misses"] == 1,
+        }
+        if device == "cuda":
+            # a miss pays one warm-up launch; a hit launches once a tile
+            inv["launch_arithmetic"] = (cold["launches"] == tiles + 1
+                                        and warm["launches"] == tiles)
+        return inv
+
+    reports = [(leg_report(legs, "cold"), leg_report(legs, "warm")) for legs in pairs]
+    every = [pair_invariants(c, w) for c, w in reports]
+    invariants = {k: all(inv[k] for inv in every) for k in every[0]}
+    # every job of every pair matches the first cold job's artifacts
+    d_cold = digest_workdir(pairs[0]["cold"]["snap"]["workdir"])
+    parity_ok = bool(d_cold) and all(
+        digest_workdir(legs[leg]["snap"]["workdir"]) == d_cold
+        for legs in pairs for leg in ("cold", "warm"))
+    speedups = [round(c["latency_s"] / w["latency_s"], 2) if w["latency_s"] else None
+                for c, w in reports]
+    # the pair of the median speedup stands for the run; every pair's is kept
+    mid = sorted(range(reps), key=lambda i: speedups[i] or 0.0)[reps // 2]
+    cold, warm = reports[mid]
     return {
         "workload": {"scene_px": size * size, "years": years, "tile_size": tile,
-                     "tiles": tiles, "lazy": True, "ingest_store_mb": cfg.ingest_store_mb,
-                     "feed_cache_mb": cfg.feed_cache_mb},
+                     "tiles": tiles, "lazy": True, "ingest_store_mb": SERVE_STORE_MB,
+                     "feed_cache_mb": 0},
         "cold": cold,
         "warm": warm,
-        "speedup_warm": round(cold["latency_s"] / warm["latency_s"], 2)
-        if warm["latency_s"] else None,
+        "speedup_warm": speedups[mid],
+        "reps": reps,
+        "speedup_reps": speedups,
         "invariants": invariants,
         "parity_ok": parity_ok,
     }
@@ -185,6 +222,9 @@ def main(argv: "list[str] | None" = None) -> int:
                     help="stack years (default: 7 smoke / 40 full)")
     ap.add_argument("--tile", type=int, default=None,
                     help="tile size (default: 32 smoke / 512 full)")
+    ap.add_argument("--reps", type=int, default=1,
+                    help="cold / warm pairs, each a fresh server; the median speedup's pair "
+                         "is reported")
     ap.add_argument("--keep", default=None, metavar="DIR", help="keep the workdirs under DIR")
     ap.add_argument("--out", default=None, metavar="FILE", help="write the JSON report here")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu (tests)")
@@ -200,7 +240,7 @@ def main(argv: "list[str] | None" = None) -> int:
     root = args.keep or tempfile.mkdtemp(prefix="lt_serve_bench_")
     Path(root).mkdir(parents=True, exist_ok=True)
     try:
-        report = run_bench(size, years, tile, root, device=device)
+        report = run_bench(size, years, tile, root, device=device, reps=max(1, args.reps))
     finally:
         if args.keep is None:
             shutil.rmtree(root, ignore_errors=True)
@@ -213,6 +253,7 @@ def main(argv: "list[str] | None" = None) -> int:
     print(json.dumps({"ok": report["ok"], "cold_s": report["cold"]["latency_s"],
                       "warm_s": report["warm"]["latency_s"],
                       "speedup_warm": report["speedup_warm"],
+                      "speedup_reps": report["speedup_reps"],
                       "invariants": report["invariants"], "parity_ok": report["parity_ok"]}))
     return 0 if report["ok"] else 1
 

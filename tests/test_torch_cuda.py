@@ -22,6 +22,9 @@ from land_trendr_tpu_torch.ops.segment import (
     torch_segment_pixels,
     torch_segment_pixels_chunked,
 )
+from test_torch_nan_guards import ADVERSARIAL, adversarial
+from test_torch_nan_guards import FORMS as GUARD_FORMS
+from test_torch_nan_guards import PARAMS as GUARD_PARAMS
 
 # the suite runs several workers per host: one intra-op thread each keeps
 # torch's thread pools from oversubscribing the cores
@@ -318,33 +321,44 @@ def test_beyond_the_wide_caps_is_refused_on_card(rng, card, ny, over):
     [
         (160, {}),
         (40, {"max_segments": 36, "vertex_count_overshoot": 3}),   # 40 candidates
+        (1000, {}),                                                # the scratch tier
     ],
 )
 def test_global_kernels_match_plain_on_card(rng, card, dtype, ny, over, monkeypatch):
-    # a budget of three blocks cuts 1000 px into 384 + 384 + 232: three
-    # launches of each kernel over one scratch, the last one ragged
+    # the shape's own tier (one launch a kernel in the shared tier), then
+    # the scratch tier, forced where the shared tier holds the shape, under
+    # a budget of three blocks: 1000 px in 384 + 384 + 232, three launches
+    # of each kernel over one scratch, the last one ragged
     params = LTParams(**over)
     monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET",
                         sc.global_scratch_bytes(ny, params, dtype, 3 * sc.CUDA_BLOCK))
     years, vals, mask = (x.to(card) for x in _inputs(rng, px=1000, ny=ny, dtype=dtype))
-    counts = (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES)
-    got = sc.cuda_segment_pixels(years, vals, mask, params)
-    desp, vm, sse = sc.cuda_family_stats(years, vals, mask, params)
-    torch.cuda.synchronize()
-    assert (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES) == (counts[0] + 3, counts[1] + 3)
     ref = torch_segment_pixels(years, vals, mask, params)
     rdesp, rvm, rsse = torch_family_stats(years, vals, mask, params)
-    assert bool(_decisions(got, ref).all()) and torch.equal(vm, rvm)
-    pairs = [*zip(got, ref), (desp, rdesp), (sse, rsse)]
-    for x, y in pairs:
-        if dtype == torch.float32 or not x.dtype.is_floating_point:
-            assert torch.equal(x.contiguous().view(torch.uint8),
-                               y.contiguous().view(torch.uint8))
-            continue
-        assert torch.equal(x.isnan(), y.isnan())
-        fin = x.isfinite()
-        if bool(fin.any()):
-            assert float((x[fin] - y[fin]).abs().max()) <= 1e-8
+    own = sc.global_plan(ny, params, dtype).tier
+    for tier in dict.fromkeys((own, "scratch")):
+        counts = (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES)
+        job = sc._Launch(years, vals, mask, params, _tier=tier)
+        job.run(0, 1000)
+        fjob = sc._FamilyLaunch(years, vals, mask, params, _tier=tier)
+        fjob.run()
+        torch.cuda.synchronize()
+        pieces = 3 if tier == "scratch" else 1
+        assert (sc.GLOBAL_LAUNCHES, sc.GLOBAL_FAMILY_LAUNCHES) == (counts[0] + pieces,
+                                                                  counts[1] + pieces)
+        got = job.result()
+        desp, vm, sse = fjob.result()
+        assert bool(_decisions(got, ref).all()) and torch.equal(vm, rvm)
+        pairs = [*zip(got, ref), (desp, rdesp), (sse, rsse)]
+        for x, y in pairs:
+            if dtype == torch.float32 or not x.dtype.is_floating_point:
+                assert torch.equal(x.contiguous().view(torch.uint8),
+                                   y.contiguous().view(torch.uint8))
+                continue
+            assert torch.equal(x.isnan(), y.isnan())
+            fin = x.isfinite()
+            if bool(fin.any()):
+                assert float((x[fin] - y[fin]).abs().max()) <= 1e-8
 
 
 @pytest.mark.cuda
@@ -362,6 +376,35 @@ def test_global_form_forced_equals_narrow_on_card(rng, card, dtype):
     fjob.run()
     for a, b in zip(sc.cuda_family_stats(years, vals, mask), fjob.result()):
         assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_adversarial_inputs_every_form_on_card(card, case):
+    # the reference's adversarial inputs (tests/test_torch_nan_guards.py)
+    # through every form of both kernels: float32 bit-identical to the plain
+    # version, float64 decisions exact and floats within 1e-8
+    for dtype in (torch.float32, torch.float64):
+        years, vals, mask = (x.to(card) for x in adversarial(case, dtype))
+        ref = torch_segment_pixels(years, vals, mask, GUARD_PARAMS)
+        rfam = torch_family_stats(years, vals, mask, GUARD_PARAMS)
+        for form, tier in GUARD_FORMS:
+            job = sc._Launch(years, vals, mask, GUARD_PARAMS, cap=form, _tier=tier)
+            job.run(0, vals.shape[0])
+            fjob = sc._FamilyLaunch(years, vals, mask, GUARD_PARAMS, cap=form, _tier=tier)
+            fjob.run()
+            got = job.result()
+            assert bool(_decisions(got, ref).all()), (form, tier)
+            assert torch.equal(fjob.result()[1], rfam[1]), (form, tier)
+            for x, y in [*zip(got, ref), *zip(fjob.result(), rfam)]:
+                if dtype == torch.float32 or not x.dtype.is_floating_point:
+                    assert torch.equal(x.contiguous().view(torch.uint8),
+                                       y.contiguous().view(torch.uint8)), (form, tier)
+                    continue
+                assert torch.equal(x.isnan(), y.isnan()), (form, tier)
+                fin = x.isfinite()
+                if bool(fin.any()):
+                    assert float((x[fin] - y[fin]).abs().max()) <= 1e-8, (form, tier)
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,10 @@ def test_smem_plan_rejects_above_the_block_limit(dtype, block):
 
 def test_block_sizes_are_multiples_of_the_chunk_granule():
     assert sc.BLOCKS == {torch.float32: 256, torch.float64: 128}
-    assert sc.GLOBAL_BLOCKS == {torch.float32: sc.CUDA_BLOCK, torch.float64: sc.CUDA_BLOCK}
+    # the global form's blocks divide the granule; its block follows the
+    # shape (global_plan), so it has no block_of
+    assert sc.GLOBAL_SWEEP == (32, 64, 128)
+    assert all(sc.CUDA_BLOCK % b == 0 for b in sc.GLOBAL_SWEEP)
     assert all(b % sc.CUDA_BLOCK == 0 for b in sc.BLOCKS.values())
     assert set(sc.BLOCKS.values()) <= set(sc.SWEEP)
     # the wide blocks are half the narrow ones and divide the granule, so a
@@ -76,7 +79,8 @@ def test_block_sizes_are_multiples_of_the_chunk_granule():
     for dtype in (torch.float32, torch.float64):
         assert sc.block_of(dtype, "narrow") == sc.BLOCKS[dtype]
         assert sc.block_of(dtype, "wide") == sc.WIDE_BLOCKS[dtype]
-        assert sc.block_of(dtype, "global") == sc.CUDA_BLOCK
+        with pytest.raises(ValueError, match="global_plan"):
+            sc.block_of(dtype, "global")
 
 
 # the wide plan: the same layout with the staging width max(NY, 32) | 1, at
@@ -138,76 +142,163 @@ def test_instantiation_from_years_and_candidates(ny, nc, want):
     job = sc._Launch(years, vals, mask, params)
     fjob = sc._FamilyLaunch(years, vals, mask, params)
     assert job.cap == fjob.cap == want
-    assert job.smem == fjob.smem == sc.smem_bytes(ny, torch.float32, cap=want)
+    assert job.smem == fjob.smem == sc.smem_bytes(ny, torch.float32, cap=want, nc=nc)
 
 
 @pytest.mark.parametrize("kw", ["cycles", "block"])
 def test_wide_jobs_reject_the_narrow_only_entries(kw):
+    # stage cycles and the sweep are the narrow kernel's and the global
+    # form's shared tier's: the wide kernel and the scratch tier refuse them
     years, vals, mask = _inputs(4, 32, 72)
     job = sc._Launch(years, vals, mask, LTParams())
     assert job.cap == "wide"
-    arg = 256 if kw == "block" else torch.zeros((32, 7), dtype=torch.int64)
-    with pytest.raises(ValueError, match="narrow kernels"):
+    arg = 64 if kw == "block" else torch.zeros((32, 7), dtype=torch.int64)
+    with pytest.raises(ValueError, match="the wide kernel has neither"):
         job.run(0, 32, **{kw: arg})
-    gjob = sc._Launch(years, vals, mask, LTParams(), cap="global")
-    with pytest.raises(ValueError, match="narrow kernels"):
+    gjob = sc._Launch(years, vals, mask, LTParams(), cap="global", _tier="scratch")
+    with pytest.raises(ValueError, match="scratch tier"):
         gjob.run(0, 32, **{kw: arg})
+    # the shared tier's sweep takes the global sweep's blocks only
+    if kw == "block":
+        sjob = sc._Launch(years, vals, mask, LTParams(), cap="global")
+        with pytest.raises(ValueError, match=r"sweep's \(32, 64, 128\)"):
+            sjob.run(0, 32, block=256)
 
 
 # ---------------------------------------------------------------------------
-# the global form: no shared memory, a per-launch scratch, cut to a budget
+# the global form: the series in shared memory at a block picked from NY,
+# the dtype and the candidates; a per-call scratch, cut to a budget, only
+# where no block holds it
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ny", [1, 40, 160, 1000])
-def test_global_form_holds_any_years_in_no_shared_memory(dtype, ny):
-    assert sc.smem_bytes(ny, dtype, cap="global") == 0
+# bytes: the fixed forms' layout at the launch's NC (16 + the year axis
+# rounded up to 16 + block x (NY + max(NY, NC) | 1) values), plus the
+# valid-year set as ceil(NY / 64) 64-bit words a thread, at the plan's
+# block; default params (NC 10).  NY = 1000 fits no block: the scratch
+# tier, no shared memory
+@pytest.mark.parametrize(
+    "dtype,ny,block,want",
+    [
+        (torch.float32, 1, 128, 16 + 16 + 128 * (1 + 11) * 4 + 128 * 8),            # 7,200
+        (torch.float32, 40, 128, 16 + 160 + 128 * (40 + 41) * 4 + 128 * 8),         # 42,672
+        (torch.float32, 160, 32, 16 + 640 + 32 * (160 + 161) * 4 + 3 * 32 * 8),     # 42,512
+        (torch.float32, 1000, None, None),
+        (torch.float64, 1, 128, 16 + 16 + 128 * (1 + 11) * 8 + 128 * 8),            # 13,344
+        (torch.float64, 40, 64, 16 + 320 + 64 * (40 + 41) * 8 + 64 * 8),            # 42,320
+        (torch.float64, 160, 64, 16 + 1280 + 64 * (160 + 161) * 8 + 3 * 64 * 8),    # 167,184
+        (torch.float64, 1000, None, None),
+    ],
+)
+def test_global_shared_bytes_per_block(dtype, ny, block, want):
+    params = LTParams()
+    plan = sc.global_plan(ny, params, dtype)
+    if want is None:
+        assert plan == sc.GlobalPlan("scratch", sc.CUDA_BLOCK, 0, plan.scratch_per_block)
+        with pytest.raises(ValueError, match="232,448"):
+            sc.smem_bytes(ny, dtype, cap="global", nc=params.max_candidates)
+        return
+    assert plan == sc.GlobalPlan("shared", block, want, 0)
+    assert sc.smem_bytes(ny, dtype, cap="global", nc=10) == want <= sc.SMEM_LIMIT
+    with pytest.raises(ValueError, match="pass nc"):
+        sc.smem_bytes(ny, dtype, cap="global")
     with pytest.raises(ValueError, match="needs a year"):
-        sc.smem_bytes(0, dtype, cap="global")
+        sc.smem_bytes(0, dtype, cap="global", nc=10)
 
 
-# bytes per launch: 16 planes [position][pixel], each rounded up to 16 B —
-# y and t (NY values each), the valid set, the NM family sets and the
-# family kernel's set (NY/64 words each), NC ints x 2, NC values, NM
-# values x 3, NC ints, NC values x 3, NC ints
+# the block: of 128, 64 and 32 threads that fit, the one an SM holds the
+# most warps of (233,472 shared bytes, 1,024 kept per resident block, at
+# most 32 blocks), ties to the larger; the scratch tier (0) when none fits
+# (float32 from NY 880, float64 from 444) or above 64 candidates
+@pytest.mark.parametrize(
+    "dtype,ny,nc,block",
+    [
+        (torch.float32, 40, 10, 128),    # 5 blocks x 4 warps = 20, 10 x 2 = 20, 19 x 1
+        (torch.float32, 160, 10, 32),    # 1 x 4, 2 x 2, 5 x 1 = 5
+        (torch.float32, 172, 10, 32), (torch.float32, 173, 10, 128),
+        (torch.float32, 221, 10, 128), (torch.float32, 222, 10, 32),
+        (torch.float32, 289, 10, 32), (torch.float32, 290, 10, 64),
+        (torch.float32, 443, 10, 64), (torch.float32, 444, 10, 32),
+        (torch.float32, 879, 10, 32), (torch.float32, 880, 10, 0),
+        (torch.float64, 40, 10, 64), (torch.float64, 160, 10, 64),
+        (torch.float64, 443, 10, 32), (torch.float64, 444, 10, 0),
+        (torch.float32, 40, 64, 128), (torch.float32, 40, 65, 0),
+        (torch.float64, 1, 65, 0),
+    ],
+)
+def test_global_block_follows_years_dtype_and_candidates(dtype, ny, nc, block):
+    params = _cands(nc)
+    plan = sc.global_plan(ny, params, dtype)
+    assert plan.block == (block or sc.CUDA_BLOCK)
+    assert plan.tier == ("shared" if block else "scratch")
+    if block:
+        elem = 8 if dtype == torch.float64 else 4
+
+        def warps(b):
+            n = sc._global_smem_plan(ny, nc, elem, b)
+            return -1 if n > sc.SMEM_LIMIT else min(233_472 // (n + 1_024), 32) * b // 32
+
+        assert plan.smem == sc._global_smem_plan(ny, nc, elem, block) <= sc.SMEM_LIMIT
+        # no other block holds more warps, nor a larger one as many
+        assert all(warps(b) < warps(block) or (warps(b) == warps(block) and b < block)
+                   for b in sc.GLOBAL_SWEEP if b != block)
+        assert sc.global_plan(ny, params, dtype, _tier="scratch").tier == "scratch"
+    else:
+        with pytest.raises(ValueError, match="shared tier holds"):
+            sc.global_plan(ny, params, dtype, _tier="shared")
+
+
+# bytes per call of the scratch tier: one region per 128-px block, each
+# the block's layout and then its per-thread arrays as planes — NC ints x 4,
+# NM ints, NC values x 4, NM values x 3, a thread each
+def _region(ny, nc, nm, elem):
+    layout = 16 + (ny * elem + 15) // 16 * 16 + 128 * (ny + (max(ny, nc) | 1)) * elem \
+        + (ny + 63) // 64 * 128 * 8
+    return layout + ((4 * nc + nm) * 4 + (4 * nc + 3 * nm) * elem) * 128
+
+
 @pytest.mark.parametrize(
     "ny,over,dtype,px,want",
     [
-        # NC 10, NM 6, one word: 2*40*4 + 8*(1+6+1) + 4*10*4 + 4*10*4 + 4*6*3 = 776 B/px
-        (40, {}, torch.float32, 128, 776 * 128),
-        (40, {}, torch.float64, 128, (2 * 40 * 8 + 8 * 8 + 4 * 10 * 2 + 8 * 10 + 8 * 6 * 3
-                                      + 4 * 10 + 8 * 10 * 3 + 4 * 10) * 128),
-        # NY 160: three words
-        (160, {}, torch.float32, 65_536, (2 * 160 * 4 + 8 * 3 * 8 + 4 * 10 * 2 + 4 * 10
-                                          + 4 * 6 * 3 + 4 * 10 + 4 * 10 * 3 + 4 * 10) * 65_536),
-        # 40 candidates: NC 40, NM 36
-        (40, {"max_segments": 36, "vertex_count_overshoot": 3}, torch.float32, 65_536,
-         (2 * 40 * 4 + 8 * 38 + 4 * 40 * 2 + 4 * 40 + 4 * 36 * 3 + 4 * 40 + 4 * 40 * 3
-          + 4 * 40) * 65_536),
+        # NC 10, NM 6: 1,044,912 B of layout + 53,248 of arrays a block
+        (1000, {}, torch.float32, 128, 1_098_160),
+        (1000, {}, torch.float64, 128, 2_156_368),
+        (1000, {}, torch.float32, 129, 2 * 1_098_160),
+        # a forced scratch tier at 40 years: 42,672 + 53,248
+        (40, {}, torch.float32, 128, 95_920),
+        # 66 candidates (NC 66, NM 62), float64, 1000 px in 8 blocks
+        (80, {"max_segments": 62, "vertex_count_overshoot": 3}, torch.float64, 1000,
+         8 * _region(80, 66, 62, 8)),
     ],
 )
 def test_global_scratch_bytes(ny, over, dtype, px, want):
-    assert sc.global_scratch_bytes(ny, LTParams(**over), dtype, px) == want
+    params = LTParams(**over)
+    assert sc.global_scratch_bytes(ny, params, dtype, px) == want
+    elem = 8 if dtype == torch.float64 else 4
+    assert want == -(-px // 128) * _region(ny, params.max_candidates, params.max_segments, elem)
 
 
-def test_global_scratch_bytes_rounds_each_plane_to_16():
-    # one pixel at NY = 40 in float32: every plane is rounded up on its own
+def test_global_scratch_region_layout():
+    # the region's arrays start where the block's layout (the shared
+    # tier's bytes at the same block) ends; every plane is whole 128-byte runs
     params = LTParams()
-    planes = [160, 160, 8, 48, 8, 40, 40, 40, 24, 24, 24, 40, 40, 40, 40, 40]
-    assert sc.global_scratch_bytes(40, params, torch.float32, 1) == sum(
-        (b + 15) // 16 * 16 for b in planes)
+    layout = sc._global_smem_plan(1000, 10, 4, sc.CUDA_BLOCK)
+    assert layout == 1_044_912 and layout % 16 == 0
+    per_block = sc.global_plan(1000, params, torch.float32).scratch_per_block
+    assert per_block - layout == ((4 * 10 + 6) * 4 + (4 * 10 + 3 * 6) * 4) * 128 == 53_248
+    assert per_block == sc.global_scratch_bytes(1000, params, torch.float32, 128)
 
 
 @pytest.mark.parametrize(
     "ny,over,dtype,budget,want",
     [
-        (160, {}, torch.float32, 1 << 30, 576_000),
-        (160, {}, torch.float64, 1 << 30, 317_952),
+        (1000, {}, torch.float32, 1 << 30, 125_056),
+        (1000, {}, torch.float64, 1 << 30, 63_616),
+        (160, {}, torch.float32, 1 << 30, 620_928),
         (40, {"max_segments": 36, "vertex_count_overshoot": 3}, torch.float32, 1 << 30,
-         459_648),
-        (40, {}, torch.float32, 776 * 128 * 3 + 5, 384),
-        (40, {}, torch.float32, 776 * 128, 128),
+         490_368),
+        (40, {}, torch.float32, 95_920 * 3 + 5, 384),
+        (40, {}, torch.float32, 95_920, 128),
     ],
 )
 def test_global_chunk_stays_within_the_budget(ny, over, dtype, budget, want):
@@ -220,25 +311,33 @@ def test_global_chunk_stays_within_the_budget(ny, over, dtype, budget, want):
 
 def test_global_chunk_refuses_a_budget_below_one_block():
     with pytest.raises(ValueError, match="one block of 128 px"):
-        sc.global_chunk(40, LTParams(), torch.float32, 776 * 128 - 1)
+        sc.global_chunk(40, LTParams(), torch.float32, 95_920 - 1)
 
 
 def test_global_launch_plan_cuts_the_call_into_pieces(monkeypatch):
-    # a budget of three blocks: 1000 px launch as 384 + 384 + 232, over one
-    # scratch sized for the largest piece
-    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", 776 * 128 * 3)
+    # the scratch tier under a budget of three blocks: 1000 px launch as
+    # 384 + 384 + 232, over one scratch sized for the largest piece
+    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", 95_920 * 3)
     years, vals, mask = _inputs(8, 1000, 40)
-    job = sc._Launch(years, vals, mask, LTParams(), cap="global")
-    fjob = sc._FamilyLaunch(years, vals, mask, LTParams(), cap="global")
+    job = sc._Launch(years, vals, mask, LTParams(), cap="global", _tier="scratch")
+    fjob = sc._FamilyLaunch(years, vals, mask, LTParams(), cap="global", _tier="scratch")
     assert job.smem == fjob.smem == 0
+    assert job.block == fjob.block == sc.CUDA_BLOCK
     assert job.scratch.chunk == fjob.scratch.chunk == 384
-    assert job.scratch.tensor.numel() == 776 * 384
+    assert job.scratch.tensor.numel() == 95_920 * 3
     assert job.scratch.tensor.dtype == torch.uint8
     assert list(job.scratch.pieces(0, 1000)) == [(0, 384), (384, 384), (768, 232)]
     assert list(job.scratch.pieces(256, 256)) == [(256, 256)]
     # a call smaller than the chunk allocates only what it needs
-    small = sc._Launch(years[:], vals[:100], mask[:100], LTParams(), cap="global")
+    small = sc._Launch(years[:], vals[:100], mask[:100], LTParams(), cap="global",
+                       _tier="scratch")
     assert small.scratch.tensor.numel() == sc.global_scratch_bytes(40, LTParams(), px=100)
+    # the shared tier allocates none and launches once a call
+    shared = sc._Launch(years, vals, mask, LTParams(), cap="global")
+    assert shared.scratch is None and shared.block == 128 and shared.smem == 42_672
+    assert list(shared._pieces(0, 1000)) == [(0, 1000)]
+    with pytest.raises(ValueError, match="the global form's"):
+        sc._Launch(years, vals, mask, LTParams(), _tier="scratch")
 
 
 @pytest.mark.parametrize("cap", ["narrow", "wide"])

@@ -33,6 +33,21 @@ def test_serve_bench_smoke(tmp_path):
     assert rep["cold"]["program_cache"]["misses"] == 1
     assert rep["warm"]["ingest_store"]["hits"] > 0
     assert rep["cold"]["launches"] == rep["warm"]["launches"] == 0  # the plain version
+    assert rep["reps"] == 1 and rep["speedup_reps"] == [rep["speedup_warm"]]
+
+
+def test_serve_bench_reps_report_the_median_pair(tmp_path):
+    """Each pair a fresh server (its own program cache and ingest store):
+    every cold job misses and decodes, every warm one hits; the median
+    speedup's pair stands for the run."""
+    out = tmp_path / "serve.json"
+    assert serve_bench.main(["--smoke", "--reps", "3", "--out", str(out), "--device",
+                             "cpu"]) == 0
+    rep = json.loads(out.read_text())
+    assert rep["ok"] is True and rep["parity_ok"] is True and rep["reps"] == 3
+    assert all(rep["invariants"].values()) and len(rep["speedup_reps"]) == 3
+    assert rep["speedup_warm"] == sorted(rep["speedup_reps"])[1]
+    assert rep["speedup_warm"] == round(rep["cold"]["latency_s"] / rep["warm"]["latency_s"], 2)
 
 
 def test_batch_bench_smoke(tmp_path):
