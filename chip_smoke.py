@@ -40,7 +40,8 @@ each of which fails the script on its own:
    160 years at default params, and 40 years at 40 candidates
    (``max_segments=36, vertex_count_overshoot=3``); float32 bit-identical
    on every pixel, float64 decisions exact; the scratch tier at 1,000
-   years (1,024 px) likewise; then the global form forced at 40 years
+   years (1,024 px) likewise, with its bounds (f32 and f64, with and
+   without the scratch); then the global form forced at 40 years
    with default params equals the narrow kernel bit for bit.  CUDA-event
    times (the plain version's after its checked call), op counts, scratch
    bytes and bounds by the function's own inputs and outputs, with the
@@ -113,7 +114,11 @@ each of which fails the script on its own:
    stealable (4 stolen, 16 launches); (c) ``segment_pixels_sharded`` over
    ``make_mesh()`` and ``[cuda:0, cuda:0]`` bit-identical to the unsharded
    kernel on phase 2's population, then phase 4's scene over the two-shard
-   mesh (32 launches); the three scene runs' rasters byte-equal to phase
+   mesh (32 launches); the entry points (``land_trendr_tpu_torch/entry.py``):
+   ``entry()``'s forward step on its 256 x 40 batch (one launch,
+   bit-identical to the plain version in f32) and ``dryrun_multichip(2)``
+   over ``[cuda:0, cuda:0]`` (its launches counted, the leg's seconds
+   printed); the three scene runs' rasters byte-equal to phase
    4's; (b) phase 7's stack written to disk: a two-process pod under
    ``init_distributed`` on localhost (this script re-run with
    ``--pod-worker``; 8 + 8 tiles, the primary's ``hosts`` fold both
@@ -176,8 +181,9 @@ each of which fails the script on its own:
    invariants; (f) ``lt_request --slowest`` over
    phase 11's router: the blame sums to the latency.  (a) and (b) run in
    this process, beside (c), which checks bytes and seams only; the rest
-   run one after another as the tools' own processes; each leg's seconds
-   are printed.
+   run as the tools' own processes, one leg after another, the two
+   benches of (e) side by side (they check invariants, not times); each
+   leg's seconds are printed.
 
 13. **The oracle, the FTV rasters and the perf gate**, after phase
    12: (a) ``parity_paramspace``: 32 trials x 64 px of the JAX tool's
@@ -212,7 +218,7 @@ each of which fails the script on its own:
 Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
 kernel's launch count is set to 0 just before its path (phases 4 and 10
-for the narrow fused kernel, phase 10 (c) for the wide one and (g) for
+for the narrow fused kernel, and phase 9's entry leg, phase 10 (c) for the wide one and (g) for
 the global one, phase 6 for the three family kernels; phases 7 and 8
 count their own runs; phase 11's are the fresh replicas' own counts;
 phase 12's are this process's for (a) and (b) and the tools' reports for
@@ -297,9 +303,11 @@ CAPACITY_SMOKE = ("--replica-counts", "2", "--qps-steps", "0.5,2")
 GIGA_SIZE = 2048
 ARCH_ORACLE_PX = 256
 ARCH_PLAIN_PX = 4_096
-#: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 (non-tensor) op/s
+#: NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s, FP32 and FP64
+#: (non-tensor) op/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+FP64_OPS_S = 34e12
 
 
 #: the smoke's start: every log line carries the seconds since it
@@ -487,21 +495,23 @@ def prom_gauge(path: str, name: str) -> "float | None":
 WIDE_CASES = (("ny72", 72, {}), ("nc18", NY, WIDE_PARAMS))
 
 
-def bytes_bound(px: int, ny: int, nv: int, nm: int) -> "tuple[int, int]":
-    """Bytes the fused and the family kernel must move for ``px`` float32
-    series of ``ny`` years: each input read once (values, mask bytes, the
-    year axis), each output written once."""
-    bytes_in = px * ny * (4 + 1) + ny * 4
-    fused = bytes_in + px * (4 * (2 * ny + 4 * nv + 3 * nm + 3) + 1)
-    family = bytes_in + px * (4 * ny + nm * ny + 4 * nm)
+def bytes_bound(px: int, ny: int, nv: int, nm: int, elem: int = 4) -> "tuple[int, int]":
+    """Bytes the fused and the family kernel must move for ``px`` series of
+    ``ny`` years of ``elem``-byte floats: each input read once (values,
+    mask bytes, the year axis), each output written once (the vertex
+    indices and counts int32, the validity a byte, the rest floats)."""
+    bytes_in = px * ny * (elem + 1) + ny * elem
+    fused = bytes_in + px * (elem * (2 * ny + 3 * nv + 3 * nm + 2) + 4 * (nv + 1) + 1)
+    family = bytes_in + px * (elem * (ny + nm) + nm * ny)
     return fused, family
 
 
-def bound_of(n_bytes: int, n_ops: int) -> "tuple[float, str]":
+def bound_of(n_bytes: int, n_ops: int, ops_s: float = FP32_OPS_S) -> "tuple[float, str]":
     """The least time the card could take: the larger of bytes over the
-    HBM rate and FP32 operations over the FP32 peak, and which bounds it."""
+    HBM rate and the operations over the peak of their type (FP32 unless
+    ``ops_s`` says), and which bounds it."""
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    ops_ms = n_ops / FP32_OPS_S * 1e3
+    ops_ms = n_ops / ops_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -669,7 +679,11 @@ def scratch_tier(dev: torch.device) -> dict:
     """Phase 2d's scratch tier: NY = SCRATCH_NY, whose series no block of
     the global form's shared tier holds, SCRATCH_PX px against the plain
     version: f32 bit-identical on every pixel, f64 decisions exact with
-    floats within F64_ATOL; both kernels, with their times."""
+    floats within F64_ATOL; both kernels, with their times, their bounds
+    by the function's own inputs and outputs and the operations the
+    counting instantiation tallies on these series (over the FP64 peak for
+    f64: the same operations in the other type), and beside each the bound
+    with the scratch written once and read once."""
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.ops.segment import torch_family_stats, torch_segment_pixels
@@ -680,7 +694,10 @@ def scratch_tier(dev: torch.device) -> dict:
     years = torch.from_numpy(years_np).to(dev)
     mask = torch.from_numpy(mask_np).to(dev)
     every = torch.ones(SCRATCH_PX, dtype=torch.bool, device=dev)
-    out = {}
+    v32 = torch.from_numpy(vals_np.astype(np.float32)).to(dev)
+    n_ops = int(segment_cuda.cuda_segment_op_counts(years, v32, mask, params).sum())
+    f_ops = int(segment_cuda.cuda_family_op_counts(years, v32, mask, params).sum())
+    out = {"ops": n_ops, "family_ops": f_ops}
     for dt in (np.float32, np.float64):
         vals = torch.from_numpy(vals_np.astype(dt)).to(dev)
         job = segment_cuda._Launch(years, vals, mask, params)
@@ -707,16 +724,33 @@ def scratch_tier(dev: torch.device) -> dict:
                 (("despiked", fam[0], pfam[0]), ("sses", fam[2], pfam[2])), every))
             assert n_bad == 0 and err <= F64_ATOL, (n_bad, err)
         key = dt.__name__
+        scratch = job.scratch.tensor.numel()
+        ops_s = FP32_OPS_S if dt == np.float32 else FP64_OPS_S
+        fused_b, family_b = bytes_bound(SCRATCH_PX, SCRATCH_NY, params.max_vertices,
+                                        params.max_segments, np.dtype(dt).itemsize)
+        bound_ms, bound_by = bound_of(fused_b, n_ops, ops_s)
+        fbound, fby = bound_of(family_b, f_ops, ops_s)
         out[key] = {"ms": cuda_ms(lambda: job.run(0, SCRATCH_PX), reps=3),
                     "family_ms": cuda_ms(fjob.run, reps=3), "max_abs_err": err,
-                    "scratch_bytes": job.scratch.tensor.numel(),
-                    "fit_rate": float(got.model_valid.float().mean())}
+                    "scratch_bytes": scratch,
+                    "fit_rate": float(got.model_valid.float().mean()),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_ms_with_scratch": bound_of(fused_b + 2 * scratch, n_ops, ops_s)[0],
+                    "family_bound_ms": fbound, "family_bound_by": fby,
+                    "family_bound_ms_with_scratch": bound_of(family_b + 2 * scratch, f_ops,
+                                                             ops_s)[0]}
+        r = out[key]
         agreed = ("bit-identical on every pixel" if err == 0.0
                   else f"decisions exact, max |diff| {err:.3e}")
         log(f"[global] scratch tier NY={SCRATCH_NY}, {SCRATCH_PX} px {key}: {agreed} (fused "
-            f"and family); fused {out[key]['ms']:.4f} ms, family "
-            f"{out[key]['family_ms']:.4f} ms, scratch {out[key]['scratch_bytes']} B, fit rate "
-            f"{out[key]['fit_rate']:.4f}")
+            f"and family); fused {r['ms']:.4f} ms, family {r['family_ms']:.4f} ms, scratch "
+            f"{scratch} B, fit rate {r['fit_rate']:.4f}")
+        log(f"[global] scratch tier {key} bounds: fused {fused_b} B, {n_ops} ops "
+            f"({n_ops / SCRATCH_PX:.0f}/px) -> {bound_ms:.4f} ms by {bound_by}, kernel at "
+            f"{100 * bound_ms / r['ms']:.2f}%, with 2 x scratch {r['bound_ms_with_scratch']:.4f}"
+            f" ms; family {family_b} B, {f_ops} ops -> {fbound:.4f} ms by {fby}, kernel at "
+            f"{100 * fbound / r['family_ms']:.2f}%, with 2 x scratch "
+            f"{r['family_bound_ms_with_scratch']:.4f} ms")
     return out
 
 
@@ -1466,14 +1500,22 @@ def tools_phase(smi: str, env: dict, tmp: str, rt: str, scale_run: dict, ftv_tmp
         f"imbalance {slow['static']['host_imbalance']} -> {slow['elastic']['host_imbalance']}, "
         f"spec wins {slow['elastic']['spec_wins']}; {legs['d']:.1f} s")
 
-    # (e) capacity and fleet benches at the JAX tools' smoke sizes
+    # (e) capacity and fleet benches at the JAX tools' smoke sizes, side by
+    # side: each checks invariants (replays, named knees, warm affinity,
+    # jobs lost), no time, and the slowest jobs they print share the card
     t0 = time.perf_counter()
-    cap = tool(env, tmp, "capacity_bench", "--smoke", *CAPACITY_SMOKE, timeout=900)
-    assert cap["ok"] and all(cap["invariants"].values()), cap["invariants"]
-    log(f"[tools] (e) capacity_bench --smoke {time.perf_counter() - t0:.1f} s")
-    fleet = tool(env, tmp, "fleet_bench", "--smoke", timeout=900)
-    assert fleet["ok"] and all(fleet["invariants"].values()), fleet["invariants"]
+    started_cap = start_tool(env, tmp, "capacity_bench", "--smoke", *CAPACITY_SMOKE)
+    try:
+        fleet = tool(env, tmp, "fleet_bench", "--smoke", timeout=900)
+        fleet_s = time.perf_counter() - t0
+        cap = finish_tool(started_cap, 900)
+    finally:
+        if started_cap[0].poll() is None:  # no process outlives the smoke
+            kill_tool(started_cap[0])
     legs["e"] = time.perf_counter() - t0
+    assert cap["ok"] and all(cap["invariants"].values()), cap["invariants"]
+    assert fleet["ok"] and all(fleet["invariants"].values()), fleet["invariants"]
+    log(f"[tools] (e) fleet_bench --smoke {fleet_s:.1f} s, capacity_bench --smoke beside it")
     # a smoke cell's window holds a few jobs, which give no p99: its
     # slowest job is printed as what it is (the p99 is the full run's)
     slowest = {f"{p['replicas']}r@{p['offered_qps']}": [p["done"], p["max_s"]]
@@ -2345,6 +2387,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     t9 = time.perf_counter()
     from land_trendr_tpu_torch.io.synthetic import write_stack
     from land_trendr_tpu_torch.ops.indices import required_bands
+    from land_trendr_tpu_torch.entry import dryrun_multichip, entry
     from land_trendr_tpu_torch.parallel import make_mesh, segment_pixels_sharded
     from land_trendr_tpu_torch.runtime.leases import LeaseQueue
     from land_trendr_tpu_torch.runtime.manifest import TileManifest
@@ -2409,6 +2452,32 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         assert s_m["mesh_devices"] == 2 and m_launches == 2 * n_tiles, (s_m["mesh_devices"], m_launches)
         leg(f"two-shard mesh [cuda:0, cuda:0] ({m_launches} launches)", s_m["wall_s"],
             s_m["pixels"], s_m)
+
+        # the entry points: entry() on the card, one launch, bit-identical
+        # to the plain version on its batch; then the dry run over the
+        # two-shard mesh: f32 and f64 sharded (2 + 2), one device in f64
+        # (1), the feed path (2), and its scene's tiles over the mesh
+        t0 = time.perf_counter()
+        forward, batch = entry()
+        segment_cuda.LAUNCHES = 0
+        got = forward(*batch)
+        entry_launches = segment_cuda.LAUNCHES
+        every = torch.ones(batch[1].shape[0], dtype=torch.bool, device=dev)
+        same = bit_identical(got, torch_segment_pixels(*batch, params), every)
+        log(f"[entry] entry(): {entry_launches} launch, {tuple(got.fitted.shape)}, fit rate "
+            f"{float(got.model_valid.float().mean()):.4f}, bit-identical to the plain version "
+            f"in f32: {same}")
+        assert entry_launches == 1 and same, (entry_launches, same)
+        segment_cuda.LAUNCHES = 0
+        dry = dryrun_multichip(2, devices=[dev, dev])
+        dry_launches = segment_cuda.LAUNCHES
+        want = 2 + 2 + 1 + 2 + 2 * dry["summary"]["tiles"]
+        entry_s = time.perf_counter() - t0
+        log(f"[entry] dryrun_multichip(2) over {dry['mesh']}: {dry_launches} launches "
+            f"(want {want}), metrics {json.dumps(dry['metrics'])}, {len(dry['rasters'])} "
+            f"rasters; the entry leg took {entry_s:.2f} s")
+        assert dry_launches == want, (dry_launches, want)
+        entry_launches += dry_launches
 
         # the three scene runs' rasters against phase 4's, assembled together
         t0 = time.perf_counter()
@@ -2573,12 +2642,13 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "route": "cuda",
         "source": src,
         "replaces": "land_trendr_tpu/ops/segment_pallas.py:1027",
-        # the narrow kernel's paths: phase 4's scene, phase 10's serve jobs
-        # and phase 11's routed jobs (counted in the replicas); phases 12
-        # to 14's tools run other shapes and stand apart, under "tools"
-        "launches": launches + serve_launches + routed["route_launches"],
-        "launches_by_path": {"segment": launches, "serve": serve_launches,
-                             "route": routed["route_launches"],
+        # the narrow kernel's paths: phase 4's scene, phase 9's entry
+        # points, phase 10's serve jobs and phase 11's routed jobs (counted
+        # in the replicas); phases 12 to 14's tools run other shapes and
+        # stand apart, under "tools"
+        "launches": launches + entry_launches + serve_launches + routed["route_launches"],
+        "launches_by_path": {"segment": launches, "entry": entry_launches,
+                             "serve": serve_launches, "route": routed["route_launches"],
                              "tools": tool_launches["LAUNCHES"]},
         "max_abs_err": err32,
         "ms": kernel_ms,
@@ -2669,6 +2739,9 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "forced_ratio_to_narrow": glob["forced_ms"] / glob["forced_narrow_ms"],
         "ms_scratch_tier": glob["scratch_tier"]["float32"]["ms"],
         "scratch_tier_shape": f"{SCRATCH_PX:,} px x {SCRATCH_NY} years f32",
+        "bound_ms_scratch_tier": glob["scratch_tier"]["float32"]["bound_ms"],
+        "bound_ms_scratch_tier_with_scratch":
+            glob["scratch_tier"]["float32"]["bound_ms_with_scratch"],
     }
     gf = glob["family_ny160"]
     family_global = {
@@ -2689,6 +2762,9 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "bound_ms_with_scratch": gf["bound_ms_with_scratch"],
         "ms_40_candidates": glob["family_nc40"]["ms"],
         "ms_scratch_tier": glob["scratch_tier"]["float32"]["family_ms"],
+        "bound_ms_scratch_tier": glob["scratch_tier"]["float32"]["family_bound_ms"],
+        "bound_ms_scratch_tier_with_scratch":
+            glob["scratch_tier"]["float32"]["family_bound_ms_with_scratch"],
     }
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [kernel, kernel_wide, kernel_global, family, family_wide,

@@ -1965,13 +1965,14 @@ int lt_segment_fused_global_f64(LT_ARGS, void *scratch, int block, int tier) {
               : launch_fused<double, NoOps, GShared>(LT_CALL(double), nullptr, nullptr, block);
 }
 
-// The global form's instrumented entries (op tally, stage cycles) are its
+// The global form's op tally, in either tier; its stage cycles are the
 // shared tier's (tier = 0).
 int lt_segment_fused_global_f32_opcount(LT_ARGS, void *scratch, int block, int tier,
                                         void *op_count) {
-  if (tier || scratch) return (int)cudaErrorInvalidValue;
-  return launch_fused<float, CountOps, GShared>(LT_CALL(float), (long long *)op_count, nullptr,
-                                                block);
+  return tier ? launch_fused<float, CountOps, GScratch>(LT_CALL(float), (long long *)op_count,
+                                                        scratch, block)
+              : launch_fused<float, CountOps, GShared>(LT_CALL(float), (long long *)op_count,
+                                                       nullptr, block);
 }
 int lt_segment_fused_global_f32_stagecycles(LT_ARGS, void *scratch, int block, int tier,
                                             void *cycles) {
@@ -2041,8 +2042,8 @@ int lt_family_stats_global_f64(LT_FAMILY_ARGS, void *scratch, int block, int tie
 }
 int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, int block, int tier,
                                        void *op_count) {
-  if (tier || scratch) return (int)cudaErrorInvalidValue;
-  return LT_FAMILY(float, CountOps, GShared, (long long *)op_count, nullptr, block);
+  return tier ? LT_FAMILY(float, CountOps, GScratch, (long long *)op_count, scratch, block)
+              : LT_FAMILY(float, CountOps, GShared, (long long *)op_count, nullptr, block);
 }
 
 #endif  // LT_PART 2

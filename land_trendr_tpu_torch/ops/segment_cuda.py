@@ -710,8 +710,8 @@ class _Launch(_Planned):
         their total; ``block`` (one of :data:`SWEEP`, of :data:`GLOBAL_SWEEP`
         for the global form) runs the float32 kernel at that block size.
         Those three are float32 only, stage cycles and the sweep are the
-        narrow and global forms' only, and the global form's three are its
-        shared tier's."""
+        narrow and global forms' only, and the global form's two are its
+        shared tier's (its op counts come from either tier)."""
         if self.dtype != torch.float32 and (
                 op_count is not None or cycles is not None or block is not None):
             raise ValueError(
@@ -720,10 +720,9 @@ class _Launch(_Planned):
         if self.cap == "wide" and (cycles is not None or block is not None):
             raise ValueError("stage cycles and the block sweep are the narrow and global "
                              "kernels'; the wide kernel has neither")
-        if self.scratch is not None and (
-                op_count is not None or cycles is not None or block is not None):
-            raise ValueError("op counts, stage cycles and the block sweep are the global "
-                             "form's shared tier's; this shape takes its scratch tier")
+        if self.scratch is not None and (cycles is not None or block is not None):
+            raise ValueError("stage cycles and the block sweep are the global form's shared "
+                             "tier's; this shape takes its scratch tier")
         sweep = GLOBAL_SWEEP if self.cap == "global" else SWEEP
         if block is not None and block not in sweep:
             raise ValueError(f"block {block} is not one of the sweep's {sweep}")
@@ -994,9 +993,6 @@ class _FamilyLaunch(_Planned):
         form = "" if self.cap == "narrow" else f"_{self.cap}"
         fn = getattr(lib, f"lt_family_stats{form}_{'f64' if self.dtype == torch.float64 else 'f32'}")
         if op_count is not None:
-            if self.scratch is not None:
-                raise ValueError("op counts are the global form's shared tier's; this shape "
-                                 "takes its scratch tier")
             fn = getattr(lib, f"lt_family_stats{form}_f32_opcount")
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream

@@ -10,7 +10,10 @@ joint parameter-space parity and FTV validation (``parity_paramspace``,
 ``upload_bench``, ``host_path_bench``); the serving and observability
 benches (``serve_bench``, ``batch_bench``, ``flight_overhead``,
 ``reqtrace_bench``, ``tune_bench``); the pod trace (``lt_trace``); the perf
-gate over the card's records (``perf_gate``, ``records/``); and their
+gate over the card's records (``perf_gate``, ``records/``); the scale
+tools (``run_segment_measured``, ``giga_run``, ``stream_assembly_bench``,
+``change_stream_bench``, ``multihost_bench`` with ``pod_launch``,
+``arch_speedup``) and the multi-index run (``multiindex_bench``); and their
 shared helpers (``measure``).  Run each as ``python -m
 land_trendr_tpu_torch.tools.<name>``; each runs on the card unless given
 ``--device cpu`` (the trace readers ``lt_request`` and ``lt_trace`` read

@@ -16,9 +16,9 @@ import shutil
 import subprocess
 import sys
 import threading
-import time
 import urllib.request
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
@@ -139,21 +139,30 @@ def _status_kib(field: str) -> "int | None":
 _SAMPLED_PEAK_KIB: "list[int]" = []
 
 
-def watch_rss(interval_s: float = 0.02) -> None:
+def watch_rss(interval_s: float = 0.02) -> "Callable[[], None]":
     """Where the kernel keeps no ``VmHWM`` (a gVisor sandbox, such as the
     card machine's), sample ``VmRSS`` on a daemon thread for
-    :func:`peak_rss_mib`.  Call once, first thing in a tool's ``main``."""
+    :func:`peak_rss_mib`.  Call once, first thing in a tool's ``main``.
+    Returns what stops the sampler and waits for it (a no-op where none
+    was started); a tool may let it run to its exit."""
     if _SAMPLED_PEAK_KIB or _status_kib("VmHWM") is not None or _status_kib("VmRSS") is None:
-        return
+        return lambda: None
     peak = _SAMPLED_PEAK_KIB
     peak.append(_status_kib("VmRSS") or 0)
+    stop = threading.Event()
 
     def sample() -> None:
-        while True:
+        while not stop.wait(interval_s):
             peak[0] = max(peak[0], _status_kib("VmRSS") or 0)
-            time.sleep(interval_s)
 
-    threading.Thread(target=sample, name="rss-sampler", daemon=True).start()
+    sampler = threading.Thread(target=sample, name="rss-sampler", daemon=True)
+    sampler.start()
+
+    def stop_sampler() -> None:
+        stop.set()
+        sampler.join()
+
+    return stop_sampler
 
 
 def rss_mib() -> "float | None":

@@ -12,7 +12,7 @@
 # which records to remake, default all).  Run from the repo root.  Each
 # bench's exit code is printed; a failed bench does not stop the others.
 # The scale records (SCENE, GIGA, CHANGESTREAM, MULTIHOST, ARCH_SPEEDUP,
-# STREAMASM) come last; the merged ones (GIGA, MULTIHOST, STREAMASM) add an
+# STREAMASM, MULTIINDEX) come last; the merged ones (GIGA, MULTIHOST, STREAMASM) add an
 # entry per run, so remove the old file before remaking one.
 # The timed ratios that sit under the gate's speedup floor on the card
 # (packed fetch and upload, the batched flood) are taken over several
@@ -63,8 +63,9 @@ rm -rf "$TMPDIR"
 # stack, a 40000² mosaic and a 16000² product set do not fit in RAM.  The
 # card machine's disk takes ~45 GiB of writes a call, so make SCENE and
 # STREAMASM (which re-assembles SCENE's workdir) in one call and the other
-# four in another: BENCH names `run_segment_measured stream_assembly_bench`,
-# then `giga_run change_stream_bench multihost_bench arch_speedup`.
+# four and the multi-index run (a 1024² stack) in another: BENCH names
+# `run_segment_measured stream_assembly_bench`, then `giga_run
+# change_stream_bench multihost_bench arch_speedup multiindex_bench`.
 SCALE=.scale_records
 mkdir -p "$SCALE"
 unset TMPDIR
@@ -91,4 +92,5 @@ run stream_assembly_bench scene "$SCALE/scene_work" --stack-dir "$SCALE/scene_st
     --tile-size 512 --out "$OUT/STREAMASM_h100.json"
 run stream_assembly_bench mosaic --size=40000 --work-root "$SCALE" \
     --out "$OUT/STREAMASM_h100.json"
+run multiindex_bench --work-root "$SCALE/multiindex" --out "$OUT/MULTIINDEX_h100.json"
 rm -rf "$SCALE"

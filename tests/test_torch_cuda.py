@@ -666,3 +666,60 @@ def test_gate_ratio_bands_on_card(card):
     gate.ratio("x.ok", 3.0, 2.3, "speedup")
     gate.ratio("x.finding", 0.5, 0.16, "speedup")
     assert gate.checks[0]["ok"] is True and gate.checks[1].get("finding") is True
+
+
+# ---------------------------------------------------------------------------
+# the entry points and the scratch tier's op tally on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_entry_on_card_one_launch_bit_identical(card):
+    """``entry()`` defaults to the card: its forward step is one launch of
+    the kernel, bit-identical to the plain version on its batch."""
+    from land_trendr_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    before = sc.LAUNCHES
+    out = fn(*args)
+    assert sc.LAUNCHES - before == 1
+    ref = torch_segment_pixels(*args)
+    for name, a, b in zip(out._fields, out, ref):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    assert out.fitted.shape == (256, 40) and float(out.model_valid.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_card(card):
+    """The dry run over ``[cuda:0, cuda:0]``: f32 and f64 sharded (2 + 2),
+    one device in f64 (1), the feed path (2) and the scene's tiles over the
+    mesh, every one a kernel launch."""
+    from land_trendr_tpu_torch.entry import dryrun_multichip
+
+    before = sc.LAUNCHES
+    rec = dryrun_multichip(2, devices=[card, card])
+    assert sc.LAUNCHES - before == 7 + 2 * rec["summary"]["tiles"]
+    assert rec["summary"]["mesh_devices"] == 2 and "rmse" in rec["rasters"]
+    with pytest.raises(RuntimeError, match="need 3 devices"):
+        dryrun_multichip(3, devices=[card, card])
+
+
+@pytest.mark.cuda
+def test_scratch_tier_op_counts_on_card(card, monkeypatch):
+    """The scratch tier's op tally equals the shared tier's on the same
+    pixels (the operation side of the scratch tier's bound)."""
+    params, ny = LTParams(), 72
+    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", sc.global_scratch_bytes(
+        ny, params, torch.float32, 4 * sc.CUDA_BLOCK))
+    years, vals, mask = (t.to(card) for t in _inputs(np.random.default_rng(5), 2000, ny))
+    counts = []
+    for tier in (None, "scratch"):
+        job = sc._Launch(years, vals, mask, params, cap="global", _tier=tier)
+        fjob = sc._FamilyLaunch(years, vals, mask, params, cap="global", _tier=tier)
+        ops, fops = (torch.zeros(2000, dtype=torch.int64, device=card) for _ in range(2))
+        job.run(0, 2000, op_count=ops)
+        fjob.run(op_count=fops)
+        counts.append((ops, fops))
+    for shared, scratch in zip(*counts):
+        assert int(shared.min()) > 0 and torch.equal(shared, scratch)

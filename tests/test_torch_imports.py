@@ -140,6 +140,9 @@ MAIN_PATH = [
     "land_trendr_tpu_torch.tools.change_stream_bench",
     "land_trendr_tpu_torch.tools.multihost_bench",
     "land_trendr_tpu_torch.tools.arch_speedup",
+    "land_trendr_tpu_torch.entry",
+    "land_trendr_tpu_torch.tools.multiindex_bench",
+    "land_trendr_tpu_torch.tools.build_time",
 ]
 
 
@@ -168,6 +171,9 @@ def test_main_path_loads_no_jax():
     assert "land_trendr_tpu_torch.tools.perf_gate" in res["port"]
     assert "land_trendr_tpu_torch.tools.giga_run" in res["port"]
     assert "land_trendr_tpu_torch.tools.multihost_bench" in res["port"]
+    assert "land_trendr_tpu_torch.entry" in res["port"]
+    assert "land_trendr_tpu_torch.tools.multiindex_bench" in res["port"]
+    assert "land_trendr_tpu_torch.tools.build_time" in res["port"]
 
 
 @pytest.mark.parametrize(
@@ -191,7 +197,8 @@ def test_main_path_loads_no_jax():
      "tools/tune_bench.py", "tools/lt_trace.py", "tools/perf_gate.py",
      "tools/pod_launch.py", "tools/run_segment_measured.py", "tools/giga_run.py",
      "tools/stream_assembly_bench.py", "tools/change_stream_bench.py",
-     "tools/multihost_bench.py", "tools/arch_speedup.py"],
+     "tools/multihost_bench.py", "tools/arch_speedup.py", "entry.py",
+     "tools/multiindex_bench.py", "tools/build_time.py"],
 )
 def test_slice_modules_exist_and_scan_clean(module):
     path = PORT / module

@@ -173,6 +173,28 @@ def test_global_scratch_tier_on_the_host_matches_plain(host_lib, dtype, ny, over
     assert int(job.result().n_vertices.max()) >= 3
 
 
+def test_scratch_tier_op_counts_equal_the_shared_tiers(host_lib, monkeypatch):
+    # the scratch tier's op tally (the operation side of its bound) is the
+    # shared tier's on the same pixels: the same arithmetic in another
+    # storage; the scratch tier cut into one-block pieces
+    params, ny, px = LTParams(), 72, 200
+    monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", sc.global_scratch_bytes(
+        ny, params, torch.float32, sc.CUDA_BLOCK))
+    years, vals, mask = _inputs(ny, px, torch.float32)
+    counts = {}
+    for tier in (None, "scratch"):
+        job = sc._Launch(years, vals, mask, params, cap="global", _tier=tier)
+        fjob = sc._FamilyLaunch(years, vals, mask, params, cap="global", _tier=tier)
+        ops, fops = (torch.zeros(px, dtype=torch.int64) for _ in range(2))
+        job.run(0, px, op_count=ops)
+        fjob.run(op_count=fops)
+        assert job.plan.tier == fjob.plan.tier == (tier or "shared")
+        counts[tier] = ops, fops
+    for shared, scratch in zip(counts[None], counts["scratch"]):
+        assert int(shared.min()) > 0
+        assert torch.equal(shared, scratch)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize(
     "cap,ny,over",

@@ -11,13 +11,19 @@
   byte-equal to the JAX package's ``write_change_maps``.
 * ``multihost_bench``: two ``gloo`` processes at 128² x 8 years, tile 32,
   on the CPU: 8 + 8 tiles, rasters byte-equal to one process.
-* The committed scale records ran on the card and hold their exact claims.
+* ``multiindex_bench`` (the JAX package's configuration #4) at 64² on the
+  CPU: its record has every key of the JAX record ``MULTIINDEX_r03.json``,
+  its FTV check passes, and its products are the JAX driver's on the same
+  stack.
+* The committed scale records ran on the card and hold their exact claims;
+  every committed card record names the digest of the package it ran.
 """
 
 import json
 import os
 import shutil
 import signal
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +40,7 @@ from land_trendr_tpu_torch.ops.change import ChangeFilter, write_change_maps
 from land_trendr_tpu_torch.tools import (
     change_stream_bench,
     multihost_bench,
+    multiindex_bench,
     stream_assembly_bench,
 )
 from land_trendr_tpu_torch.tools.measure import digest_files
@@ -180,13 +187,23 @@ def test_peak_rss_samples_vmrss_where_there_is_no_vmhwm(monkeypatch):
     monkeypatch.setattr(measure, "_status_kib",
                         lambda field: None if field == "VmHWM" else real(field))
     monkeypatch.setattr(measure, "_SAMPLED_PEAK_KIB", [])
-    measure.watch_rss(interval_s=0.002)
-    base = measure.rss_mib()
-    block = np.ones(256 << 17)  # 256 MiB, every page touched
-    time.sleep(0.2)
-    del block
-    assert measure.rss_mib() < base + 128
-    assert measure.peak_rss_mib() >= base + 200
+
+    def samplers() -> int:
+        return sum(t.name == "rss-sampler" for t in threading.enumerate())
+
+    before = samplers()
+    stop = measure.watch_rss(interval_s=0.002)
+    assert samplers() == before + 1
+    try:
+        base = measure.rss_mib()
+        block = np.ones(256 << 17)  # 256 MiB, every page touched
+        time.sleep(0.2)
+        del block
+        assert measure.rss_mib() < base + 128
+        assert measure.peak_rss_mib() >= base + 200
+    finally:
+        stop()  # no sampler outlives the test in its worker
+    assert samplers() == before
 
 
 
@@ -208,6 +225,7 @@ SCALE_RECORDS = {
     "MULTIHOST_h100.json": "multihost_bench",
     "ARCH_SPEEDUP_h100.json": "arch_speedup",
     "STREAMASM_h100.json": "stream_assembly_bench",
+    "MULTIINDEX_h100.json": "multiindex_bench",
 }
 
 
@@ -230,3 +248,61 @@ def test_committed_scale_records_are_the_cards(name):
         if name == "MULTIHOST_h100.json":
             assert e["rasters_byte_equal"]
             assert sum(p["pixels"] for p in e["pod"]["per_process"]) == e["scene"]["size"] ** 2
+        if name == "MULTIINDEX_h100.json":
+            assert e["ftv_validation"]["pass"] and e["scene"] == {
+                "width": 1024, "height": 1024, "years": 40}
+            assert {"ftv_ndvi", "ftv_tcw", "rmse"} <= set(e["outputs"])
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in RECORDS.glob("*_h100.json")))
+def test_every_card_record_names_its_source_digest(name):
+    """Presence only: each entry of each committed card record carries the
+    sha256 of the package sources it ran (``tools/measure.py:source_digest``)."""
+    rec = json.loads((RECORDS / name).read_text())
+    entries = [rec] if "command" in rec else list(rec.values())
+    assert entries
+    for e in entries:
+        assert len(e["source_sha256"]) == 64 and int(e["source_sha256"], 16) >= 0
+
+
+def test_multiindex_bench_on_cpu_holds_against_jax(tmp_path, one_thread_children, monkeypatch):
+    """64² x 40 at tile 32 (4 tiles): the record carries every key of the
+    JAX record (and of its summary), the FTV check passes, and the products
+    are those the JAX driver writes for NBR + FTV ndvi,tcw on the same
+    stack; ``main`` adds the run's meta and leaves no work directory."""
+    from land_trendr_tpu.ops.indices import required_bands as jax_required_bands
+    from land_trendr_tpu.runtime.stack import load_stack_dir as jax_load_stack_dir
+
+    work = tmp_path / "w"
+    work.mkdir()
+    rec = multiindex_bench.measure(64, 32, str(work), "cpu")
+    jrec = json.loads((Path(__file__).resolve().parent.parent / "MULTIINDEX_r03.json")
+                      .read_text())
+    assert set(jrec) <= set(rec)
+    assert set(jrec["summary"]) <= set(rec["summary"])
+    assert rec["ftv_validation"]["pass"] is True
+    assert rec["ftv_validation"]["n_samples"] == multiindex_bench.SAMPLES == 64
+    assert rec["scene"] == {"width": 64, "height": 64, "years": 40} and rec["tile_size"] == 32
+    assert rec["summary"]["tiles"] == 4 and rec["summary"]["pixels"] == 64 * 64
+    stack = jax_load_stack_dir(str(work / "stack"),
+                               bands=jax_required_bands("nbr", multiindex_bench.FTV))
+    cfg = JRunConfig(tile_size=32, workdir=str(tmp_path / "jw"), out_dir=str(tmp_path / "jo"),
+                     ftv_indices=multiindex_bench.FTV)
+    jax_driver.run_stack(stack, cfg)
+    assert rec["outputs"] == sorted(jax_driver.assemble_outputs(stack, cfg))
+
+    # main: the measured record (not run again) plus the command's meta
+    seen = []
+    monkeypatch.setattr(multiindex_bench, "measure",
+                        lambda *a: seen.append(a) or dict(rec))
+    out = tmp_path / "mi.json"
+    argv = ["--device", "cpu", "--size", "64", "--tile-size", "32",
+            "--work-root", str(tmp_path / "root"), "--out", str(out)]
+    assert multiindex_bench.main(argv) == 0
+    made = json.loads(out.read_text())
+    assert set(jrec) <= set(made) and "work_dir" not in made
+    assert made["command"] == "python -m land_trendr_tpu_torch.tools.multiindex_bench " + " ".join(argv)
+    assert made["device"] == "cpu" and made["nvidia_smi"] is None
+    assert len(made["source_sha256"]) == 64
+    assert [a[:2] + a[3:] for a in seen] == [(64, 32, "cpu")]
+    assert os.listdir(tmp_path / "root") == []
