@@ -1,0 +1,193 @@
+"""The benchmark's reference spectral indices and QA masks (PyTorch).
+
+A frozen copy of ``land_trendr_tpu_torch/ops/indices.py`` (it imports
+nothing of the program): the same band tables and formulas as elementwise
+PyTorch ops.  Float results are float32 whatever torch's default dtype is.
+
+Sign convention: LandTrendr fits *disturbance-positive* series.
+NBR/NDVI/TCW all *decrease* under disturbance, so :func:`compute_index`
+flips their sign by default.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+__all__ = [
+    "BANDS",
+    "INDEX_NAMES",
+    "DISTURBANCE_SIGN",
+    "INDEX_BANDS",
+    "DEFAULT_QA_REJECT",
+    "required_bands",
+    "nbr",
+    "ndvi",
+    "tcw",
+    "compute_index",
+    "scale_sr",
+    "qa_valid_mask",
+    "sr_valid_mask",
+]
+
+#: Canonical Landsat surface-reflectance band names (TM/ETM+/OLI
+#: harmonised six-band set).
+BANDS = ("blue", "green", "red", "nir", "swir1", "swir2")
+
+#: Tasseled-cap wetness coefficients for surface reflectance (Crist 1985),
+#: in :data:`BANDS` order.
+_TCW_COEFFS = (0.0315, 0.2021, 0.3102, 0.1594, -0.6806, -0.6109)
+
+#: Sign multiplier that makes each index disturbance-positive.
+DISTURBANCE_SIGN = {"nbr": -1.0, "ndvi": -1.0, "tcw": -1.0}
+
+INDEX_NAMES = tuple(DISTURBANCE_SIGN)
+
+#: Bands each index actually reads; the driver ships only the union its
+#: index selection needs.
+INDEX_BANDS = {
+    "nbr": ("nir", "swir2"),
+    "ndvi": ("nir", "red"),
+    "tcw": BANDS,
+}
+
+
+def required_bands(index: str, ftv_indices: tuple[str, ...] = ()) -> tuple[str, ...]:
+    """Union of bands needed by a primary index + FTV indices, BANDS-ordered."""
+    need: set[str] = set()
+    for name in (index, *ftv_indices):
+        key = name.lower()
+        if key not in INDEX_BANDS:
+            raise ValueError(f"unknown index {name!r}; expected one of {INDEX_NAMES}")
+        need.update(INDEX_BANDS[key])
+    return tuple(b for b in BANDS if b in need)
+
+
+def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` with 0 where ``den`` is 0 (masked pixels stay finite)."""
+    ok = den != 0
+    one = torch.ones((), dtype=den.dtype, device=den.device)
+    zero = torch.zeros((), dtype=num.dtype, device=num.device)
+    return torch.where(ok, num / torch.where(ok, den, one), zero)
+
+
+def nbr(nir: torch.Tensor, swir2: torch.Tensor) -> torch.Tensor:
+    """Normalized Burn Ratio: (NIR − SWIR2) / (NIR + SWIR2)."""
+    return _safe_ratio(nir - swir2, nir + swir2)
+
+
+def ndvi(nir: torch.Tensor, red: torch.Tensor) -> torch.Tensor:
+    """Normalized Difference Vegetation Index: (NIR − RED) / (NIR + RED)."""
+    return _safe_ratio(nir - red, nir + red)
+
+
+def tcw(
+    blue: torch.Tensor,
+    green: torch.Tensor,
+    red: torch.Tensor,
+    nir: torch.Tensor,
+    swir1: torch.Tensor,
+    swir2: torch.Tensor,
+) -> torch.Tensor:
+    """Tasseled-cap wetness (Crist 1985 reflectance coefficients)."""
+    bands = (blue, green, red, nir, swir1, swir2)
+    out = _TCW_COEFFS[0] * bands[0]
+    for c, b in zip(_TCW_COEFFS[1:], bands[1:]):
+        out = out + c * b
+    return out
+
+
+def compute_index(
+    name: str,
+    bands: Mapping[str, torch.Tensor],
+    disturbance_positive: bool = True,
+) -> torch.Tensor:
+    """Compute a named spectral index from a band-name → tensor mapping.
+
+    ``name`` is one of ``"nbr"``, ``"ndvi"``, ``"tcw"`` (case-insensitive);
+    ``bands`` holds reflectance-scaled float tensors of one shape.  With
+    ``disturbance_positive`` (the default) the sign is flipped so that
+    disturbance is an increase.
+    """
+    key = name.lower()
+    if key == "nbr":
+        out = nbr(bands["nir"], bands["swir2"])
+    elif key == "ndvi":
+        out = ndvi(bands["nir"], bands["red"])
+    elif key == "tcw":
+        out = tcw(*(bands[b] for b in BANDS))
+    else:
+        raise ValueError(f"unknown index {name!r}; expected one of {INDEX_NAMES}")
+    if disturbance_positive:
+        out = DISTURBANCE_SIGN[key] * out
+    return out
+
+
+def _to_int32(a: torch.Tensor) -> torch.Tensor:
+    """Widen integer DNs / QA words to int32, value-preserving.
+
+    uint16 goes through its int16 bit pattern and a 16-bit mask, which
+    needs only int16/int32 kernels on every device.
+    """
+    if a.dtype == torch.uint16:
+        return a.view(torch.int16).to(torch.int32) & 0xFFFF
+    return a.to(torch.int32)
+
+
+def scale_sr(
+    dn: torch.Tensor, scale: float = 2.75e-5, offset: float = -0.2
+) -> torch.Tensor:
+    """Scale integer surface-reflectance DNs to float32 reflectance.
+
+    Collection-2 convention by default; Collection-1 style data uses
+    ``scale=1e-4, offset=0.0``.  The DNs are widened to float32 first, so
+    the result is float32 whatever torch's default dtype is.
+    """
+    if not dn.dtype.is_floating_point:
+        dn = _to_int32(dn)
+    return dn.to(torch.float32) * scale + offset
+
+
+#: QA_PIXEL (CFMask) bit positions, Landsat Collection 2 layout.
+_QA_FILL = 1 << 0
+_QA_DILATED_CLOUD = 1 << 1
+_QA_CIRRUS = 1 << 2
+_QA_CLOUD = 1 << 3
+_QA_CLOUD_SHADOW = 1 << 4
+_QA_SNOW = 1 << 5
+
+#: Default rejection set: fill, cloud (incl. dilated + cirrus), shadow, snow.
+DEFAULT_QA_REJECT = (
+    _QA_FILL | _QA_DILATED_CLOUD | _QA_CIRRUS | _QA_CLOUD | _QA_CLOUD_SHADOW | _QA_SNOW
+)
+
+
+def qa_valid_mask(
+    qa: torch.Tensor, reject_bits: int = DEFAULT_QA_REJECT
+) -> torch.Tensor:
+    """True where the QA_PIXEL bitfield marks a usable observation.
+
+    The QA word is widened to int32 before the ``&`` (as the JAX package
+    does): a uint16 QA band keeps its high flag bits, and no sign bit of a
+    16-bit type can leak into the test.
+    """
+    return (_to_int32(qa) & reject_bits) == 0
+
+
+def sr_valid_mask(
+    bands: Mapping[str, torch.Tensor],
+    lo: float = 0.0,
+    hi: float = 1.0,
+) -> torch.Tensor:
+    """True where every reflectance band is finite and inside ``[lo, hi]``."""
+    mask = None
+    for name in BANDS:
+        if name not in bands:
+            continue
+        b = bands[name]
+        ok = torch.isfinite(b) & (b >= lo) & (b <= hi)
+        mask = ok if mask is None else (mask & ok)
+    if mask is None:
+        raise ValueError("sr_valid_mask needs at least one known band")
+    return mask
