@@ -43,7 +43,8 @@ despiked series, family vertex sets, SSEs).
   and :data:`GLOBAL_LAUNCHES`, of the family kernel's three forms to
   :data:`FAMILY_LAUNCHES`, :data:`WIDE_FAMILY_LAUNCHES` and
   :data:`GLOBAL_FAMILY_LAUNCHES`, and nothing else does.
-  Each launch is an NVTX range (``lt_segment_fused``, ``lt_family_stats``).
+  Each launch is a traced span (``lt_segment_fused``, ``lt_family_stats``;
+  :func:`~land_trendr_tpu_torch.utils.profiling.span`).
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
   (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`,
@@ -73,7 +74,7 @@ from land_trendr_tpu_torch.ops.segment import (
     torch_segment_pixels,
     torch_segment_pixels_chunked,
 )
-from land_trendr_tpu_torch.utils.profiling import nvtx_range
+from land_trendr_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BLOCKS",
@@ -753,7 +754,7 @@ class _Launch(_Planned):
         global LAUNCHES, WIDE_LAUNCHES, GLOBAL_LAUNCHES
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
-        with nvtx_range("lt_segment_fused"):
+        with span("lt_segment_fused"):
             rc = fn(
                 self.years.data_ptr(), _at(self.values, start), _at(self.mask, start),
                 count, self.ny,
@@ -1002,7 +1003,7 @@ class _FamilyLaunch(_Planned):
                 extra.append(_at(op_count, start))
             # a piece writes columns [start, start + count) of the
             # year-major outputs, whose rows stay PX long
-            with nvtx_range("lt_family_stats"):
+            with span("lt_family_stats"):
                 rc = fn(
                     self.years.data_ptr(), _at(self.values, start), _at(self.mask, start),
                     count, self.ny,

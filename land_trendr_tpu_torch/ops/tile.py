@@ -32,6 +32,7 @@ from land_trendr_tpu_torch.ops.segment_cuda import (
     cuda_segment_pixels_chunked,
 )
 from land_trendr_tpu_torch.parallel.mesh import pad_to_multiple
+from land_trendr_tpu_torch.utils.profiling import span
 
 __all__ = ["IMPLS", "TileOutputs", "process_tile_dn", "resolve_impl"]
 
@@ -101,47 +102,59 @@ def process_tile_dn(
     back, so results equal the unchunked path.  With the kernel, a chunk
     larger than the CUDA block must be a multiple of it (the chunked
     wrapper raises otherwise).
+
+    While a profiler session records, each stage is a span on the tile's
+    device (:func:`~land_trendr_tpu_torch.utils.profiling.span`):
+    ``lt_tile_prep`` (scaling, masks, the primary index),
+    ``lt_tile_segment`` (padding, the kernel's launches, the crop),
+    ``lt_tile_ftv`` and ``lt_tile_change`` (when asked for).
     """
     dev = qa.device
     impl = resolve_impl(impl, dev)
-    years = years.to(dev)
-    sr = {name: idx.scale_sr(dn, scale, offset) for name, dn in dn_bands.items()}
-    mask = idx.qa_valid_mask(qa, reject_bits) & idx.sr_valid_mask(sr)
-    primary = idx.compute_index(index, sr)
+    with span("lt_tile_prep", dev):
+        years = years.to(dev)
+        sr = {name: idx.scale_sr(dn, scale, offset) for name, dn in dn_bands.items()}
+        mask = idx.qa_valid_mask(qa, reject_bits) & idx.sr_valid_mask(sr)
+        primary = idx.compute_index(index, sr)
     px = primary.shape[0]
     if impl == "cuda":
         whole, chunked = cuda_segment_pixels, cuda_segment_pixels_chunked
     else:
         whole, chunked = torch_segment_pixels, torch_segment_pixels_chunked
-    if chunk is not None and px > chunk:
-        primary_p, mask_p, _ = pad_to_multiple(primary, mask, chunk)
-        seg = chunked(years, primary_p, mask_p, params, chunk)
-        if primary_p.shape[0] != px:
-            seg = SegOutputs(*(o[:px] for o in seg))
-    else:
-        seg = whole(years, primary, mask, params)
-    ftv = {
-        name: torch_fit_to_vertices(
-            years, idx.compute_index(name, sr), mask, seg.vertex_indices, seg.n_vertices,
-            params,
-        )
-        for name in ftv_indices
-    }
+    with span("lt_tile_segment", dev):
+        if chunk is not None and px > chunk:
+            primary_p, mask_p, _ = pad_to_multiple(primary, mask, chunk)
+            seg = chunked(years, primary_p, mask_p, params, chunk)
+            if primary_p.shape[0] != px:
+                seg = SegOutputs(*(o[:px] for o in seg))
+        else:
+            seg = whole(years, primary, mask, params)
+    ftv = {}
+    if ftv_indices:
+        with span("lt_tile_ftv", dev):
+            ftv = {
+                name: torch_fit_to_vertices(
+                    years, idx.compute_index(name, sr), mask, seg.vertex_indices,
+                    seg.n_vertices, params,
+                )
+                for name in ftv_indices
+            }
     change = None
     if change_filt is not None:
         # the kernel fits in the disturbance-positive orientation; the
         # selector's contract is the natural one, so flip first
         sign = idx.DISTURBANCE_SIGN[index.lower()]
-        change = select_change(
-            seg.vertex_years,
-            sign * seg.vertex_fit_vals,
-            sign * seg.seg_magnitude,
-            seg.seg_duration,
-            sign * seg.seg_rate,
-            seg.model_valid,
-            seg.p_of_f,
-            seg.rmse,
-            sign=sign,
-            filt=change_filt,
-        )
+        with span("lt_tile_change", dev):
+            change = select_change(
+                seg.vertex_years,
+                sign * seg.vertex_fit_vals,
+                sign * seg.seg_magnitude,
+                seg.seg_duration,
+                sign * seg.seg_rate,
+                seg.model_valid,
+                seg.p_of_f,
+                seg.rmse,
+                sign=sign,
+                filt=change_filt,
+            )
     return TileOutputs(seg=seg, ftv=ftv, change=change)

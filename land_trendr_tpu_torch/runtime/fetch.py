@@ -35,6 +35,7 @@ import torch
 
 from land_trendr_tpu_torch.ops import indices as idx
 from land_trendr_tpu_torch.runtime import faults
+from land_trendr_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:  # pragma: no cover - type-only imports (cycle with driver)
     from land_trendr_tpu_torch.ops.tile import TileOutputs
@@ -467,7 +468,8 @@ class TileFetcher:
             return UnpackedHandle(self, out)
         t0 = time.perf_counter()
         dev = out.seg.model_valid.device
-        words = pack_tile(out, self.plan)
+        with span("lt_fetch_pack", dev):
+            words = pack_tile(out, self.plan)
         host = torch.empty(words.numel(), dtype=torch.uint8, pin_memory=True)
         side = self._streams[dev]
         side.wait_stream(torch.cuda.current_stream(dev))

@@ -11,58 +11,163 @@ Counterpart of ``land_trendr_tpu/utils/profiling.py``:
   steady-state iterations;
 * :func:`capture_profile` holds a trace open for a duration over a live
   process, one capture at a time;
-* :func:`nvtx_range` marks a host range where the JAX package has a
-  ``jax.named_scope`` stage scope — an NVTX range on the card (for
-  external tools) and a ``record_function`` range (a user annotation in
-  :func:`trace`'s output): :class:`StageTimer` opens one per host stage
-  (``lt_feed``, ``lt_upload``, ``lt_dispatch``, ``lt_compute``,
-  ``lt_fetch``, ``lt_write``) and the kernel wrappers one around each
-  launch (``lt_segment_fused``, ``lt_family_stats``);
+* :func:`span` marks a host range where the JAX package has a
+  ``jax.named_scope`` stage scope.  With no profiler session recording
+  it only reads the profiler's flag; under one it is a
+  ``record_function`` range (a user annotation in :func:`trace`'s output,
+  on the device kernels' clock), and a span given a device also appends
+  one :class:`SpanRecord` to :data:`SPAN_LOG`, with a CUDA event pair on
+  a card.  The tile program opens one per stage (``lt_tile_prep``,
+  ``lt_tile_segment``, ``lt_tile_ftv``, ``lt_tile_change``), the fetch
+  one around its pack (``lt_fetch_pack``), :class:`StageTimer` one per
+  host stage (``lt_feed`` … ``lt_write``) and the kernel wrappers one
+  around each launch (``lt_segment_fused``, ``lt_family_stats``);
 * :class:`StageTimer` is the host-side complement for driver-loop phases.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import threading
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 __all__ = [
     "trace",
     "profile_op",
     "capture_profile",
-    "nvtx_range",
+    "span",
+    "SpanLog",
+    "SpanRecord",
+    "SPAN_LOG",
     "StageTimer",
 ]
 
-_nvtx_on: "bool | None" = None
+
+class SpanRecord(NamedTuple):
+    """One span logged while a profiler session recorded: host
+    ``perf_counter`` seconds at entry and exit, and on a card the CUDA
+    events recorded on the device's current stream there."""
+
+    name: str
+    t_enter: float
+    t_exit: float
+    events: "tuple[torch.cuda.Event, torch.cuda.Event] | None" = None
+
+    @property
+    def host_ms(self) -> float:
+        return 1e3 * (self.t_exit - self.t_enter)
+
+    def device_ms(self) -> "float | None":
+        """Milliseconds on the stream from the entry event to the exit
+        event (waits for the exit event); None off a card."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
 
 
-def _nvtx_enabled() -> bool:
-    global _nvtx_on
-    if _nvtx_on is None:
-        _nvtx_on = torch.cuda.is_available()
-    return _nvtx_on
+class SpanLog:
+    """Bounded log of :class:`SpanRecord`, oldest dropped first.  The
+    events of a dropped record go back to a per-device pool, so a long
+    traced run creates at most ``2 * size`` events a device."""
+
+    def __init__(self, size: int) -> None:
+        self.size = size
+        self._records: collections.deque = collections.deque()
+        self._pool: dict[int, list] = collections.defaultdict(list)
+        self._lock = threading.Lock()
+
+    def event(self, device_index: int) -> torch.cuda.Event:
+        """A timing event for ``device_index`` from the pool, or a new one."""
+        with self._lock:
+            pool = self._pool[device_index]
+            if pool:
+                return pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _recycle(self, rec: SpanRecord, device_index: int) -> None:
+        if rec.events is not None:
+            self._pool[device_index].extend(rec.events)
+
+    def append(self, rec: SpanRecord, device_index: int = -1) -> None:
+        with self._lock:
+            if len(self._records) >= self.size:
+                self._recycle(*self._records.popleft())
+            self._records.append((rec, device_index))
+
+    def records(self) -> list[SpanRecord]:
+        """The logged records, oldest first (a copy; a record's events
+        stay valid until the record is dropped or the log cleared)."""
+        with self._lock:
+            return [rec for rec, _ in self._records]
+
+    def clear(self) -> None:
+        with self._lock:
+            while self._records:
+                self._recycle(*self._records.popleft())
 
 
-@contextlib.contextmanager
-def nvtx_range(name: str) -> Iterator[None]:
-    """A host range named ``name`` around the block: a profiler
-    annotation, plus an NVTX range where a card is present.  Ranges are
-    per thread, so writer and feeder threads nest their own."""
-    with torch.profiler.record_function(name):
-        if not _nvtx_enabled():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
+#: the process's span log (65,536 records)
+SPAN_LOG = SpanLog(1 << 16)
+
+
+class _Span:
+    """A recording span: a ``record_function`` range, plus a log record
+    (and an event pair on the device's current stream, on a card) where a
+    device is given."""
+
+    __slots__ = ("name", "logged", "_stream", "_range", "_t0", "_start")
+
+    def __init__(self, name: str, device: "torch.device | None") -> None:
+        self.name = name
+        self.logged = device is not None
+        self._stream = (
+            torch.cuda.current_stream(device) if self.logged and device.type == "cuda" else None
+        )
+
+    def __enter__(self) -> None:
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        if self._stream is not None:
+            self._start = SPAN_LOG.event(self._stream.device_index)
+            self._start.record(self._stream)
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
         try:
-            yield
+            if self.logged:
+                t1 = time.perf_counter()
+                events, index = None, -1
+                if self._stream is not None:
+                    index = self._stream.device_index
+                    end = SPAN_LOG.event(index)
+                    end.record(self._stream)
+                    events = (self._start, end)
+                SPAN_LOG.append(SpanRecord(self.name, self._t0, t1, events), index)
         finally:
-            torch.cuda.nvtx.range_pop()
+            self._range.__exit__(*exc)
+
+
+_IDLE = contextlib.nullcontext()
+
+
+def span(name: str, device: "torch.device | None" = None):
+    """A host range named ``name`` around the block, while a profiler
+    session records (else nothing but the flag's read): a
+    ``record_function`` range in the session's trace, and, where
+    ``device`` is given, one :class:`SpanRecord` in :data:`SPAN_LOG`, with
+    events on the device's current stream at entry and exit on a card.
+    Ranges are per thread, so writer and feeder threads nest their own."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _IDLE
+    return _Span(name, device)
 
 
 def _activities() -> list:
@@ -78,7 +183,7 @@ def trace(logdir: str) -> Iterator[str]:
 
     The trace is written on exit as ``trace.<pid>.<n>.json`` (Chrome trace
     format) with one event per CPU op, CUDA runtime call, ``lt_*`` host
-    range (:func:`nvtx_range`) and device kernel; yields ``logdir``.
+    range (:func:`span`) and device kernel; yields ``logdir``.
     """
     os.makedirs(logdir, exist_ok=True)
     prof = torch.profiler.profile(activities=_activities())
@@ -190,11 +295,10 @@ class StageTimer:
 
     The runtime driver wraps its feed / upload / dispatch / compute /
     fetch / write phases so the run summary reports where host time went;
-    each stage is also an NVTX range ``lt_<stage>`` on the device
-    timeline.  Thread-safe: accumulation holds a lock, so concurrent
-    writers (the driver's ``write_workers`` pool) may share one stage
-    name; their accumulated seconds then sum ACROSS threads and can exceed
-    wall time.
+    each stage is also a :func:`span` ``lt_<stage>`` (in a trace only).
+    Thread-safe: accumulation holds a lock, so concurrent writers (the
+    driver's ``write_workers`` pool) may share one stage name; their
+    accumulated seconds then sum ACROSS threads and can exceed wall time.
 
     >>> timer = StageTimer()
     >>> with timer.stage("feed"):
@@ -212,7 +316,7 @@ class StageTimer:
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            with nvtx_range(f"lt_{name}"):
+            with span(f"lt_{name}"):
                 yield
         finally:
             dt = time.perf_counter() - t0

@@ -1,0 +1,11 @@
+"""``ftv_host_ms_per_tile`` (host clock, the program's span): the mean host
+time a tile of the ``lt_tile_ftv`` span in
+``ops/tile.py:process_tile_dn`` (each FTV index computed and fitted to
+the vertices): the stage's enqueue, plus any block on a full launch
+queue."""
+
+from lt_bench.stages import ms_per_tile
+
+
+def read(run):
+    return ms_per_tile(run, "lt_tile_ftv", "host")

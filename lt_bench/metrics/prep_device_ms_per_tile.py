@@ -1,0 +1,14 @@
+"""``prep_device_ms_per_tile`` (device, from the program's span): the mean
+time a tile on the tile's compute stream from the entry event to the
+exit event of the ``lt_tile_prep`` span in
+``ops/tile.py:process_tile_dn`` (DN scaling of every band, the QA and
+range masks, the primary index), read from the CUDA events the span
+records in the traced run. Where the device paces, this is the stage's
+device time; where the host paces, it also holds the device's wait for
+the stage's own enqueue."""
+
+from lt_bench.stages import ms_per_tile
+
+
+def read(run):
+    return ms_per_tile(run, "lt_tile_prep", "device")

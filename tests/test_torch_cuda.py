@@ -723,3 +723,50 @@ def test_scratch_tier_op_counts_on_card(card, monkeypatch):
         counts.append((ops, fops))
     for shared, scratch in zip(*counts):
         assert int(shared.min()) > 0 and torch.equal(shared, scratch)
+
+
+@pytest.mark.cuda
+def test_stage_spans_time_a_traced_tile_on_card(card):
+    """One traced 1024² tile with FTV and the change map, then its packed
+    fetch: each stage logs one record with positive device milliseconds,
+    and the segment stage's events bracket its kernel launches."""
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+    from land_trendr_tpu_torch.ops.indices import BANDS
+    from land_trendr_tpu_torch.ops.tile import process_tile_dn
+    from land_trendr_tpu_torch.runtime.driver import RunConfig
+    from land_trendr_tpu_torch.runtime.fetch import TileFetcher
+    from land_trendr_tpu_torch.utils import profiling
+
+    px, ny, chunk = 1024 * 1024, 40, 262_144
+    gen = torch.Generator(device=card).manual_seed(20261018)
+    years = torch.arange(1984, 1984 + ny, dtype=torch.int32, device=card)
+    dn = {b: torch.randint(8000, 30000, (px, ny), generator=gen, device=card,
+                           dtype=torch.int32).to(torch.int16) for b in BANDS}
+    qa = torch.zeros((px, ny), dtype=torch.int16, device=card).view(torch.uint16)
+    cfg = RunConfig(ftv_indices=("ndvi", "tcw"), change_filt=ChangeFilter(), chunk_px=chunk)
+    fetcher = TileFetcher(cfg, card, packed=True)
+
+    def step():
+        out = process_tile_dn(years, dn, qa, chunk=chunk, ftv_indices=cfg.ftv_indices,
+                              change_filt=cfg.change_filt)
+        fetcher.start(out).wait()
+
+    step()  # the library's build and first launches stay out of the trace
+    torch.cuda.synchronize()
+    profiling.SPAN_LOG.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    recs = profiling.SPAN_LOG.records()
+    names = ["lt_tile_prep", "lt_tile_segment", "lt_tile_ftv", "lt_tile_change", "lt_fetch_pack"]
+    assert [r.name for r in recs] == names
+    ms = {r.name: r.device_ms() for r in recs}
+    assert all(v > 0 for v in ms.values()), ms
+    assert all(r.host_ms > 0 for r in recs)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if "segment_fused_kernel" in e.name() and str(e.device_type()).endswith("CUDA")]
+    assert len(kernels) == px // chunk
+    kernel_ms = sum(e.duration_ns() for e in kernels) / 1e6
+    assert ms["lt_tile_segment"] >= kernel_ms > 0
+    profiling.SPAN_LOG.clear()
