@@ -60,6 +60,12 @@ each of which fails the script on its own:
    by the plain tail on the card makes the fused kernel's decisions on
    every pixel in float64 and >= 99.9% in float32.  Times the kernel and
    its plain version and computes its bound.
+3c. **FTV kernel against its plain version** on phase 2's population at
+   its shape (40 years, the segmentation kernel's int32 vertex fields; the
+   target another pixel's series, with non-finite years): float32
+   bit-identical, float64 within 1e-8, one launch a call and the
+   segmentation's counter unmoved.  Times the kernel and its plain version
+   and computes its bound by bytes.
 4. **Scene**: a 2048 x 2048 x 40-year synthetic stack through the port's
    ``run_stack`` + ``assemble_outputs`` at tile_size 512 (16 tiles of
    262,144 px); the kernel's launch count must be one per tile, the
@@ -68,7 +74,8 @@ each of which fails the script on its own:
    core count and whether the native gather library loaded are printed.
 4b. **FTV + change scene**: phase 4's stack again, with
    ``ftv_indices=("ndvi", "tcw")`` and ``ChangeFilter(max_dur=4)``: one
-   fused launch per tile, impl "cuda", the FTV and the seven change
+   fused launch per tile and one FTV launch per index and tile, impl
+   "cuda", the FTV and the seven change
    rasters assembled, fit_rate in (0, 1]; px/s and stage_s printed.
 5. **CLI**: ``synth``, ``segment`` on the default device (through
    ``tools/run_segment_measured``, which prints its peak RSS), then a second
@@ -117,9 +124,9 @@ each of which fails the script on its own:
    mesh (32 launches); the entry points (``land_trendr_tpu_torch/entry.py``):
    ``entry()``'s forward step on its 256 x 40 batch (one launch,
    bit-identical to the plain version in f32) and ``dryrun_multichip(2)``
-   over ``[cuda:0, cuda:0]`` (its launches counted, the leg's seconds
-   printed); the three scene runs' rasters byte-equal to phase
-   4's; (b) phase 7's stack written to disk: a two-process pod under
+   over ``[cuda:0, cuda:0]`` (its launches counted, two of them the FTV
+   kernel's, one a shard; the leg's seconds printed); the three scene
+   runs' rasters byte-equal to phase 4's; (b) phase 7's stack written to disk: a two-process pod under
    ``init_distributed`` on localhost (this script re-run with
    ``--pod-worker``; 8 + 8 tiles, the primary's ``hosts`` fold both
    ``ok``) and two ``segment --lease-batch 2`` processes with no process
@@ -1783,6 +1790,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     from land_trendr_tpu_torch.io.synthetic import SceneSpec, make_stack, write_stack
     from land_trendr_tpu_torch.ops import segment_cuda
     from land_trendr_tpu_torch.ops.change import CHANGE_PRODUCTS, ChangeFilter
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
     from land_trendr_tpu_torch.ops.segment import (
         _select_and_assemble,
         torch_family_stats,
@@ -1974,7 +1982,46 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         f"({f_ops / POP_PX:.0f}/px, p50 {int(fops.median())} max {int(fops.max())}) -> "
         f"{f_ops_ms:.4f} ms at 67 TFLOP/s; bound {fam_bound_ms:.4f} ms by {fam_bound_by}; "
         f"kernel at {100 * fam_bound_ms / fam_ms:.1f}% of it")
+
+    # ---- phase 3c: the FTV kernel against its plain version -------------
+    # the target is another pixel's series (non-finite years among them)
+    # fitted to this pixel's vertices, as the segmentation kernel wrote them
+    def ftv_target(v):
+        t = torch.roll(v, 1, dims=0).clone()
+        t[::97, 3] = float("nan")
+        t[::89, 7] = float("inf")
+        return t
+
+    t32, t64 = ftv_target(v32), ftv_target(v64)
+    ftv_args32 = (years, t32, mask, k32.vertex_indices, k32.n_vertices, params)
+    ftv_args64 = (years, t64, mask, k64.vertex_indices, k64.n_vertices, params)
+    before = (segment_cuda.FTV_LAUNCHES, segment_cuda.LAUNCHES)
+    g32 = segment_cuda.cuda_fit_to_vertices(*ftv_args32)
+    g64 = segment_cuda.cuda_fit_to_vertices(*ftv_args64)
+    ftv_check_launches = segment_cuda.FTV_LAUNCHES - before[0]
+    assert (ftv_check_launches, segment_cuda.LAUNCHES) == (2, before[1]), (
+        ftv_check_launches, segment_cuda.LAUNCHES, before)
+    r32, r64 = torch_fit_to_vertices(*ftv_args32), torch_fit_to_vertices(*ftv_args64)
+    torch.cuda.synchronize()
+    ftv_same32 = torch.equal(g32.view(torch.int32), r32.view(torch.int32))
+    ftv_err64 = float((g64 - r64).abs().max())
+    log(f"[ftv] {POP_PX} px x {NY} yr: FTV kernel vs plain, f32 bit-identical: {ftv_same32}; "
+        f"f64 max |diff| {ftv_err64:.3e} (limit {F64_ATOL}); {ftv_check_launches} launches, "
+        f"segmentation launches unmoved")
+    assert ftv_same32, "FTV kernel differs from the plain version in f32"
+    assert ftv_err64 <= F64_ATOL, f"FTV f64 disagreement {ftv_err64} above {F64_ATOL}"
+    ftv_ms = cuda_ms(lambda: segment_cuda.cuda_fit_to_vertices(*ftv_args32), reps=20)
+    ftv_plain_ms = cuda_ms(lambda: torch_fit_to_vertices(*ftv_args32), reps=2)
+    # bytes: NY values and mask bytes and NV + 1 int32 read, NY values
+    # written a pixel (392 B at NY = 40, NV = 7 in f32), the years once
+    nv = params.max_vertices
+    ftv_bytes = POP_PX * (NY * (4 + 1) + 4 * (nv + 1) + NY * 4) + NY * 4
+    ftv_bound_ms, ftv_bound_by = bound_of(ftv_bytes, 0)
+    log(f"[ftv] kernel {ftv_ms:.4f} ms, plain {ftv_plain_ms:.2f} ms; bound {ftv_bytes} B "
+        f"({ftv_bytes // POP_PX} B/px) -> {ftv_bound_ms:.4f} ms by {ftv_bound_by}, kernel at "
+        f"{100 * ftv_bound_ms / ftv_ms:.1f}% of it")
     del k32, p32, k64, p64, ch, job, v64, f32, pf32, f64, pf64, tail32, tail64, fjob
+    del t32, t64, ftv_args32, ftv_args64, g32, g64, r32, r64
 
     # ---- phase 2c: the wide kernels against their plain versions --------
     wide = wide_kernels(dev, kernel_ms)
@@ -2046,8 +2093,10 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         change_filt=ChangeFilter(max_dur=4.0),
     )
     segment_cuda.LAUNCHES = 0
+    segment_cuda.FTV_LAUNCHES = 0
     summary = run_stack(stack, cfg, device="cuda")
     tail_launches = segment_cuda.LAUNCHES
+    ftv_launches = segment_cuda.FTV_LAUNCHES
     t0 = time.perf_counter()
     paths = assemble_outputs(stack, cfg)
     assemble_s = time.perf_counter() - t0
@@ -2055,8 +2104,8 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         header = json.loads(f.readline())
     log(f"[ftv+change] ftv {','.join(FTV)}, change max_dur 4: px_per_s "
         f"{summary['px_per_s']} wall_s {summary['wall_s']} fit_rate "
-        f"{summary['fit_rate']:.4f} launches {tail_launches} assemble_s {assemble_s:.2f} "
-        f"outputs {len(paths)}")
+        f"{summary['fit_rate']:.4f} launches {tail_launches} FTV launches {ftv_launches} "
+        f"assemble_s {assemble_s:.2f} outputs {len(paths)}")
     log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
     log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
     log(f"[ftv+change] HBM peak (the telemetry gauge's value) "
@@ -2065,6 +2114,8 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     assert summary["retries"] == 0 and summary["tiles_quarantined"] == [], summary
     assert summary["tiles_done"] == n_tiles, summary
     assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
+    assert ftv_launches == len(FTV) * n_tiles, (
+        f"{ftv_launches} FTV launches for {n_tiles} tiles of {len(FTV)} indices")
     assert header.get("context", {}).get("impl") == "cuda", header
     assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
     want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
@@ -2469,14 +2520,18 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
             f"in f32: {same}")
         assert entry_launches == 1 and same, (entry_launches, same)
         segment_cuda.LAUNCHES = 0
+        segment_cuda.FTV_LAUNCHES = 0
         dry = dryrun_multichip(2, devices=[dev, dev])
         dry_launches = segment_cuda.LAUNCHES
+        entry_ftv_launches = segment_cuda.FTV_LAUNCHES  # one a shard
         want = 2 + 2 + 1 + 2 + 2 * dry["summary"]["tiles"]
         entry_s = time.perf_counter() - t0
         log(f"[entry] dryrun_multichip(2) over {dry['mesh']}: {dry_launches} launches "
-            f"(want {want}), metrics {json.dumps(dry['metrics'])}, {len(dry['rasters'])} "
-            f"rasters; the entry leg took {entry_s:.2f} s")
+            f"(want {want}), {entry_ftv_launches} FTV launches (want 2), metrics "
+            f"{json.dumps(dry['metrics'])}, {len(dry['rasters'])} rasters; the entry leg took "
+            f"{entry_s:.2f} s")
         assert dry_launches == want, (dry_launches, want)
+        assert entry_ftv_launches == 2, entry_ftv_launches
         entry_launches += dry_launches
 
         # the three scene runs' rasters against phase 4's, assembled together
@@ -2766,9 +2821,27 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "bound_ms_scratch_tier_with_scratch":
             glob["scratch_tier"]["float32"]["family_bound_ms_with_scratch"],
     }
+    ftv_kernel = {
+        "name": "ftv_fit",
+        "route": "cuda",
+        "source": src,
+        "replaces": "land_trendr_tpu/ops/ftv.py:116",
+        # phase 4b's scene (one launch an index and tile) and phase 9's
+        # dry run (one a shard); phase 3c's checks and times stand apart
+        "launches": ftv_launches + entry_ftv_launches,
+        "launches_by_path": {"segment": ftv_launches, "entry": entry_ftv_launches},
+        "max_abs_err": 0.0,
+        "max_abs_err_f64": ftv_err64,
+        "ms": ftv_ms,
+        "plain_ms": ftv_plain_ms,
+        "bound_ms": ftv_bound_ms,
+        "bound_by": ftv_bound_by,
+        "library_ms": None,
+        "shape": f"{POP_PX:,} px x {NY} years f32",
+    }
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [kernel, kernel_wide, kernel_global, family, family_wide,
-                                  family_global]}))
+                                  family_global, ftv_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

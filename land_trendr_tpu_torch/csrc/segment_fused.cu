@@ -105,6 +105,18 @@
 // NM*NY vertex-set bytes and NM words — at NY = 40, NM = 6 0.62 KB (f32),
 // ~0.049 ms for 262,144 px at 3.35 TB/s.
 //
+// A third kernel, `ftv_fit_kernel`, fits a secondary index to the
+// segmentation's vertex years (FTV, fitted-trajectory values); the JAX
+// package runs it as XLA (land_trendr_tpu/ops/ftv.py), and its plain
+// version is ops/ftv.py:torch_fit_to_vertices.  It needs the series and
+// at most NV vertices, no candidate sets, so it is built in the global
+// form only (both tiers), at NV in place of the candidate count: the slab
+// load, the anchored fit with its point-to-point fallback (`fit_model`,
+// the refit's instantiation) and the trajectory's interpolation
+// (`interp_row`) are the fused kernel's.  What bounds it: a pixel reads NY
+// values, NY mask bytes and NV + 1 ints and writes NY values — at NY = 40,
+// NV = 7, 392 B (f32), ~0.49 ms for 2048² px at 3.35 TB/s.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
 // --fmad=false keeps every multiply and add rounded on its own, step for
@@ -1424,6 +1436,37 @@ __device__ __forceinline__ void emit(U* __restrict__ dst, int w, int npx, void* 
   __syncthreads();
 }
 
+// One row's trajectory over every year: np.interp through `nv` vertex
+// slots of which the first k (>= 1) are live, at years xv(i) with fits
+// vf[i]; dead slots repeat (t_hi, the last fit), so xv(i) is t_hi for
+// i >= k.  The year axis ascends, so the slots at or below each year are
+// counted by a forward walk.
+template <typename T, class X, class F>
+__device__ __forceinline__ void interp_row(T* row, const T* ts, int ny, int nv, int k, T t_hi,
+                                           const X& xv, const F& vf) {
+  const T eps_g = ulp_of_eps<T>();
+  const T x0 = xv(0), f0 = vf[0];
+  const T xlast = k == nv ? xv(k - 1) : t_hi;
+  const T flast = vf[k - 1];
+  int ci = 0;  // vertex slots with xp <= year, walked forward
+  for (int j = 0; j < ny; ++j) {
+    const T tj = ts[j];
+    while (ci < nv && xv(ci) <= tj) ++ci;
+    const int i = ci < 1 ? 1 : (ci > nv - 1 ? nv - 1 : ci);
+    const T xp_i = xv(i);
+    const T xp_im1 = xv(i - 1);
+    const T fp_i = i < k ? vf[i] : flast;
+    const T fp_im1 = i - 1 < k ? vf[i - 1] : flast;
+    const T df = fp_i - fp_im1;
+    const T dx = xp_i - xp_im1;
+    const T delta = tj - xp_im1;
+    T f = f_abs(dx) <= eps_g ? fp_im1 : fp_im1 + (delta / dx) * df;
+    if (tj < x0) f = f0;
+    if (tj > xlast) f = flast;
+    row[j] = f;
+  }
+}
+
 template <typename T, class O, int B, class C>
 __global__ void __launch_bounds__(B > 0 ? B : GLOBAL_MAX_BLOCK)
 segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
@@ -1489,27 +1532,7 @@ segment_fused_kernel(const T* __restrict__ years, const T* __restrict__ values,
       for (int j = 0; j < ny; ++j) row[j] = res.mean;
       return;
     }
-    const T eps_g = ulp_of_eps<T>();
-    const T x0 = xv(0), f0 = res.vf[0];
-    const T xlast = k == p.nv ? xv(k - 1) : t_hi;
-    const T flast = res.vf[k - 1];
-    int ci = 0;  // vertex slots with xp <= year, walked forward
-    for (int j = 0; j < ny; ++j) {
-      const T tj = ts[j];
-      while (ci < p.nv && xv(ci) <= tj) ++ci;
-      const int i = ci < 1 ? 1 : (ci > p.nv - 1 ? p.nv - 1 : ci);
-      const T xp_i = xv(i);
-      const T xp_im1 = xv(i - 1);
-      const T fp_i = i < k ? res.vf[i] : flast;
-      const T fp_im1 = i - 1 < k ? res.vf[i - 1] : flast;
-      const T df = fp_i - fp_im1;
-      const T dx = xp_i - xp_im1;
-      const T delta = tj - xp_im1;
-      T f = f_abs(dx) <= eps_g ? fp_im1 : fp_im1 + (delta / dx) * df;
-      if (tj < x0) f = f0;
-      if (tj > xlast) f = flast;
-      row[j] = f;
-    }
+    interp_row(row, ts, ny, p.nv, k, t_hi, xv, res.vf);
   });
   const int nv = p.nv, nm = p.nm;
   emit<int32_t, B>(o.vidx + base * nv, nv, npx, stage, live, [&](int32_t* row) {
@@ -1653,6 +1676,101 @@ family_stats_kernel(const T* __restrict__ years, const T* __restrict__ values,
   if (stats != nullptr) ops.write(stats, pix);
 }
 
+// FTV: fit a target index's (PX, NY) series to each pixel's vertex years
+// from the segmentation (`vidx`, (PX, NV) stack-axis indices, the first
+// `nvert` live) and write the (PX, NY) trajectory.  The plain version is
+// ops/ftv.py:torch_fit_to_vertices.  The global form's block, at NV in
+// place of the candidates (p.nc = p.nv): the target's slab load and
+// compaction, the anchored fit of the chosen model's refit and the
+// fitted trajectory's interpolation are the fused kernel's.  The vertex
+// set lives in vp, ascending: a vertex maps to the count of valid years
+// before it (the nearest valid year at or after it), clipped to the last;
+// one already in the set merges; fewer than two fall back to the first
+// and last valid years.  A pixel with fewer than two vertices or two
+// valid years gets the mean of its valid target values.
+template <typename T, class C>
+__global__ void __launch_bounds__(GLOBAL_MAX_BLOCK)
+ftv_fit_kernel(const T* __restrict__ years, const T* __restrict__ values,
+               const uint8_t* __restrict__ mask, const int32_t* __restrict__ vidx,
+               const int32_t* __restrict__ nvert, T* __restrict__ out, long long px, int ny,
+               Params p, unsigned char* scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = nthreads<0>();
+  unsigned char* bmem = smem;  // as in segment_fused_kernel
+  if constexpr (C::SCRATCH) {
+    bmem = scratch +
+           (long long)blockIdx.x * global_region_bytes(ny, p.nc, p.nm, (int)sizeof(T), nb);
+  }
+  const Block<T, 0> blk(bmem, ny);
+  const long long base = (long long)blockIdx.x * nb;
+  const int npx = (int)(px - base < nb ? px - base : nb);
+  const int r = threadIdx.x;
+  const bool live = r < npx;
+  const Mem<T, C> mem(bmem, ny, nb, p);
+  const GBits valid =
+      load_compact<T, 0, C>(blk, years, values + base * ny, mask + base * ny, npx, ny);
+  const Series<T, 0> s{blk.ycol + r, blk.region + r, valid.count(), nb};
+  const int n = s.n;
+
+  typename Store<C>::template Arr<int> vp, vyi;  // vertex positions, their year indices
+  typename Store<C>::template Arr<T> vf;         // the fit at each vertex
+  if constexpr (C::SCRATCH) {
+    vp = mem.template arr<int>(P_RVP);
+    vyi = mem.template arr<int>(P_VYI);
+    vf = mem.template arr<T>(P_RVF);
+  }
+  int k = 0;  // live vertices; 0: the flat mean
+  T mean = 0;
+  if (live) {
+    const long long pix = base + r;
+    const int nverts = nvert[pix];
+    if (n >= 2 && nverts >= 2) {
+      const int32_t* row = vidx + pix * p.nv;
+      const int slots = nverts < p.nv ? nverts : p.nv;
+      for (int q = 0; q < slots; ++q) {
+        const int yi = row[q];
+        int pos = yi <= 0 ? 0 : (yi >= ny ? n : valid.count_below(yi));
+        if (pos > n - 1) pos = n - 1;
+        int at = k;
+        while (at > 0 && vp[at - 1] > pos) --at;
+        if (at > 0 && vp[at - 1] == pos) continue;
+        for (int j = k; j > at; --j) vp[j] = vp[j - 1];
+        vp[at] = pos;
+        ++k;
+      }
+      if (k < 2) {
+        vp[0] = 0;
+        vp[1] = n - 1;
+        k = 2;
+      }
+      // the range of the raw series (no despike)
+      T y_lo = s.y(0), y_hi = s.y(0);
+      for (int i = 1; i < n; ++i) {
+        y_lo = t_min(y_lo, s.y(i));
+        y_hi = t_max(y_hi, s.y(i));
+      }
+      NoOps ops;
+      fit_model<true, C>(s, vp, k, t_max(y_hi - y_lo, (T)0), p, vf, mem, ops);
+      for (int j = 0; j < k; ++j) vyi[j] = nth_bit(valid, vp[j]);
+    } else {
+      T sum_y = 0;
+      for (int i = 0; i < n; ++i) sum_y = sum_y + s.y(i);
+      mean = n > 0 ? sum_y / (T)n : (T)0;
+    }
+  }
+  __syncthreads();  // every t column is read: the region becomes the staging tile
+  const T* ts = blk.ts;
+  const T t_hi = n > 0 ? ts[valid.highest()] : (T)0;
+  auto xv = [&](int i) { return i < k ? ts[vyi[i]] : t_hi; };
+  emit<T, 0>(out + base * ny, ny, npx, blk.region, live, [&](T* row) {
+    if (k == 0) {
+      for (int j = 0; j < ny; ++j) row[j] = mean;
+      return;
+    }
+    interp_row(row, ts, ny, p.nv, k, t_hi, xv, vf);
+  });
+}
+
 Params make_params(int max_segments, int overshoot, double spike, double rt, int prevent,
                    double pval, double bmp, int min_obs, int lentz_iters) {
   Params p;
@@ -1738,6 +1856,21 @@ int launch_family(const void* years, const void* values, const void* mask, long 
   return start(family_stats_kernel<T, O, B, C>, px, block,
                smem_of<C>(ny, p.nc, (int)sizeof(T), block), (cudaStream_t)stream,
                (const T*)years, (const T*)values, (const uint8_t*)mask, px, ny, o, p, stats,
+               (unsigned char*)scratch);
+}
+
+// One launch of the FTV kernel in the global form's shared tier (GShared)
+// or its scratch tier (GScratch), `block` threads a block.
+template <typename T, class C>
+int launch_ftv(const void* years, const void* values, const void* mask, const void* vidx,
+               const void* nvert, void* out, long long px, int ny, const Params& p, void* stream,
+               void* scratch, int block) {
+  if (bad_shape<C>(ny, p, px) || (C::SCRATCH && scratch == nullptr) || !block_ok<C>(block, 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return start(ftv_fit_kernel<T, C>, px, block, smem_of<C>(ny, p.nc, (int)sizeof(T), block),
+               (cudaStream_t)stream, (const T*)years, (const T*)values, (const uint8_t*)mask,
+               (const int32_t*)vidx, (const int32_t*)nvert, (T*)out, px, ny, p,
                (unsigned char*)scratch);
 }
 
@@ -2047,5 +2180,25 @@ int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, int block,
 }
 
 #endif  // LT_PART 2
+
+// The FTV kernel in the global form's shared tier (tier = 0) or its
+// scratch tier (1).  The caller's plan (lt_segment_global_block and
+// friends) sets `overshoot`, and so the candidate count the kernel's
+// arrays and region layout are sized for; the launch takes it as given.
+#define LT_FTV_ARGS                                                                           \
+  const void *years, const void *values, const void *mask, const void *vidx, const void *nvert, \
+      void *out, long long px, int ny, int max_segments, int overshoot, double rt, int prevent, \
+      void *stream, void *scratch, int block, int tier
+#define LT_FTV(T)                                                                             \
+  (tier ? launch_ftv<T, GScratch> : launch_ftv<T, GShared>)(                                 \
+      years, values, mask, vidx, nvert, out, px, ny,                                          \
+      make_params(max_segments, overshoot, 0.0, rt, prevent, 0.0, 1.0, 0, 0), stream, scratch, \
+      block)
+#if !defined(LT_PART) || LT_PART == 1
+
+int lt_ftv_fit_f32(LT_FTV_ARGS) { return LT_FTV(float); }
+int lt_ftv_fit_f64(LT_FTV_ARGS) { return LT_FTV(double); }
+
+#endif  // LT_PART 1
 
 }  // extern "C"

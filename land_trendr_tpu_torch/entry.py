@@ -31,9 +31,9 @@ import torch
 
 from land_trendr_tpu_torch.config import LTParams
 from land_trendr_tpu_torch.models import oracle
-from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
 from land_trendr_tpu_torch.ops.segment import SegOutputs
 from land_trendr_tpu_torch.ops.segment_cuda import cuda_segment_pixels
+from land_trendr_tpu_torch.ops.tile import ftv_fit, resolve_impl
 from land_trendr_tpu_torch.parallel import (
     feed_global,
     gather_local_rows,
@@ -120,13 +120,15 @@ def dryrun_multichip(n_devices: int,
         torch.from_numpy(vals_np), torch.from_numpy(mask_np), n_devices)
     out = segment_pixels_sharded(years, vals_p, mask_p, params, mesh=mesh)
 
-    # FTV on the shards, each on its own device (the second sharded step)
+    # FTV on the shards, each on its own device (the second sharded step),
+    # picked by the device as the tile program picks it
     step = vals_p.shape[0] // n_devices
     ftv = []
     for k, (d, (v, m)) in enumerate(zip(mesh, shard_pixels(mesh, vals_p, mask_p))):
         part = slice(k * step, (k + 1) * step)
-        ftv.append(torch_fit_to_vertices(years.to(d), v, m, out.vertex_indices[part].to(d),
-                                         out.n_vertices[part].to(d), params).cpu())
+        ftv.append(ftv_fit(resolve_impl("auto", d))(
+            years.to(d), v, m, out.vertex_indices[part].to(d), out.n_vertices[part].to(d),
+            params).cpu())
     ftv = torch.cat(ftv)
 
     # the cross-pixel metrics reduction

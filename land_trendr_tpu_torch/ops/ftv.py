@@ -6,11 +6,14 @@ vertex years chosen by the segmentation index: the vertex set is fixed,
 and the target series is fitted through those years with the
 segmentation's anchored fit (:func:`~land_trendr_tpu_torch.ops.segment._fit_model`).
 
-The JAX package runs this as XLA, not as a Pallas kernel, so it has no
-hand-written kernel here either: it runs on the tensors' own device.  Like
-the segmentation's plain version it works on each pixel's *compacted*
-target series (valid years first), where the JAX function works on the
-year axis:
+The JAX package runs this as XLA, not as a Pallas kernel.  Here it is the
+plain version of the FTV kernel (``ftv_fit_kernel`` in
+``csrc/segment_fused.cu``, wrapped by
+:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_fit_to_vertices`): the
+tile program runs the kernel on CUDA tensors and this on CPU tensors, and
+the tests hold the two bit for bit.  Like the segmentation's plain version
+it works on each pixel's *compacted* target series (valid years first),
+where the JAX function works on the year axis:
 
 * a stack-axis vertex index maps to the target's nearest valid year at or
   after it (the JAX ``searchsorted`` + clip) — in compacted terms, the

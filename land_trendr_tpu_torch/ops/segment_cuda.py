@@ -6,7 +6,11 @@ Counterpart of ``land_trendr_tpu/ops/segment_pallas.py``:
 ``jax_segment_pixels_pallas_chunked``, with the same output contract
 (:class:`~land_trendr_tpu_torch.ops.segment.SegOutputs`);
 :func:`cuda_family_stats` replaces ``family_stats_pallas`` (stages 1–4a:
-despiked series, family vertex sets, SSEs).
+despiked series, family vertex sets, SSEs).  :func:`cuda_fit_to_vertices`
+is the FTV kernel's (fitted-trajectory values of a secondary index at the
+segmentation's vertex years), which the JAX package runs as XLA
+(``jax_fit_to_vertices``); its plain version is
+:func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices`.
 
 * **Build.**  The kernel is compiled at first use with ``nvcc`` for
   ``sm_90a`` (two processes at once, the fixed forms and the global form,
@@ -42,14 +46,20 @@ despiked series, family vertex sets, SSEs).
   :data:`LAUNCHES`, of the wide and global ones to :data:`WIDE_LAUNCHES`
   and :data:`GLOBAL_LAUNCHES`, of the family kernel's three forms to
   :data:`FAMILY_LAUNCHES`, :data:`WIDE_FAMILY_LAUNCHES` and
-  :data:`GLOBAL_FAMILY_LAUNCHES`, and nothing else does.
-  Each launch is a traced span (``lt_segment_fused``, ``lt_family_stats``;
-  :func:`~land_trendr_tpu_torch.utils.profiling.span`).
+  :data:`GLOBAL_FAMILY_LAUNCHES`, of the FTV kernel to :data:`FTV_LAUNCHES`,
+  and nothing else does.
+  Each launch is a traced span (``lt_segment_fused``, ``lt_family_stats``,
+  ``lt_ftv_fit``; :func:`~land_trendr_tpu_torch.utils.profiling.span`).
+  The FTV kernel is built in the global form only, planned by
+  :func:`global_plan` at NV = ``max_segments + 1`` in place of the
+  candidates.
 * **Plain version.**  For tensors on the CPU — and only because they are
   on the CPU — the wrappers run the plain PyTorch version
   (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`,
   :func:`~land_trendr_tpu_torch.ops.segment.torch_family_stats`).  A
   CUDA tensor is launched or rejected; there is no fallback.
+  :func:`cuda_fit_to_vertices` takes CUDA tensors only: the tile program
+  picks it or its plain version by the tensors' device.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ import os
 import shutil
 import subprocess
 import time
+from dataclasses import replace
 from pathlib import Path
 from typing import NamedTuple
 
@@ -81,6 +92,7 @@ __all__ = [
     "CAPS",
     "CUDA_BLOCK",
     "FAMILY_LAUNCHES",
+    "FTV_LAUNCHES",
     "GLOBAL_FAMILY_LAUNCHES",
     "GLOBAL_LAUNCHES",
     "GLOBAL_LOCAL_NC",
@@ -101,6 +113,7 @@ __all__ = [
     "build_info",
     "cuda_family_op_counts",
     "cuda_family_stats",
+    "cuda_fit_to_vertices",
     "cuda_segment_op_counts",
     "cuda_segment_pixels",
     "cuda_segment_pixels_chunked",
@@ -172,7 +185,8 @@ GLOBAL_LAUNCHES = 0
 FAMILY_LAUNCHES = 0
 WIDE_FAMILY_LAUNCHES = 0
 GLOBAL_FAMILY_LAUNCHES = 0
-
+#: FTV-kernel launches (one per scratch-sized piece of a call)
+FTV_LAUNCHES = 0
 
 
 def launch_counts() -> "dict[str, int]":
@@ -182,7 +196,7 @@ def launch_counts() -> "dict[str, int]":
         "LAUNCHES": LAUNCHES, "WIDE_LAUNCHES": WIDE_LAUNCHES,
         "GLOBAL_LAUNCHES": GLOBAL_LAUNCHES, "FAMILY_LAUNCHES": FAMILY_LAUNCHES,
         "WIDE_FAMILY_LAUNCHES": WIDE_FAMILY_LAUNCHES,
-        "GLOBAL_FAMILY_LAUNCHES": GLOBAL_FAMILY_LAUNCHES,
+        "GLOBAL_FAMILY_LAUNCHES": GLOBAL_FAMILY_LAUNCHES, "FTV_LAUNCHES": FTV_LAUNCHES,
     }
 
 
@@ -216,6 +230,11 @@ _FAMILY_ARGTYPES = [
     _P, _P, _P, _LL,                          # despiked, vmasks, sses, out_ld
     _I, _I, _D, _D, _I,                       # params
     _P,                                       # stream
+]
+_FTV_ARGTYPES = [
+    _P, _P, _P, _P, _P, _P, _LL, _I,          # years, values, mask, vidx, nvert, out, px, ny
+    _I, _I, _D, _I,                           # max_segments, overshoot, rt, prevent
+    _P, _P, _I, _I,                           # stream, scratch, block, tier
 ]
 
 
@@ -329,6 +348,9 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.lt_family_stats_global_f32_opcount.argtypes = [*_FAMILY_ARGTYPES, _P, _I, _I, _P]
     lib.lt_family_stats_global_f32_opcount.restype = ctypes.c_int
+    for name in ("lt_ftv_fit_f32", "lt_ftv_fit_f64"):
+        getattr(lib, name).argtypes = _FTV_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
     lib.lt_segment_global_block.argtypes = [_I, _I, _I]
     lib.lt_segment_global_block.restype = ctypes.c_int
     lib.lt_segment_global_smem_bytes.argtypes = [_I, _I, _I, _I]
@@ -1070,3 +1092,96 @@ def cuda_family_op_counts(
         counts = torch.zeros(values.shape[0], dtype=torch.int64, device=values.device)
         job.run(op_count=counts)
         return counts
+
+
+def _ftv_params(params: LTParams) -> LTParams:
+    """``params`` as the FTV kernel's plan and launch read them: its
+    per-thread arrays hold the NV vertices, so NV stands where the
+    candidates do.  The launch passes the overshoot to the kernel, which
+    sizes its arrays and region layout by it."""
+    return replace(params, vertex_count_overshoot=0)
+
+
+def _check_ftv(years, values, mask, vertex_indices, n_vertices, params: LTParams) -> None:
+    """Validate what the FTV kernel accepts: the batch as :func:`_check`
+    does, the segmentation's int32 vertex fields as they come from the
+    kernel, and CUDA tensors on one device."""
+    _check(years, values, mask)
+    for name, a in (("vertex_indices", vertex_indices), ("n_vertices", n_vertices)):
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 (the kernel's); got {a.dtype}")
+    px, nv = values.shape[0], params.max_vertices
+    if tuple(vertex_indices.shape) != (px, nv) or tuple(n_vertices.shape) != (px,):
+        raise ValueError(
+            f"vertex_indices must be ({px}, {nv}) and n_vertices ({px},); got "
+            f"{tuple(vertex_indices.shape)} and {tuple(n_vertices.shape)}"
+        )
+    if not (vertex_indices.is_contiguous() and n_vertices.is_contiguous()):
+        raise ValueError("vertex_indices and n_vertices must be contiguous")
+    devices = {values.device, vertex_indices.device, n_vertices.device}
+    if len(devices) > 1:
+        raise ValueError(f"values, vertex_indices and n_vertices on {sorted(map(str, devices))}")
+    if values.device.type != "cuda":
+        raise ValueError(
+            f"cuda_fit_to_vertices runs on CUDA tensors; got {values.device} (the plain "
+            "version for the CPU is ops/ftv.py:torch_fit_to_vertices)"
+        )
+
+
+def cuda_fit_to_vertices(
+    years: torch.Tensor,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    vertex_indices: torch.Tensor,
+    n_vertices: torch.Tensor,
+    params: LTParams = LTParams(),
+) -> torch.Tensor:
+    """Fit ``(PX, NY)`` target series to per-pixel vertex sets with the FTV
+    kernel on the current stream — one launch in the global form's shared
+    tier, one per :func:`global_chunk` pixels in its scratch tier (the plan
+    of :func:`global_plan` at NV in place of the candidates: a NY no block
+    holds, or more than :data:`GLOBAL_LOCAL_NC` vertices).
+
+    The arguments and the result are those of
+    :func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices`:
+    ``vertex_indices`` ``(PX, NV)`` and ``n_vertices`` ``(PX,)`` as the
+    segmentation kernel wrote them (int32, read in place), ``values``
+    float32 or float64 (the result's dtype) and ``mask`` bool, contiguous,
+    all on one CUDA device.  CPU tensors raise: the caller picks the plain
+    version by the device."""
+    _check_ftv(years, values, mask, vertex_indices, n_vertices, params)
+    with torch.cuda.device(values.device):
+        return _ftv_launch(years, values, mask, vertex_indices, n_vertices, params)
+
+
+def _ftv_launch(years, values, mask, vertex_indices, n_vertices, params: LTParams,
+                _tier: "str | None" = None) -> torch.Tensor:
+    """The FTV kernel's launches over checked inputs.  The tests call it
+    directly: on CPU tensors with the library built for the host, and with
+    ``_tier`` (:func:`global_plan`'s test hook) to force a tier."""
+    global FTV_LAUNCHES
+    px, ny = values.shape
+    dtype = values.dtype
+    fp = _ftv_params(params)  # the plan's and the kernel's layout alike
+    plan = global_plan(ny, fp, dtype, _tier=_tier)
+    scratch = _Scratch(ny, fp, dtype, px, values.device) if plan.tier == "scratch" else None
+    pieces = [(0, px)] if scratch is None else scratch.pieces(0, px)
+    out = torch.empty((px, ny), dtype=dtype, device=values.device)
+    kyears = _kernel_years(years, values)
+    lib = load_library()
+    fn = lib.lt_ftv_fit_f64 if dtype == torch.float64 else lib.lt_ftv_fit_f32
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    for start, count in pieces:
+        with span("lt_ftv_fit"):
+            rc = fn(
+                kyears.data_ptr(), _at(values, start), _at(mask, start),
+                _at(vertex_indices, start), _at(n_vertices, start), _at(out, start),
+                count, ny, fp.max_segments, fp.vertex_count_overshoot,
+                float(fp.recovery_threshold), int(bool(fp.prevent_one_year_recovery)), stream,
+                None if scratch is None else scratch.tensor.data_ptr(), plan.block,
+                int(scratch is not None),
+            )
+        if rc != 0:
+            raise RuntimeError(f"ftv_fit ({plan.tier} tier) launch failed: CUDA error {rc}")
+        FTV_LAUNCHES += 1
+    return out

@@ -6,10 +6,14 @@ DNs plus the uint16 QA bitfield — and this program does DN→reflectance
 scaling, QA + range masking, the spectral index and the segmentation on
 the device the tensors live on.  On a CUDA device the segmentation is the
 hand-written kernel (:mod:`land_trendr_tpu_torch.ops.segment_cuda`); on
-the CPU it is the plain PyTorch version.  The optional tail — FTV fits of
-secondary indices (:mod:`~land_trendr_tpu_torch.ops.ftv`) and the fused
-change-map selection (:func:`~land_trendr_tpu_torch.ops.change.select_change`)
-— is plain PyTorch on the same device, as it is XLA in the JAX package.
+the CPU it is the plain PyTorch version.  The optional tail: FTV fits of
+secondary indices, picked the same way (the FTV kernel,
+:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_fit_to_vertices`, on a
+CUDA device, its plain version
+:func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices` on the CPU),
+and the fused change-map selection
+(:func:`~land_trendr_tpu_torch.ops.change.select_change`), plain PyTorch
+on the same device, as it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ from land_trendr_tpu_torch.ops.segment import (
     torch_segment_pixels_chunked,
 )
 from land_trendr_tpu_torch.ops.segment_cuda import (
+    cuda_fit_to_vertices,
     cuda_segment_pixels,
     cuda_segment_pixels_chunked,
 )
 from land_trendr_tpu_torch.parallel.mesh import pad_to_multiple
 from land_trendr_tpu_torch.utils.profiling import span
 
-__all__ = ["IMPLS", "TileOutputs", "process_tile_dn", "resolve_impl"]
+__all__ = ["IMPLS", "TileOutputs", "ftv_fit", "process_tile_dn", "resolve_impl"]
 
 #: segmentation implementations: the hand-written kernel and its plain
 #: PyTorch version
@@ -75,6 +80,14 @@ def resolve_impl(impl: str, device: "torch.device | str") -> str:
     return resolved
 
 
+def ftv_fit(impl: str):
+    """The FTV fit of a resolved ``impl`` (:func:`resolve_impl`): the FTV
+    kernel (:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_fit_to_vertices`)
+    for "cuda", its plain version
+    (:func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices`) for "torch"."""
+    return cuda_fit_to_vertices if impl == "cuda" else torch_fit_to_vertices
+
+
 def process_tile_dn(
     years: torch.Tensor,
     dn_bands: Mapping[str, torch.Tensor],
@@ -107,7 +120,8 @@ def process_tile_dn(
     device (:func:`~land_trendr_tpu_torch.utils.profiling.span`):
     ``lt_tile_prep`` (scaling, masks, the primary index),
     ``lt_tile_segment`` (padding, the kernel's launches, the crop),
-    ``lt_tile_ftv`` and ``lt_tile_change`` (when asked for).
+    ``lt_tile_ftv`` (the FTV kernel's launch spans ``lt_ftv_fit`` nest
+    inside) and ``lt_tile_change`` (when asked for).
     """
     dev = qa.device
     impl = resolve_impl(impl, dev)
@@ -121,6 +135,7 @@ def process_tile_dn(
         whole, chunked = cuda_segment_pixels, cuda_segment_pixels_chunked
     else:
         whole, chunked = torch_segment_pixels, torch_segment_pixels_chunked
+    fit = ftv_fit(impl)
     with span("lt_tile_segment", dev):
         if chunk is not None and px > chunk:
             primary_p, mask_p, _ = pad_to_multiple(primary, mask, chunk)
@@ -133,7 +148,7 @@ def process_tile_dn(
     if ftv_indices:
         with span("lt_tile_ftv", dev):
             ftv = {
-                name: torch_fit_to_vertices(
+                name: fit(
                     years, idx.compute_index(name, sr), mask, seg.vertex_indices,
                     seg.n_vertices, params,
                 )

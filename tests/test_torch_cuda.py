@@ -138,6 +138,111 @@ def test_op_counts_need_the_card(rng):
         sc.cuda_segment_op_counts(years, vals, mask)
 
 
+def _ftv_inputs(rng, px=32, ny=40, dtype=torch.float32, params=LTParams()):
+    """A target batch and vertex sets as the segmentation kernel writes
+    them (int32, sorted year indices padded -1)."""
+    years, vals, mask = _inputs(rng, px=px, ny=ny, dtype=dtype)
+    nv = params.max_vertices
+    nvert = torch.from_numpy(rng.integers(0, nv + 1, size=px).astype(np.int32))
+    picks = np.sort(rng.random((px, ny)).argsort(axis=1)[:, :nv], axis=1)
+    vidx = np.where(np.arange(nv)[None, :] < nvert.numpy()[:, None], picks, -1)
+    return years, vals, mask, torch.from_numpy(vidx.astype(np.int32)), nvert
+
+
+def _no_library():
+    raise AssertionError("the FTV wrapper loaded the kernel library before its checks")
+
+
+@pytest.mark.parametrize(
+    "case,exc,match",
+    [
+        ("cpu", ValueError, "CUDA tensors"),
+        ("values_dtype", TypeError, "float32 or float64"),
+        ("mask_dtype", TypeError, "bool"),
+        ("vertex_dtype", TypeError, "vertex_indices must be int32"),
+        ("count_dtype", TypeError, "n_vertices must be int32"),
+        ("values_1d", ValueError, "matching"),
+        ("years_len", ValueError, "years"),
+        ("vertex_shape", ValueError, "vertex_indices must be"),
+        ("count_shape", ValueError, "vertex_indices must be"),
+        ("values_strided", ValueError, "contiguous"),
+        ("vertex_strided", ValueError, "contiguous"),
+        ("devices", ValueError, "values, vertex_indices and n_vertices on"),
+    ],
+)
+def test_ftv_wrapper_checks_before_loading_the_library(rng, monkeypatch, case, exc, match):
+    # every check runs on the CPU, before the library would be built
+    monkeypatch.setattr(sc, "load_library", _no_library)
+    years, vals, mask, vidx, nvert = _ftv_inputs(rng, px=40)
+    if case == "values_dtype":
+        vals = vals.to(torch.float16)
+    elif case == "mask_dtype":
+        mask = mask.to(torch.uint8)
+    elif case == "vertex_dtype":
+        vidx = vidx.to(torch.int64)
+    elif case == "count_dtype":
+        nvert = nvert.to(torch.int64)
+    elif case == "values_1d":
+        vals, mask = vals[0], mask[0]
+    elif case == "years_len":
+        years = years[:-1]
+    elif case == "vertex_shape":
+        vidx = vidx[:, :-1].contiguous()
+    elif case == "count_shape":
+        nvert = nvert[:-1]
+    elif case == "values_strided":
+        vals, mask = vals.t(), mask.t()
+    elif case == "vertex_strided":
+        vidx = torch.zeros((40, 14), dtype=torch.int32)[:, ::2]
+    elif case == "devices":
+        vidx, nvert = vidx.to("meta"), nvert.to("meta")
+    with pytest.raises(exc, match=match):
+        sc.cuda_fit_to_vertices(years, vals, mask, vidx, nvert)
+
+
+def test_ftv_fit_is_picked_by_the_resolved_impl():
+    # one place picks FTV's implementation, for the tile program and the
+    # entry points alike: the kernel on a CUDA device, the plain version on
+    # the CPU
+    from land_trendr_tpu_torch.ops import tile
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+
+    assert tile.ftv_fit(tile.resolve_impl("auto", "cuda:0")) is sc.cuda_fit_to_vertices
+    assert tile.ftv_fit(tile.resolve_impl("auto", "cpu")) is torch_fit_to_vertices
+
+
+def test_tile_program_on_cpu_takes_the_plain_ftv(rng, monkeypatch):
+    # the device picks FTV's implementation as it picks the segmentation's:
+    # on the CPU the plain version, and no FTV launch is counted
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops import tile
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+
+    def kernel(*_a, **_k):
+        raise AssertionError("the FTV kernel's wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(tile, "cuda_fit_to_vertices", kernel)
+    px, ny = 48, 16
+    years = torch.arange(2000, 2000 + ny, dtype=torch.int32)
+    dn = {b: torch.from_numpy(rng.integers(0, 9000, size=(px, ny)).astype(np.int16))
+          for b in idx.BANDS}
+    dn["red"][:8] = 0
+    dn["nir"][:8] = 0  # NDVI's zero denominators: the index reads 0 there
+    qa = torch.zeros((px, ny), dtype=torch.int16).view(torch.uint16)
+    before = (sc.FTV_LAUNCHES, sc.LAUNCHES)
+    out = tile.process_tile_dn(years, dn, qa, params=LTParams(max_segments=3),
+                               scale=1e-4, offset=0.0, ftv_indices=("ndvi", "tcw"))
+    assert (sc.FTV_LAUNCHES, sc.LAUNCHES) == before
+    sr = {b: idx.scale_sr(v, 1e-4, 0.0) for b, v in dn.items()}
+    mask = idx.qa_valid_mask(qa) & idx.sr_valid_mask(sr)
+    for name in ("ndvi", "tcw"):
+        ref = torch_fit_to_vertices(years, idx.compute_index(name, sr), mask,
+                                    out.seg.vertex_indices, out.seg.n_vertices,
+                                    LTParams(max_segments=3))
+        assert torch.equal(out.ftv[name], ref), name
+    assert bool(out.ftv["ndvi"].isfinite().all())
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -769,4 +874,135 @@ def test_stage_spans_time_a_traced_tile_on_card(card):
     assert len(kernels) == px // chunk
     kernel_ms = sum(e.duration_ns() for e in kernels) / 1e6
     assert ms["lt_tile_segment"] >= kernel_ms > 0
+    # the FTV kernel: one launch an index, inside the FTV stage, and not
+    # under the segmentation kernel's name
+    ftv = [e for e in prof.profiler.kineto_results.events()
+           if "ftv_fit_kernel" in e.name() and str(e.device_type()).endswith("CUDA")]
+    assert len(ftv) == 2 and not any("segment_fused_kernel" in e.name() for e in ftv)
+    assert ms["lt_tile_ftv"] >= sum(e.duration_ns() for e in ftv) / 1e6 > 0
+    assert sum(e.name() == "lt_ftv_fit" and str(e.device_type()).endswith("CPU")
+               for e in prof.profiler.kineto_results.events()) == 2
     profiling.SPAN_LOG.clear()
+
+
+# ---------------------------------------------------------------------------
+# the FTV kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _assert_ftv_equal(got, ref, dtype):
+    """float32 bit for bit; float64 within 1e-8 (the fused kernel's float64
+    contract), non-finite values nowhere."""
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    assert bool(got.isfinite().all()) and bool(ref.isfinite().all())
+    if dtype == torch.float32:
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    else:
+        assert float((got - ref).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "ny,over,px,tier",
+    [
+        (40, {}, 4099, None),                      # the benchmark's shape; a ragged last block
+        (72, {}, 4099, None),
+        (160, {}, 4099, None),                     # three set words, a block of 32
+        (40, {}, 1000, "scratch"),                 # the scratch tier forced, 4 blocks a piece
+        (1000, {}, 300, None),                     # a series no block holds: the scratch tier
+        (40, {"max_segments": 70}, 300, None),     # 71 vertices: the scratch tier
+    ],
+)
+def test_ftv_kernel_matches_plain_on_card(card, monkeypatch, dtype, ny, over, px, tier):
+    # every population of tests/test_torch_kernel_host.py:ftv_population
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+    from test_torch_kernel_host import ftv_population
+
+    params = LTParams(**over)
+    if tier is not None:
+        monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", sc.global_scratch_bytes(
+            ny, sc._ftv_params(params), dtype, 4 * sc.CUDA_BLOCK))
+    args = [a.to(card) for a in ftv_population(23, px, ny, params, dtype)]
+    plan = sc.global_plan(ny, sc._ftv_params(params), dtype, _tier=tier)
+    before = (sc.FTV_LAUNCHES, sc.LAUNCHES, sc.GLOBAL_LAUNCHES)
+    if tier is None:
+        got = sc.cuda_fit_to_vertices(*args, params)
+    else:
+        got = sc._ftv_launch(*args, params, tier)
+    torch.cuda.synchronize()
+    pieces = 1 if plan.tier == "shared" else -(-px // sc.global_chunk(
+        ny, sc._ftv_params(params), dtype))
+    assert (sc.FTV_LAUNCHES - before[0], sc.LAUNCHES, sc.GLOBAL_LAUNCHES) == (
+        pieces, *before[1:])
+    _assert_ftv_equal(got, torch_fit_to_vertices(*args, params), dtype)
+
+
+@pytest.mark.cuda
+def test_tile_program_fits_ftv_with_the_kernel_on_card(card, monkeypatch):
+    # process_tile_dn on the card: two FTV launches, the segmentation's
+    # launches alone on LAUNCHES, each index bit for bit the plain
+    # version's on the same tensors (rows of zero NIR and red: an NDVI of
+    # zero denominators, which the index reads as 0, a flat target)
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops import tile
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+
+    px, ny, chunk = 65_536, 40, 16_384
+    gen = torch.Generator(device=card).manual_seed(20261018)
+    years = torch.arange(1984, 1984 + ny, dtype=torch.int32, device=card)
+    dn = {b: torch.randint(0, 9000, (px, ny), generator=gen, device=card,
+                           dtype=torch.int32).to(torch.int16) for b in idx.BANDS}
+    dn["red"][:4096] = 0
+    dn["nir"][:4096] = 0
+    qa = torch.zeros((px, ny), dtype=torch.int16, device=card).view(torch.uint16)
+    monkeypatch.setattr(tile, "torch_fit_to_vertices", None)  # never on a CUDA tensor
+    before = (sc.FTV_LAUNCHES, sc.LAUNCHES)
+    out = tile.process_tile_dn(years, dn, qa, scale=1e-4, offset=0.0, chunk=chunk,
+                               ftv_indices=("ndvi", "tcw"))
+    torch.cuda.synchronize()
+    assert (sc.FTV_LAUNCHES - before[0], sc.LAUNCHES - before[1]) == (2, px // chunk)
+    sr = {b: idx.scale_sr(v, 1e-4, 0.0) for b, v in dn.items()}
+    mask = idx.qa_valid_mask(qa) & idx.sr_valid_mask(sr)
+    ndvi = idx.compute_index("ndvi", sr)
+    assert bool((ndvi[:4096] == 0).all())
+    for name in ("ndvi", "tcw"):
+        ref = torch_fit_to_vertices(years, idx.compute_index(name, sr), mask,
+                                    out.seg.vertex_indices, out.seg.n_vertices)
+        _assert_ftv_equal(out.ftv[name], ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_ftv_kernel_times_on_card(card):
+    # CUDA-event times of the FTV kernel (the wrapper's call, one launch)
+    # at the kernel table's 262,144 px x 40 f32 and at a 2048² tile, and of
+    # its plain version at 262,144 px; one JSON line on stdout
+    import json
+    import subprocess
+
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+    from test_torch_kernel_host import ftv_population
+
+    def ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(reps):
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    base = [a.to(card) for a in ftv_population(29, 262_144, 40, LTParams(), torch.float32)]
+    rec = {"kernel_ms_262144": ms(lambda: sc.cuda_fit_to_vertices(*base), 20),
+           "plain_ms_262144": ms(lambda: torch_fit_to_vertices(*base), 3)}
+    tile = [base[0], *(torch.cat([a] * 16) for a in base[1:])]  # 2048² px
+    rec["kernel_ms_2048sq"] = ms(lambda: sc.cuda_fit_to_vertices(*tile), 20)
+    rec["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    print("ftv_kernel_times " + json.dumps(rec))
+    assert 0 < rec["kernel_ms_262144"] < rec["plain_ms_262144"]

@@ -214,3 +214,129 @@ def test_fixed_forms_on_the_host_match_plain(host_lib, dtype, cap, ny, over):
     assert launches == [1, 1]
     assert_matches_plain(job.result(), years, vals, mask, params, dtype, fjob.result())
     assert int(job.result().n_vertices.max()) >= 3
+
+
+# ---------------------------------------------------------------------------
+# the FTV kernel (ops/segment_cuda.py:cuda_fit_to_vertices)
+# ---------------------------------------------------------------------------
+
+#: the FTV populations, row by row (row % len): what each makes of the
+#: target's mask, its values or the vertex sets
+FTV_KINDS = ("drawn", "under_two_valid", "under_two_vertices", "one_position", "inside_span",
+             "non_finite", "repeated_vertices", "edge_years")
+
+
+def ftv_population(seed: int, px: int, ny: int, params: LTParams, dtype):
+    """``(years, values, mask, vertex_indices, n_vertices)`` for the FTV
+    kernel: a target from one draw of the population, vertex sets of
+    sorted year indices (two to NV live, padded -1), and row by row one of
+    :data:`FTV_KINDS` — fewer than two valid years, fewer than two live
+    vertices, every vertex mapping to one compacted position (the target
+    valid only after the last vertex), a set inside the valid span (it
+    starts after the first valid year and ends before the last), non-finite
+    values under the mask (an index's 0/0 and x/0), repeated vertex years,
+    vertices at the first and last year."""
+    rng = np.random.default_rng(seed)
+    years, vals, mask = make_population(rng, px, ny)
+    nv = params.max_vertices
+    vidx = np.full((px, nv), -1, np.int32)
+    nvert = np.zeros(px, np.int32)
+    for p in range(px):
+        kind = FTV_KINDS[p % len(FTV_KINDS)]
+        lo, hi = (ny // 4, 3 * ny // 4) if kind in ("inside_span", "one_position") else (0, ny)
+        k = int(rng.integers(2, min(nv, hi - lo) + 1))
+        pick = np.sort(rng.choice(np.arange(lo, hi), size=k, replace=False))
+        if kind == "under_two_vertices":
+            k = p % 2
+        elif kind == "repeated_vertices":
+            pick = np.sort(np.resize(pick[: (k + 1) // 2], k))
+        elif kind == "edge_years":
+            pick[0], pick[-1] = 0, ny - 1
+        vidx[p, :k] = pick[:k]
+        nvert[p] = k
+        if kind == "under_two_valid":
+            mask[p] = False
+            if p % 2:
+                mask[p, rng.integers(ny)] = True
+        elif kind == "one_position":
+            mask[p, : hi + 1] = False
+        elif kind == "non_finite":
+            bad = rng.choice(ny, size=max(1, ny // 8), replace=False)
+            vals[p, bad] = np.where(np.arange(bad.size) % 2, np.inf, np.nan)
+            vals[p, bad[:1]] = -np.inf
+    return (torch.from_numpy(years.astype(np.float64)).to(dtype),
+            torch.from_numpy(vals).to(dtype).contiguous(), torch.from_numpy(mask).contiguous(),
+            torch.from_numpy(vidx), torch.from_numpy(nvert))
+
+
+def run_ftv_host(args, params, tier=None):
+    """The FTV kernel built for the host on CPU tensors; its result and
+    launches (the segmentation's counter must not move)."""
+    before = (sc.FTV_LAUNCHES, sc.LAUNCHES, sc.GLOBAL_LAUNCHES)
+    got = sc._ftv_launch(*args, params, tier)
+    assert (sc.LAUNCHES, sc.GLOBAL_LAUNCHES) == before[1:]
+    return got, sc.FTV_LAUNCHES - before[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "ny,over,px,tier",
+    [
+        (40, {}, 300, None),                         # the shared tier; a ragged last block
+        (160, {}, 200, None),                        # three set words, a block of 32
+        (72, {}, 300, "scratch"),                    # forced scratch, one block per piece
+        (1000, {}, 9, None),                         # a series no block holds
+        (40, {"max_segments": 70}, 130, None),       # 71 vertices: more than the locals
+    ],
+)
+def test_ftv_kernel_on_the_host_matches_plain(host_lib, monkeypatch, dtype, ny, over, px, tier):
+    # every population bit for bit: the FTV arithmetic has no libm call
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+
+    params = LTParams(**over)
+    if tier is not None:
+        monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", sc.global_scratch_bytes(
+            ny, sc._ftv_params(params), dtype, sc.CUDA_BLOCK))
+    plan = sc.global_plan(ny, sc._ftv_params(params), dtype, _tier=tier)
+    assert plan.tier == ("shared" if (ny, over, tier) in ((40, {}, None), (160, {}, None))
+                         else "scratch")
+    args = ftv_population(11, px, ny, params, dtype)
+    got, launches = run_ftv_host(args, params, tier)
+    pieces = 1 if tier is None else -(-px // sc.CUDA_BLOCK)
+    assert launches == pieces
+    ref = torch_fit_to_vertices(*args, params)
+    assert got.dtype == ref.dtype == dtype and got.shape == (px, ny)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert bool(got.isfinite().all())
+    # fitted trajectories, not only flat means
+    assert int((got[:, 1:] != got[:, :-1]).any(1).sum()) >= px // 4
+
+
+@pytest.mark.parametrize("tier", [None, "scratch"])
+def test_ftv_launch_passes_the_plans_overshoot_to_the_kernel(host_lib, monkeypatch, tier):
+    # _ftv_params alone sets the candidate count: the plan sizes the shared
+    # memory and the scratch regions by it, and the launch hands the same
+    # overshoot to the kernel, which lays its arrays out by it
+    from dataclasses import replace
+
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+
+    params, ny, px = LTParams(), 72, 300
+    monkeypatch.setattr(sc, "_ftv_params", lambda p: replace(p, vertex_count_overshoot=3))
+    if tier is not None:
+        monkeypatch.setattr(sc, "GLOBAL_SCRATCH_BUDGET", sc.global_scratch_bytes(
+            ny, sc._ftv_params(params), torch.float32, sc.CUDA_BLOCK))
+    seen = []
+    real = host_lib.lt_ftv_fit_f32
+
+    def spy(*a):
+        seen.append(a[8:10])  # max_segments, overshoot
+        return real(*a)
+
+    monkeypatch.setattr(host_lib, "lt_ftv_fit_f32", spy)
+    args = ftv_population(13, px, ny, params, torch.float32)
+    got, launches = run_ftv_host(args, params, tier)
+    assert launches == len(seen) >= 1
+    assert set(seen) == {(params.max_segments, 3)}
+    ref = torch_fit_to_vertices(*args, params)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))

@@ -340,6 +340,33 @@ def test_global_launch_plan_cuts_the_call_into_pieces(monkeypatch):
         sc._Launch(years, vals, mask, LTParams(), _tier="scratch")
 
 
+# the FTV kernel's plan: the global form's at NV = max_segments + 1 in
+# place of the candidates (its per-thread arrays hold the vertices): the
+# shared tier at the block an SM holds the most warps of, the scratch tier
+# where no block holds the series or NV passes the 64 locals
+@pytest.mark.parametrize(
+    "dtype,ny,over,tier,block,smem",
+    [
+        (torch.float32, 40, {}, "shared", 128, 42_672),     # the benchmark's shape
+        (torch.float64, 40, {}, "shared", 64, 42_320),
+        (torch.float32, 160, {}, "shared", 32, 42_512),
+        (torch.float32, 880, {}, "scratch", 128, 0),        # no block of 32 holds it
+        (torch.float64, 444, {}, "scratch", 128, 0),
+        (torch.float32, 40, {"max_segments": 63}, "shared", 128, 54_960),   # NV 64
+        (torch.float32, 40, {"max_segments": 64}, "scratch", 128, 0),       # NV 65
+    ],
+)
+def test_ftv_plan_is_the_global_plan_at_nv(dtype, ny, over, tier, block, smem):
+    params = LTParams(**over)
+    at_nv = sc._ftv_params(params)
+    assert at_nv.max_candidates == params.max_vertices
+    assert at_nv == LTParams(**{**over, "vertex_count_overshoot": 0})
+    plan = sc.global_plan(ny, at_nv, dtype)
+    assert (plan.tier, plan.block, plan.smem) == (tier, block, smem)
+    assert plan.scratch_per_block == (
+        0 if tier == "shared" else sc.global_scratch_bytes(ny, at_nv, dtype, sc.CUDA_BLOCK))
+
+
 @pytest.mark.parametrize("cap", ["narrow", "wide"])
 def test_forcing_a_form_that_cannot_hold_the_shape_is_refused(cap):
     years, vals, mask = _inputs(9, 8, 129)

@@ -161,3 +161,33 @@ def test_every_form_on_the_host_matches_plain(host_lib, case, form, tier, dtype)
     job, fjob, launches = _run_both(years, vals, mask, PARAMS, form, tier)
     assert launches == [1, 1]
     assert_matches_plain(job.result(), years, vals, mask, PARAMS, dtype, fjob.result())
+
+
+@pytest.fixture(scope="module")
+def vertex_sets():
+    """Vertex sets of a segmented draw, four pixels, as the kernel writes them."""
+    from land_trendr_tpu_torch.tools.population import make_population
+
+    years, vals, mask = make_population(np.random.default_rng(0), 8, NY)
+    rows = [0, 1, 3, 4]  # 3, 2, 4 and 4 vertices
+    seg = torch_segment_pixels(torch.from_numpy(years), torch.from_numpy(vals[rows]),
+                               torch.from_numpy(mask[rows]), PARAMS)
+    assert seg.n_vertices.tolist() == [3, 2, 4, 4]
+    return seg.vertex_indices, seg.n_vertices
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tier", ["shared", "scratch"])
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_ftv_kernel_on_the_host_matches_plain(host_lib, vertex_sets, case, tier, dtype):
+    # each case as FTV's target: the FTV kernel built for the host, bit for
+    # bit the plain version, every value finite
+    from test_torch_kernel_host import run_ftv_host
+
+    years, vals, mask = adversarial(case, dtype)
+    args = (years.to(dtype), vals, mask, *vertex_sets)
+    got, launches = run_ftv_host(args, PARAMS, tier)
+    ref = torch_fit_to_vertices(*args, PARAMS)
+    assert launches == 1
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert bool(got.isfinite().all())
