@@ -15,13 +15,15 @@ writing them are the writer's work and stay out of the window.
 The check draws a sample of the window's tiles (one edge tile always
 among them) and of their rows from the seed, unpacks those tiles through
 the port's own handle once the window has closed, and holds every
-landed product against the plain reference (``lt_bench/reference``),
-recomputed from the same DNs after the program's state is freed.
+landed product against the plain reference (the configuration's module
+under ``lt_bench/reference``), recomputed from the same DNs after the
+program's state is freed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import sys
 import time
 from collections import deque
@@ -29,9 +31,10 @@ from typing import Callable
 
 import numpy as np
 
-from lt_bench.spec import Cell
+from lt_bench.spec import Cell, load_reference
 
-__all__ = ["FORBIDDEN", "Run", "TileRecord", "forbidden_modules", "run_cell"]
+__all__ = ["DERIVED", "FORBIDDEN", "Run", "TileRecord", "forbidden_modules", "run_cell",
+           "tile_program_args"]
 
 #: top-level module names no run may have loaded once its window closes:
 #: JAX and the JAX package (the port's name begins with the latter's)
@@ -103,14 +106,35 @@ class _Sampler:
         return [seen[o] for o in sorted(seen)]
 
 
+#: ``RunConfig`` fields the harness derives from the configuration and the
+#: mix (and ``fetch_f16``, the control's switch); a configuration's
+#: ``"run"`` object may set any other field, never these
+DERIVED = ("index", "ftv_indices", "params", "tile_size", "products", "change_filt",
+           "scale", "offset", "fetch_f16")
+
+#: ``process_tile_dn``'s parameters the harness does not take from the
+#: ``RunConfig`` by name: the tile's inputs, the implementation (the
+#: port's default: the kernel on the card) and ``chunk`` (``chunk_px``)
+_NOT_BY_NAME = ("years", "dn_bands", "qa", "impl", "chunk")
+
+#: rows a block of the reference computes at once
+REF_CHUNK = 262_144
+
+
 def program_config(cell: Cell, fetch_f16: bool = False):
     """The port's ``RunConfig`` for the cell (the driver's defaults for
-    chunking and fetch depth); ``fetch_f16`` is the control's path."""
+    chunking and fetch depth, then the configuration's ``"run"`` object);
+    ``fetch_f16`` is the control's path."""
     from land_trendr_tpu_torch.config import LTParams
     from land_trendr_tpu_torch.ops.change import ChangeFilter
     from land_trendr_tpu_torch.runtime.driver import RunConfig
 
     c, t = cell.config, cell.traffic
+    run = c.get("run", {})
+    clash = sorted(set(run) & set(DERIVED))
+    if clash:
+        raise ValueError(f"{cell.name}: the configuration's \"run\" names {clash}, "
+                         f"which the harness derives ({', '.join(DERIVED)})")
     return RunConfig(
         index=c["index"],
         ftv_indices=tuple(c["ftv_indices"]),
@@ -121,31 +145,18 @@ def program_config(cell: Cell, fetch_f16: bool = False):
         scale=float(c["scale"]),
         offset=float(c["offset"]),
         fetch_f16=fetch_f16,
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in run.items()},
     )
 
 
 def reference_spec(cell: Cell):
-    """The reference's view of the same cell (its own parameter classes)."""
-    from lt_bench.reference.change import ChangeFilter
-    from lt_bench.reference.params import LTParams
-    from lt_bench.reference.tile import RefSpec
-
-    c, t = cell.config, cell.traffic
-    return RefSpec(
-        index=c["index"],
-        params=LTParams(**c["params"]),
-        ftv_indices=tuple(c["ftv_indices"]),
-        change_filt=ChangeFilter(**c["change_filter"]) if t["change"] else None,
-        products=tuple(t["products"]),
-        scale=float(c["scale"]),
-        offset=float(c["offset"]),
-    )
+    """The reference's view of the same cell, by the cell's reference
+    module (its own parameter classes)."""
+    return load_reference(cell).spec_of(cell.config, cell.traffic)
 
 
 def _bands(cell: Cell) -> tuple[str, ...]:
-    from lt_bench.reference.indices import required_bands
-
-    return required_bands(cell.config["index"], tuple(cell.config["ftv_indices"]))
+    return load_reference(cell).bands_of(cell.config)
 
 
 def make_cell_scene(cell: Cell, seed: int, device, size: "tuple[int, int] | None" = None):
@@ -168,6 +179,18 @@ def make_cell_scene(cell: Cell, seed: int, device, size: "tuple[int, int] | None
     )
 
 
+def tile_program_args(cfg) -> dict:
+    """The keyword arguments of ``process_tile_dn`` that the ``RunConfig``
+    gives: every field named as one of its parameters (bar
+    :data:`_NOT_BY_NAME`), and ``chunk`` from ``chunk_px``."""
+    from land_trendr_tpu_torch.ops.tile import process_tile_dn
+
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    names = [p for p in inspect.signature(process_tile_dn).parameters
+             if p in fields and p not in _NOT_BY_NAME]
+    return {**{p: getattr(cfg, p) for p in names}, "chunk": cfg.chunk_px}
+
+
 class Program:
     """The program's per-tile step, bound to one scene and configuration."""
 
@@ -182,19 +205,14 @@ class Program:
         self.cfg = cfg
         self.fetcher = TileFetcher(cfg, dev, packed=resolve_packed("auto", dev))
         self._process = process_tile_dn
+        self._args = tile_program_args(cfg)
         self._record = torch.profiler.record_function
 
     def dispatch(self, k: int):
         """Enqueue tile ``k``'s program; its device outputs."""
         dn, qa = self.scene.tile_inputs(k)
-        cfg = self.cfg
         with self._record("lt_bench.dispatch"):
-            return self._process(
-                self.scene.years, dn, qa,
-                index=cfg.index, params=cfg.params, scale=cfg.scale, offset=cfg.offset,
-                reject_bits=cfg.reject_bits, chunk=cfg.chunk_px,
-                ftv_indices=cfg.ftv_indices, change_filt=cfg.change_filt,
-            )
+            return self._process(self.scene.years, dn, qa, **self._args)
 
     def fetch(self, out):
         with self._record("lt_bench.fetch"):
@@ -252,12 +270,11 @@ def check(cell: Cell, scene, items: list, rng: np.random.Generator, device,
           free: Callable[[], None]) -> dict:
     """Unpack the sampled tiles through the program's handles, keep the
     sampled rows, free the program's state, recompute the rows with the
-    reference and compare.  Returns the per-product gaps and the numbers
+    cell's reference module and compare.  Returns the per-product gaps and the numbers
     compared."""
     import torch
 
     from lt_bench.compare import product_gaps
-    from lt_bench.reference.tile import reference_products
 
     rows_per = int(cell.traffic["check_rows"])
     prog_parts: dict[str, list[np.ndarray]] = {}
@@ -279,8 +296,9 @@ def check(cell: Cell, scene, items: list, rng: np.random.Generator, device,
     prog_rows = {name: np.concatenate(v) for name, v in prog_parts.items()}
     items.clear()
     free()
-    ref = reference_products(years, dn, qa, reference_spec(cell))
-    gaps = product_gaps(prog_rows, ref)
+    module = load_reference(cell)
+    spec = module.spec_of(cell.config, cell.traffic)
+    gaps = product_gaps(prog_rows, module.reference_products(years, dn, qa, spec, REF_CHUNK))
     return {
         "rows": int(qa.shape[0]),
         "gaps": gaps,

@@ -22,7 +22,10 @@ from lt_bench.reference.ftv import torch_fit_to_vertices
 from lt_bench.reference.params import LTParams
 from lt_bench.reference.segment import torch_segment_pixels
 
-__all__ = ["RefSpec", "SEG_PRODUCTS", "SIGNED_PRODUCTS", "reference_products"]
+__all__ = [
+    "RefSpec", "SEG_PRODUCTS", "SIGNED_PRODUCTS", "bands_of", "reference_products",
+    "series_per_px", "spec_of",
+]
 
 #: the 11 per-pixel segmentation products a run can fetch
 SEG_PRODUCTS = (
@@ -49,6 +52,30 @@ class RefSpec:
     scale: float = 2.75e-5
     offset: float = -0.2
     reject_bits: int = idx.DEFAULT_QA_REJECT
+
+
+def spec_of(config: dict, traffic: dict) -> RefSpec:
+    """The spec of a cell of ``config`` (a configuration file) under
+    ``traffic`` (a mix file)."""
+    return RefSpec(
+        index=config["index"],
+        params=LTParams(**config["params"]),
+        ftv_indices=tuple(config["ftv_indices"]),
+        change_filt=ChangeFilter(**config["change_filter"]) if traffic["change"] else None,
+        products=tuple(traffic["products"]),
+        scale=float(config["scale"]),
+        offset=float(config["offset"]),
+    )
+
+
+def bands_of(config: dict) -> tuple[str, ...]:
+    """The bands the primary index and the FTV indices read."""
+    return idx.required_bands(config["index"], tuple(config["ftv_indices"]))
+
+
+def series_per_px(config: dict) -> int:
+    """Series the segmentation fits a pixel: the primary index's alone."""
+    return 1
 
 
 def _rows(

@@ -16,17 +16,41 @@ mix.  Each lives in a file of its own, found by its name:
 
 So a later cell, mix or metric is added by adding files and entries,
 and no file of the harness changes.
+
+A later configuration is added the same way.  Besides its JSON file it
+may bring:
+
+* a ``"run"`` object in that file: ``RunConfig`` fields of the port
+  (``land_trendr_tpu_torch/runtime/driver.py``) by name, lists taken as
+  tuples, applied after the fields the harness derives from the
+  configuration and the mix (:data:`lt_bench.harness.DERIVED`), which it
+  may not name.  Every field that is also a parameter of the tile
+  program ``ops/tile.py:process_tile_dn`` reaches it by that name;
+* a ``"reference"`` key naming its own reference module,
+  ``lt_bench/reference/<reference>.py`` (default ``tile``), found by
+  :func:`load_reference`.  The module imports nothing of the program or
+  of JAX and provides ``spec_of(config, traffic)`` (what its
+  ``reference_products`` needs of the cell), ``bands_of(config)`` (the
+  bands the scene carries), ``series_per_px(config)`` (how many series
+  the segmentation kernel fits a pixel; the kernel's bytes a pixel are
+  counted that many times) and ``reference_products(years, dn, qa,
+  spec, chunk)`` (every product the cell lands, as host arrays, for the
+  rows given);
+* metric files for what only it reports, listed by the metric's
+  ``workloads`` key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Callable
 
-__all__ = ["Cell", "ROOT", "load_cell", "load_reader", "metrics_of"]
+__all__ = ["Cell", "ROOT", "load_cell", "load_reader", "load_reference", "metrics_of"]
 
 #: the checkout's root: ``BENCHMARK.json`` beside the ``lt_bench`` folder
 ROOT = Path(__file__).resolve().parent.parent
@@ -79,13 +103,33 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     )
 
 
+def _load_file(path: Path, module_name: str):
+    """The module of the file at ``path``, run afresh under
+    ``module_name`` (registered, as a dataclass in it needs)."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    if spec is None or spec.loader is None:
+        raise FileNotFoundError(path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(metric: str, root: Path = ROOT) -> Callable:
     """``read(run)`` of ``root/lt_bench/metrics/<metric>.py``, loaded from
     its file (a metric's name may hold dots)."""
     path = root / "lt_bench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"lt_bench_metric_{metric}", path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file(path, f"lt_bench_metric_{metric}").read
+
+
+def load_reference(cell: Cell):
+    """The reference module the cell's configuration names (its
+    ``"reference"`` key, default ``tile``): ``lt_bench.reference.<name>``
+    of this checkout, or loaded from its file under another root."""
+    name = cell.config.get("reference", "tile")
+    if not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not a module name")
+    if cell.root == ROOT:
+        return importlib.import_module(f"lt_bench.reference.{name}")
+    path = cell.root / "lt_bench" / "reference" / f"{name}.py"
+    return _load_file(path, f"lt_bench_reference_{name}")

@@ -18,7 +18,8 @@ from lt_bench.harness import run_cell
 from lt_bench.report import result_line
 from lt_bench.spec import load_cell
 
-SIZES = {"wrs2-nbr40.change": (1100, 1300), "wrs2-multiindex.ftv": (2100, 2200)}
+SIZES = {"wrs2-nbr40.change": (1100, 1300), "wrs2-multiindex.ftv": (2100, 2200),
+         "wrs2-nbr40.segall": (1100, 1300)}
 
 
 @pytest.fixture()

@@ -13,6 +13,7 @@ exchange between cards has no counterpart: both cells run on one card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import pytest
@@ -21,6 +22,9 @@ import torch
 from lt_bench.harness import run_cell
 from lt_bench.report import result_line
 from lt_bench.spec import load_cell
+
+
+CELLS = ["wrs2-nbr40.change", "wrs2-multiindex.ftv", "wrs2-nbr40.segall"]
 
 
 def _run(workload: str, **kw) -> tuple[bool, float]:
@@ -38,15 +42,17 @@ def _patch(monkeypatch, wrap):
     import land_trendr_tpu_torch.ops.tile as tile
 
     real = tile.process_tile_dn
-    monkeypatch.setattr(tile, "process_tile_dn", lambda *a, **k: wrap(real, *a, **k))
+    # wrapped, so that the harness still reads the real parameters' names
+    faulty = functools.wraps(real)(lambda *a, **k: wrap(real, *a, **k))
+    monkeypatch.setattr(tile, "process_tile_dn", faulty)
 
 
-@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_sound_run_is_correct(workload):
     assert _run(workload) == (True, 0.0)
 
 
-@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_state_left_unchanged_is_caught(monkeypatch, workload):
     first = []
 
@@ -59,7 +65,7 @@ def test_state_left_unchanged_is_caught(monkeypatch, workload):
     assert _run(workload)[0] is False
 
 
-@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_half_the_batch_left_out_is_caught(monkeypatch, workload):
     def half(real, years, dn, qa, **k):
         n = qa.shape[0] // 2
@@ -68,23 +74,26 @@ def test_half_the_batch_left_out_is_caught(monkeypatch, workload):
         return out._replace(
             seg=type(out.seg)(*(twice(f) for f in out.seg)),
             ftv={name: twice(v) for name, v in out.ftv.items()},
-            change={name: twice(v) for name, v in out.change.items()},
+            change=out.change and {name: twice(v) for name, v in out.change.items()},
         )
 
     _patch(monkeypatch, half)
     assert _run(workload)[0] is False
 
 
-@pytest.mark.parametrize("product", ["mag", "yod", "ftv"])
+@pytest.mark.parametrize("product", ["mag", "yod", "ftv", "vertex_years", "rmse"])
 def test_an_answer_altered_where_produced_is_caught(monkeypatch, product):
-    workload = "wrs2-multiindex.ftv" if product == "ftv" else "wrs2-nbr40.change"
+    workload = {"ftv": "wrs2-multiindex.ftv", "mag": "wrs2-nbr40.change",
+                "yod": "wrs2-nbr40.change"}.get(product, "wrs2-nbr40.segall")
 
     def altered(real, *a, **k):
         out = real(*a, **k)
         if product == "ftv":
             out.ftv["tcw"][7, 3] += 1e-3
-        else:
+        elif product in ("mag", "yod"):
             out.change[product][7] += 1e-3 if product == "mag" else 1
+        else:
+            getattr(out.seg, product)[7] += 1 if product == "vertex_years" else 1e-3
         return out
 
     _patch(monkeypatch, altered)
@@ -92,7 +101,7 @@ def test_an_answer_altered_where_produced_is_caught(monkeypatch, product):
     assert correct is False and gap > 0
 
 
-@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_the_control_fails(workload):
     """The program with its float16 fetch switched on: every float product
     rounded to half precision on the way over."""

@@ -34,7 +34,8 @@ def _port_products(cell, scene, k: int) -> dict[str, np.ndarray]:
     return arrays
 
 
-@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv"])
+@pytest.mark.parametrize("workload", ["wrs2-nbr40.change", "wrs2-multiindex.ftv",
+                                      "wrs2-nbr40.segall"])
 @pytest.mark.parametrize("seed", [5, 2**31 + 9])
 def test_reference_equals_the_port_plain_version(workload, seed):
     cell = load_cell(workload)
@@ -55,7 +56,7 @@ def test_reference_equals_the_port_plain_version(workload, seed):
         assert port["model_valid"].any()
         if cell.config["ftv_indices"]:
             assert {"ftv_ndvi", "ftv_tcw"} <= set(ref)
-        assert "change_mag" in ref
+        assert ("change_mag" in ref) == cell.traffic["change"]
 
 
 def test_gap_rules():
