@@ -3,14 +3,16 @@
 Counterpart of ``land_trendr_tpu/cli.py``:
 
 ``segment``   stack directory → segment rasters (the main pipeline), with
-              optional FTV rasters (``--ftv``) and fused change maps
-              (``--change``); retries, quarantine, the stall watchdog,
-              fault injection, the feed cache and ingest store, the medoid
-              composite, overviews, telemetry, the flight recorder, a
-              profiler trace (``--trace``), elastic runs (``--lease-batch``:
-              any number of ``segment`` processes over one workdir), mesh
-              sharding over the local cards (``--mesh``) and ``auto`` knobs
-              resolved through a tuning store (``--tune-store-dir``)
+              optional FTV rasters (``--ftv``), fused change maps
+              (``--change``) and further indices segmented beside the
+              primary one (``--ensemble``); retries, quarantine, the
+              stall watchdog, fault injection, the feed cache and ingest
+              store, the medoid composite, overviews, telemetry, the
+              flight recorder, a profiler trace (``--trace``), elastic
+              runs (``--lease-batch``: any number of ``segment``
+              processes over one workdir), mesh sharding over the local
+              cards (``--mesh``) and ``auto`` knobs resolved through a
+              tuning store (``--tune-store-dir``)
 ``serve``     the long-lived segmentation server: warm tile programs, a
               bounded job queue over a loopback HTTP JSON API and a
               filesystem drop-box, admission control, cancel and
@@ -162,6 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
     seg.add_argument("--index", default="nbr", choices=INDEX_NAMES,
                      help="index driving the segmentation")
     seg.add_argument("--ftv", default="", help="comma-separated FTV indices")
+    seg.add_argument("--ensemble", "--ensemble-indices", dest="ensemble", default="",
+                     help="comma-separated further indices, each segmented on its own "
+                          "beside --index (ens_<index>_<product> rasters)")
     seg.add_argument("--tile-size", type=_auto_int, default=512,
                      help="tile edge in pixels, or 'auto' (resolve through "
                      "--tune-store-dir's profile; with no profile, 'auto' falls "
@@ -1328,6 +1333,7 @@ def main(argv: "list[str] | None" = None) -> int:
                   file=sys.stderr)
             return 2
     ftv = tuple(x.strip() for x in args.ftv.split(",") if x.strip())
+    ensemble = tuple(x.strip() for x in args.ensemble.split(",") if x.strip())
     change_filt = _change_filter_from_args(args, prefix="change_")
     if not args.change:
         if change_filt != ChangeFilter() or args.change_mmu != 1:
@@ -1344,6 +1350,7 @@ def main(argv: "list[str] | None" = None) -> int:
         cfg = RunConfig(
             index=args.index,
             ftv_indices=ftv,
+            ensemble_indices=ensemble,
             params=_params_from_args(args),
             tile_size=args.tile_size,
             workdir=args.workdir,
@@ -1422,7 +1429,7 @@ def main(argv: "list[str] | None" = None) -> int:
             print(f"error: --metrics-port {cfg.metrics_port} unusable: {e}",
                   file=sys.stderr)
             return 2
-    bands = required_bands(args.index, ftv)
+    bands = required_bands(args.index, (*ftv, *ensemble))
     try:
         if args.lazy:
             stack = open_stack_dir_c2_lazy(args.stack_dir, bands=bands)

@@ -6,8 +6,13 @@ Every function keeps its input's device; float results are float32, as in
 the JAX package, whatever torch's default dtype is.
 
 Sign convention: LandTrendr fits *disturbance-positive* series.
-NBR/NDVI/TCW all *decrease* under disturbance, so :func:`compute_index`
-flips their sign by default.
+NBR/NDVI/NDMI/TCG/TCW all *decrease* under disturbance, so
+:func:`compute_index` flips their sign by default; TCB *increases* and is
+left as it is (LT-GEE's disturbance directions).
+
+NDMI, TCB and TCG are the port's own (the JAX package has no such
+indices): the LandTrendr multispectral ensemble segments them beside
+NBR, NDVI and TCW.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ __all__ = [
     "required_bands",
     "nbr",
     "ndvi",
+    "ndmi",
     "tcw",
     "compute_index",
     "scale_sr",
@@ -39,9 +45,16 @@ BANDS = ("blue", "green", "red", "nir", "swir1", "swir2")
 #: Tasseled-cap wetness coefficients for surface reflectance (Crist 1985),
 #: in :data:`BANDS` order.
 _TCW_COEFFS = (0.0315, 0.2021, 0.3102, 0.1594, -0.6806, -0.6109)
+#: Tasseled-cap brightness and greenness coefficients, the same table
+#: (the ensemble's TCB and TCG, computed through :func:`compute_index`).
+_TCB_COEFFS = (0.2043, 0.4158, 0.5524, 0.5741, 0.3124, 0.2303)
+_TCG_COEFFS = (-0.1603, -0.2819, -0.4934, 0.7940, -0.0002, -0.1446)
+_TC_COEFFS = {"tcb": _TCB_COEFFS, "tcg": _TCG_COEFFS, "tcw": _TCW_COEFFS}
 
 #: Sign multiplier that makes each index disturbance-positive.
-DISTURBANCE_SIGN = {"nbr": -1.0, "ndvi": -1.0, "tcw": -1.0}
+DISTURBANCE_SIGN = {
+    "nbr": -1.0, "ndvi": -1.0, "tcw": -1.0, "ndmi": -1.0, "tcb": 1.0, "tcg": -1.0,
+}
 
 INDEX_NAMES = tuple(DISTURBANCE_SIGN)
 
@@ -51,6 +64,9 @@ INDEX_BANDS = {
     "nbr": ("nir", "swir2"),
     "ndvi": ("nir", "red"),
     "tcw": BANDS,
+    "ndmi": ("nir", "swir1"),
+    "tcb": BANDS,
+    "tcg": BANDS,
 }
 
 
@@ -83,6 +99,19 @@ def ndvi(nir: torch.Tensor, red: torch.Tensor) -> torch.Tensor:
     return _safe_ratio(nir - red, nir + red)
 
 
+def ndmi(nir: torch.Tensor, swir1: torch.Tensor) -> torch.Tensor:
+    """Normalized Difference Moisture Index: (NIR − SWIR1) / (NIR + SWIR1)."""
+    return _safe_ratio(nir - swir1, nir + swir1)
+
+
+def _tasseled_cap(coeffs: tuple[float, ...], bands: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """``Σ c·b`` over :data:`BANDS` order, summed left to right."""
+    out = coeffs[0] * bands[0]
+    for c, b in zip(coeffs[1:], bands[1:]):
+        out = out + c * b
+    return out
+
+
 def tcw(
     blue: torch.Tensor,
     green: torch.Tensor,
@@ -92,11 +121,7 @@ def tcw(
     swir2: torch.Tensor,
 ) -> torch.Tensor:
     """Tasseled-cap wetness (Crist 1985 reflectance coefficients)."""
-    bands = (blue, green, red, nir, swir1, swir2)
-    out = _TCW_COEFFS[0] * bands[0]
-    for c, b in zip(_TCW_COEFFS[1:], bands[1:]):
-        out = out + c * b
-    return out
+    return _tasseled_cap(_TCW_COEFFS, (blue, green, red, nir, swir1, swir2))
 
 
 def compute_index(
@@ -106,7 +131,7 @@ def compute_index(
 ) -> torch.Tensor:
     """Compute a named spectral index from a band-name → tensor mapping.
 
-    ``name`` is one of ``"nbr"``, ``"ndvi"``, ``"tcw"`` (case-insensitive);
+    ``name`` is one of :data:`INDEX_NAMES` (case-insensitive);
     ``bands`` holds reflectance-scaled float tensors of one shape.  With
     ``disturbance_positive`` (the default) the sign is flipped so that
     disturbance is an increase.
@@ -116,8 +141,10 @@ def compute_index(
         out = nbr(bands["nir"], bands["swir2"])
     elif key == "ndvi":
         out = ndvi(bands["nir"], bands["red"])
-    elif key == "tcw":
-        out = tcw(*(bands[b] for b in BANDS))
+    elif key == "ndmi":
+        out = ndmi(bands["nir"], bands["swir1"])
+    elif key in _TC_COEFFS:
+        out = _tasseled_cap(_TC_COEFFS[key], tuple(bands[b] for b in BANDS))
     else:
         raise ValueError(f"unknown index {name!r}; expected one of {INDEX_NAMES}")
     if disturbance_positive:

@@ -47,7 +47,8 @@ segmentation's vertex years), which the JAX package runs as XLA
   and :data:`GLOBAL_LAUNCHES`, of the family kernel's three forms to
   :data:`FAMILY_LAUNCHES`, :data:`WIDE_FAMILY_LAUNCHES` and
   :data:`GLOBAL_FAMILY_LAUNCHES`, of the FTV kernel to :data:`FTV_LAUNCHES`,
-  and nothing else does.
+  and nothing else does; :data:`SERIES` adds the rows each fused-kernel
+  launch segmented, of every form.
   Each launch is a traced span (``lt_segment_fused``, ``lt_family_stats``,
   ``lt_ftv_fit``; :func:`~land_trendr_tpu_torch.utils.profiling.span`).
   The FTV kernel is built in the global form only, planned by
@@ -101,6 +102,7 @@ __all__ = [
     "LAUNCHES",
     "NARROW_NC",
     "NARROW_NY",
+    "SERIES",
     "SMEM_LIMIT",
     "STAGES",
     "SWEEP",
@@ -187,6 +189,9 @@ WIDE_FAMILY_LAUNCHES = 0
 GLOBAL_FAMILY_LAUNCHES = 0
 #: FTV-kernel launches (one per scratch-sized piece of a call)
 FTV_LAUNCHES = 0
+#: rows (series) the fused kernel's launches segmented, padding rows
+#: included — of every form, counted beside :data:`LAUNCHES`
+SERIES = 0
 
 
 def launch_counts() -> "dict[str, int]":
@@ -773,7 +778,7 @@ class _Launch(_Planned):
     def _launch(self, fn, start: int, count: int, extra: list) -> None:
         """One launch of ``fn`` on pixels ``[start, start + count)``, with
         ``extra`` after the stream."""
-        global LAUNCHES, WIDE_LAUNCHES, GLOBAL_LAUNCHES
+        global LAUNCHES, WIDE_LAUNCHES, GLOBAL_LAUNCHES, SERIES
         p = self.params
         stream = torch.cuda.current_stream(self.values.device).cuda_stream
         with span("lt_segment_fused"):
@@ -789,6 +794,7 @@ class _Launch(_Planned):
             )
         if rc != 0:
             raise RuntimeError(f"segment_fused ({self.cap}) launch failed: CUDA error {rc}")
+        SERIES += count
         if self.cap == "global":
             GLOBAL_LAUNCHES += 1
         elif self.cap == "wide":

@@ -13,11 +13,14 @@ CUDA device, its plain version
 :func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices` on the CPU),
 and the fused change-map selection
 (:func:`~land_trendr_tpu_torch.ops.change.select_change`), plain PyTorch
-on the same device, as it is XLA in the JAX package.
+on the same device, as it is XLA in the JAX package.  Further indices of
+an ensemble (the LandTrendr multispectral ensemble: each index segmented
+on its own) ride the same segmentation call as rows below the primary's.
 """
 
 from __future__ import annotations
 
+from types import MappingProxyType
 from typing import Mapping, NamedTuple
 
 import torch
@@ -57,6 +60,9 @@ class TileOutputs(NamedTuple):
     #: tensors, natural orientation) when the run asked for them; the
     #: spatial mmu sieve needs the whole raster and applies post-assembly
     change: "dict[str, torch.Tensor] | None" = None
+    #: ensemble index name → its own segmentation, in the same
+    #: disturbance-positive convention as ``seg``
+    ens: "Mapping[str, SegOutputs]" = MappingProxyType({})
 
 
 def resolve_impl(impl: str, device: "torch.device | str") -> str:
@@ -101,25 +107,33 @@ def process_tile_dn(
     impl: str = "auto",
     ftv_indices: tuple[str, ...] = (),
     change_filt: "ChangeFilter | None" = None,
+    ensemble_indices: tuple[str, ...] = (),
 ) -> TileOutputs:
     """Segment one tile straight from Collection-2 style DNs.
 
     ``years`` is the ``(NY,)`` year axis; ``dn_bands`` maps band name →
-    ``(PX, NY)`` int16/uint16 DNs and must hold the bands ``index`` and
-    ``ftv_indices`` need (all six for TCW); ``qa`` is the ``(PX, NY)``
+    ``(PX, NY)`` int16/uint16 DNs and must hold the bands ``index``,
+    ``ftv_indices`` and ``ensemble_indices`` need (all six for a
+    tasseled-cap index); ``qa`` is the ``(PX, NY)``
     uint16 QA_PIXEL bitfield, all on one device.  ``ftv_indices`` are
     secondary indices fitted to the chosen vertices; ``change_filt``
     selects each pixel's change segment (natural orientation).
-    With ``chunk`` set and PX > ``chunk``, the segmentation runs chunked:
-    PX is padded to a chunk multiple with fully-masked rows and cropped
-    back, so results equal the unchunked path.  With the kernel, a chunk
-    larger than the CUDA block must be a multiple of it (the chunked
-    wrapper raises otherwise).
+    ``ensemble_indices`` are further indices each segmented on its own:
+    their K - 1 series go below the primary's as rows of ONE segmentation
+    call over K·PX rows (one mask, repeated), split back per index into
+    ``ens``.  With ``chunk`` set and those rows > ``chunk``, the
+    segmentation runs chunked: the rows are padded to a chunk multiple
+    with fully-masked rows and cropped back, so results equal the
+    unchunked path and each index segmented alone.  With the kernel, a
+    chunk larger than the CUDA block must be a multiple of it (the
+    chunked wrapper raises otherwise).
 
     While a profiler session records, each stage is a span on the tile's
     device (:func:`~land_trendr_tpu_torch.utils.profiling.span`):
     ``lt_tile_prep`` (scaling, masks, the primary index),
-    ``lt_tile_segment`` (padding, the kernel's launches, the crop),
+    ``lt_tile_ensemble`` (the further indices and the K series and masks
+    stacked; only with ``ensemble_indices``), ``lt_tile_segment``
+    (padding, the kernel's launches, the crop and the split),
     ``lt_tile_ftv`` (the FTV kernel's launch spans ``lt_ftv_fit`` nest
     inside) and ``lt_tile_change`` (when asked for).
     """
@@ -131,19 +145,31 @@ def process_tile_dn(
         mask = idx.qa_valid_mask(qa, reject_bits) & idx.sr_valid_mask(sr)
         primary = idx.compute_index(index, sr)
     px = primary.shape[0]
+    series, series_mask = primary, mask
+    if ensemble_indices:
+        with span("lt_tile_ensemble", dev):
+            series = torch.cat(
+                [primary, *(idx.compute_index(name, sr) for name in ensemble_indices)])
+            series_mask = mask.repeat(1 + len(ensemble_indices), 1)
+    rows = series.shape[0]
     if impl == "cuda":
         whole, chunked = cuda_segment_pixels, cuda_segment_pixels_chunked
     else:
         whole, chunked = torch_segment_pixels, torch_segment_pixels_chunked
     fit = ftv_fit(impl)
+    ens = {}
     with span("lt_tile_segment", dev):
-        if chunk is not None and px > chunk:
-            primary_p, mask_p, _ = pad_to_multiple(primary, mask, chunk)
-            seg = chunked(years, primary_p, mask_p, params, chunk)
-            if primary_p.shape[0] != px:
-                seg = SegOutputs(*(o[:px] for o in seg))
+        if chunk is not None and rows > chunk:
+            series_p, mask_p, _ = pad_to_multiple(series, series_mask, chunk)
+            seg = chunked(years, series_p, mask_p, params, chunk)
+            if series_p.shape[0] != rows:
+                seg = SegOutputs(*(o[:rows] for o in seg))
         else:
-            seg = whole(years, primary, mask, params)
+            seg = whole(years, series, series_mask, params)
+        if ensemble_indices:
+            parts = [SegOutputs(*(o[k * px:(k + 1) * px] for o in seg))
+                     for k in range(1 + len(ensemble_indices))]
+            seg, ens = parts[0], dict(zip(ensemble_indices, parts[1:]))
     ftv = {}
     if ftv_indices:
         with span("lt_tile_ftv", dev):
@@ -172,4 +198,4 @@ def process_tile_dn(
                 sign=sign,
                 filt=change_filt,
             )
-    return TileOutputs(seg=seg, ftv=ftv, change=change)
+    return TileOutputs(seg=seg, ftv=ftv, change=change, ens=ens)

@@ -231,6 +231,11 @@ class RunConfig:
     #: secondary indices fitted to the chosen vertices (``ftv_<index>``
     #: products); fingerprinted
     ftv_indices: tuple[str, ...] = ()
+    #: further indices each segmented on its own in the same kernel call
+    #: as ``index`` (the LandTrendr multispectral ensemble;
+    #: ``ens_<index>_<product>`` products for every product of
+    #: ``products``); the port's own field, fingerprinted when not empty
+    ensemble_indices: tuple[str, ...] = ()
     params: LTParams = LTParams()
     #: scene tiling granularity (pixels per side), or "auto"; fingerprinted
     #: (the resolved value)
@@ -413,6 +418,18 @@ class RunConfig:
         bad = [i for i in self.ftv_indices if str(i).lower() not in idx.INDEX_NAMES]
         if bad:
             raise ValueError(f"unknown ftv_indices {bad}; expected some of {idx.INDEX_NAMES}")
+        if not isinstance(self.ensemble_indices, tuple):
+            raise ValueError(
+                f"ensemble_indices={self.ensemble_indices!r} must be a tuple of index names")
+        bad = [i for i in self.ensemble_indices if str(i).lower() not in idx.INDEX_NAMES]
+        if bad:
+            raise ValueError(
+                f"unknown ensemble_indices {bad}; expected some of {idx.INDEX_NAMES}")
+        ens = [str(i).lower() for i in self.ensemble_indices]
+        if len(set(ens)) != len(ens) or self.index.lower() in ens:
+            raise ValueError(
+                f"ensemble_indices={self.ensemble_indices!r} must name each index once "
+                f"and not the primary index {self.index!r}")
         if self.change_filt is not None and not isinstance(self.change_filt, ChangeFilter):
             raise ValueError(f"change_filt={self.change_filt!r} is not a ChangeFilter")
         if self.impl not in ("auto", "cuda", "torch"):
@@ -536,10 +553,13 @@ class RunConfig:
             faults.parse_schedule(self.fault_schedule)
 
     def fingerprint(self, stack: RasterStack) -> str:
-        """The run-defining configuration's hash (the JAX package's payload;
-        the resolved impl is an execution fact, kept out of it)."""
+        """The run-defining configuration's hash (the JAX package's payload,
+        and ``ensemble_indices`` when not empty; the resolved impl is an
+        execution fact, kept out of it)."""
+        ensemble = {"ensemble": list(self.ensemble_indices)} if self.ensemble_indices else {}
         return run_fingerprint(
             {
+                **ensemble,
                 "index": self.index,
                 "ftv": list(self.ftv_indices),
                 "params": self.params.to_dict(),
@@ -984,7 +1004,7 @@ class Run:
         years_host = torch.from_numpy(stack.years.astype(np.int32))
         years = years_host.to(dev)
         years_on = {d: years_host.to(d) for d in mesh} if mesh is not None else {}
-        bands = idx.required_bands(cfg.index, cfg.ftv_indices)
+        bands = idx.required_bands(cfg.index, (*cfg.ftv_indices, *cfg.ensemble_indices))
         lease_q: "LeaseQueue | None" = None
         if cfg.lease_batch:
             # the elastic work source: tiles are claimed from the shared
@@ -1131,6 +1151,7 @@ class Run:
                             offset=cfg.offset, reject_bits=cfg.reject_bits,
                             chunk=chunk, impl=impl_resolved,
                             ftv_indices=cfg.ftv_indices, change_filt=cfg.change_filt,
+                            ensemble_indices=cfg.ensemble_indices,
                         ))
                         if d.type == "cuda":
                             ev = torch.cuda.Event()

@@ -93,7 +93,7 @@ class PlanEntry(NamedTuple):
     """
 
     key: str
-    src: str            # "seg" | "change" | "ftv"
+    src: str            # "seg" | "change" | "ftv" | "ens" (field "<index>.<product>")
     field: str
     suffix: tuple[int, ...]
     dtype: str
@@ -115,6 +115,9 @@ def _resolve(out: "TileOutputs", e: PlanEntry) -> torch.Tensor:
         return getattr(out.seg, e.field)
     if e.src == "change":
         return out.change[e.field]
+    if e.src == "ens":
+        name, field = e.field.split(".")
+        return getattr(out.ens[name], field)
     return out.ftv[e.field]
 
 
@@ -123,7 +126,9 @@ def build_plan(out: "TileOutputs", cfg: "RunConfig") -> FetchPlan:
 
     The JAX package's entry order: seg products in :data:`SEG_PRODUCTS`
     order filtered by ``cfg.products``, fitted, change products, FTV
-    products, then the ``model_valid`` rider when the subset excludes it.
+    products, then the ``model_valid`` rider when the subset excludes it;
+    after those, each ensemble index's ``ens_<index>_<product>`` for the
+    same products, flipped by that index's own sign.
     """
     sign = idx.DISTURBANCE_SIGN[cfg.index.lower()]
     want = SEG_PRODUCTS if cfg.products is None else cfg.products
@@ -159,6 +164,11 @@ def build_plan(out: "TileOutputs", cfg: "RunConfig") -> FetchPlan:
             sgn=idx.DISTURBANCE_SIGN[name.lower()])
     if "model_valid" not in want:
         add("", "seg", "model_valid", out.seg.model_valid)
+    for index, seg in out.ens.items():
+        for name in SEG_PRODUCTS:
+            if name in want:
+                add(f"ens_{index}_{name}", "ens", f"{index}.{name}", getattr(seg, name),
+                    signed=name in SIGNED_PRODUCTS, sgn=idx.DISTURBANCE_SIGN[index.lower()])
     return FetchPlan(entries=tuple(entries), px=int(out.seg.model_valid.shape[0]))
 
 

@@ -207,6 +207,13 @@ class JobRequest:
                 f"run_overrides may not set server-owned field(s): "
                 f"{reserved}"
             )
+        if "ensemble_indices" in overrides:
+            # the stack load, cross-job batching and the affinity key know
+            # one segmented index a job: refuse rather than drop the field
+            raise ValueError(
+                "run_overrides may not set ensemble_indices: serve segments "
+                "one index a job; run an ensemble with `segment --ensemble`"
+            )
         return req
 
     #: the request fields that select the compiled-program/decoded-block

@@ -1006,3 +1006,43 @@ def test_ftv_kernel_times_on_card(card):
         capture_output=True, text=True, check=False).stdout.strip()
     print("ftv_kernel_times " + json.dumps(rec))
     assert 0 < rec["kernel_ms_262144"] < rec["plain_ms_262144"]
+
+
+# ---------------------------------------------------------------------------
+# the ensemble: further indices as rows of one segmentation call
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [1024, 1000])
+def test_ensemble_stacked_call_equals_per_index_calls_on_card(card, side):
+    # a 1024² tile of six indices is 6 x 1,048,576 rows: 24 launches of
+    # 262,144; at 1000² the 6,000,000 rows pad to 23 chunks.  Each index's
+    # outputs are the bits of that index's own call, and SERIES counts the
+    # padded rows the launches segmented
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops.tile import process_tile_dn
+
+    ensemble = ("ndvi", "ndmi", "tcb", "tcg", "tcw")
+    px, ny, chunk = side * side, 40, 262_144
+    gen = torch.Generator(device=card).manual_seed(20261018)
+    years = torch.arange(1984, 1984 + ny, dtype=torch.int32, device=card)
+    dn = {b: torch.randint(8000, 30000, (px, ny), generator=gen, device=card,
+                           dtype=torch.int32).to(torch.int16) for b in idx.BANDS}
+    # the cloud bit on a tenth of the observations
+    cloud = torch.rand((px, ny), generator=gen, device=card) < 0.1
+    qa = (cloud.to(torch.int16) * 8).view(torch.uint16)
+    padded = -(-6 * px // chunk) * chunk
+    before = (sc.LAUNCHES, sc.SERIES)
+    out = process_tile_dn(years, dn, qa, chunk=chunk, ensemble_indices=ensemble)
+    torch.cuda.synchronize()
+    assert (sc.LAUNCHES - before[0], sc.SERIES - before[1]) == (padded // chunk, padded)
+    assert list(out.ens) == list(ensemble)
+    for name in ("nbr", *ensemble):
+        alone = process_tile_dn(years, dn, qa, index=name, chunk=chunk).seg
+        got = out.seg if name == "nbr" else out.ens[name]
+        for field, a, b in zip(got._fields, got, alone):
+            assert a.shape == b.shape and a.dtype == b.dtype, (name, field)
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8)), (name, field)
+        assert bool(got.model_valid.any())
