@@ -66,6 +66,12 @@ each of which fails the script on its own:
    bit-identical, float64 within 1e-8, one launch a call and the
    segmentation's counter unmoved.  Times the kernel and its plain version
    and computes its bound by bytes.
+3d. **Index kernel against its plain version** at the cells' shapes
+   (1024² x 40 NBR from NIR and SWIR2; the six-index ensemble at 1024²;
+   2048² NBR with NDVI and TCW for FTV): int16 DNs, uint16 QA, the mask
+   and every output bit-identical (``torch.equal`` on int32 views), one
+   launch a call.  Times the kernel and its plain version and computes
+   its bound by bytes.
 4. **Scene**: a 2048 x 2048 x 40-year synthetic stack through the port's
    ``run_stack`` + ``assemble_outputs`` at tile_size 512 (16 tiles of
    262,144 px); the kernel's launch count must be one per tile, the
@@ -226,7 +232,8 @@ Phases 4 and 4b also assert that nothing was retried or quarantined and
 print the run's HBM peak (the value the telemetry gauge holds).  Each
 kernel's launch count is set to 0 just before its path (phases 4 and 10
 for the narrow fused kernel, and phase 9's entry leg, phase 10 (c) for the wide one and (g) for
-the global one, phase 6 for the three family kernels; phases 7 and 8
+the global one, phase 6 for the three family kernels; phases 4, 4b, 9's
+entry leg and 10 for the index kernel; phases 7 and 8
 count their own runs; phase 11's are the fresh replicas' own counts;
 phase 12's are this process's for (a) and (b) and the tools' reports for
 the rest; phase 13's are this process's for (a) and the gate's own; phase
@@ -520,6 +527,74 @@ def bound_of(n_bytes: int, n_ops: int, ops_s: float = FP32_OPS_S) -> "tuple[floa
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     ops_ms = n_ops / ops_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+#: phase 3d's index-kernel cases, the cells' shapes: (name, tile edge,
+#: series indices, FTV indices, shipped bands)
+INDEX_CASES = (
+    ("nbr_1024", 1024, ("nbr",), (), ("nir", "swir2")),
+    ("ensemble6_1024", 1024, ("nbr", "ndvi", "ndmi", "tcb", "tcg", "tcw"), (),
+     ("blue", "green", "red", "nir", "swir1", "swir2")),
+    ("nbr_ndvi_tcw_2048", 2048, ("nbr",), ("ndvi", "tcw"),
+     ("blue", "green", "red", "nir", "swir1", "swir2")),
+)
+
+
+def index_kernel_phase(dev: torch.device) -> dict:
+    """Phase 3d: the index kernel against its plain version at the cells'
+    shapes (40 years; int16 DNs around Collection-2's reflectance range with
+    out-of-range ones among them, uint16 QA words with rejected and high
+    bits): the mask and every output bit-identical, one launch a call.
+    Times the kernel and its plain version and computes its bound by bytes
+    (each band and QA read once, 2 B an element; each index written once,
+    4 B; the mask 1 B).  Returns each case's measurements."""
+    from land_trendr_tpu_torch.ops import segment_cuda
+    from land_trendr_tpu_torch.ops.indices import torch_tile_indices
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    words = torch.tensor([0, 0, 0, 1 << 3, 1 << 6, 1 << 15, 0xFF00, 1 << 1],
+                         dtype=torch.int32, device=dev)
+    out = {}
+    for name, edge, series_idx, ftv_idx, shipped in INDEX_CASES:
+        shape = (edge * edge, NY)
+        # DN 7273 reads reflectance 0 (2.75e-5, -0.2): one draw in twenty
+        # falls below it
+        dn = {b: torch.randint(6000, 32767, shape, generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int16) for b in shipped}
+        pick = torch.randint(0, len(words), shape, generator=gen, device=dev)
+        qa = words[pick].to(torch.int16).view(torch.uint16)
+        args = (dn, qa, series_idx, ftv_idx)
+        before = segment_cuda.INDEX_LAUNCHES
+        got = segment_cuda.cuda_tile_indices(*args)
+        launches = segment_cuda.INDEX_LAUNCHES - before
+        ref = torch_tile_indices(*args)
+        torch.cuda.synchronize()
+        same = (torch.equal(got[1], ref[1])
+                and torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+                and len(got[2]) == len(ref[2])
+                and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got[2], ref[2])))
+        valid = float(got[1].float().mean())
+        del got, ref
+        assert launches == 1 and same, (name, launches, same)
+        assert 0.2 < valid < 0.95, (name, valid)
+        ms = cuda_ms(lambda: segment_cuda.cuda_tile_indices(*args), reps=20)
+        plain_ms = cuda_ms(lambda: torch_tile_indices(*args), reps=2)
+        n = edge * edge * NY
+        n_bytes = n * (2 * (len(shipped) + 1) + 4 * (len(series_idx) + len(ftv_idx)) + 1)
+        bound_ms, bound_by = bound_of(n_bytes, 0)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": n_bytes,
+                     "shape": f"{edge}^2 px x {NY} years, {len(shipped)} int16 bands + uint16 "
+                              f"QA -> {'+'.join((*series_idx, *ftv_idx))} f32 and the mask"}
+        log(f"[index] {name}: kernel vs plain bit-identical (mask, {len(series_idx)} series "
+            f"and {len(ftv_idx)} FTV outputs), 1 launch, valid share {valid:.4f}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms; bound {n_bytes} B -> {bound_ms:.4f} ms by "
+            f"{bound_by}, kernel at {100 * bound_ms / ms:.1f}% of it")
+        del dn, qa, pick, args
+        torch.cuda.empty_cache()
+    return out
 
 
 #: phase 2d's global-form populations: (name, years, params overrides)
@@ -1253,10 +1328,16 @@ def route_phase(smi: str, env: dict, tmp: str, stack_dir: str) -> dict:
         launches = sum(c["LAUNCHES"] for c in counts.values())
         cold = len({(s["replica"], shape_of[s["trace_id"]]) for s in snaps})
         assert launches == ROUTE_JOBS * n_tiles + cold, (launches, cold, counts)
-        assert all(c[k] == 0 for c in counts.values() for k in c if k != "LAUNCHES"), counts
+        # the narrow kernel alone, and one index pass for each of its launches
+        # (a tile is one chunk here)
+        index_launches = sum(c["INDEX_LAUNCHES"] for c in counts.values())
+        assert index_launches == launches, (index_launches, launches, counts)
+        assert all(c[k] == 0 for c in counts.values() for k in c
+                   if k not in ("LAUNCHES", "INDEX_LAUNCHES")), counts
         lat = np.array([o["latency_s"] for o in rep["outcomes"]])
         # 8 samples hold no p99: the slowest job is printed as what it is
-        out.update(route_launches=launches, jobs_per_s=ROUTE_JOBS / rep["wall_s"],
+        out.update(route_launches=launches, route_index_launches=index_launches,
+                   jobs_per_s=ROUTE_JOBS / rep["wall_s"],
                    p50_s=float(np.percentile(lat, 50)), max_s=float(lat.max()))
         log(f"[route] (a) load: {ROUTE_JOBS} jobs from 2 tenants, closed loop over 2 "
             f"replicas: all done and byte-equal to segment; {launches} launches = "
@@ -2023,6 +2104,9 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     del k32, p32, k64, p64, ch, job, v64, f32, pf32, f64, pf64, tail32, tail64, fjob
     del t32, t64, ftv_args32, ftv_args64, g32, g64, r32, r64
 
+    # ---- phase 3d: the index kernel against its plain version -----------
+    index_cases = index_kernel_phase(dev)
+
     # ---- phase 2c: the wide kernels against their plain versions --------
     wide = wide_kernels(dev, kernel_ms)
 
@@ -2046,8 +2130,10 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
             out_dir=os.path.join(tmp, "out"),
         )
         segment_cuda.LAUNCHES = 0
+        segment_cuda.INDEX_LAUNCHES = 0
         summary = run_stack(stack, cfg, device="cuda")
         launches = segment_cuda.LAUNCHES
+        index_launches = segment_cuda.INDEX_LAUNCHES
         t0 = time.perf_counter()
         paths = assemble_outputs(stack, cfg)
         assemble_s = time.perf_counter() - t0
@@ -2056,7 +2142,8 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
             header = json.loads(f.readline())
         log(f"[scene] px_per_s {summary['px_per_s']} wall_s {summary['wall_s']} "
             f"fit_rate {summary['fit_rate']:.4f} tiles {summary['tiles_done']} "
-            f"launches {launches} assemble_s {assemble_s:.2f} outputs {len(paths)}")
+            f"launches {launches} index launches {index_launches} assemble_s "
+            f"{assemble_s:.2f} outputs {len(paths)}")
         log(f"[scene] stage_s {json.dumps(summary['stage_s'])}")
         log(f"[scene] upload {json.dumps(summary['upload'])}")
         log(f"[scene] fetch {json.dumps(summary['fetch'])}")
@@ -2067,6 +2154,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         assert summary["tiles_done"] == n_tiles, summary
         scene_px_s = [summary["px_per_s"]]
         assert launches == n_tiles, f"{launches} kernel launches for {n_tiles} tiles"
+        assert index_launches == n_tiles, f"{index_launches} index launches for {n_tiles} tiles"
         assert header.get("context", {}).get("impl") == "cuda", header
         assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
         assert summary["pixels"] == SCENE * SCENE, summary["pixels"]
@@ -2094,9 +2182,11 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     )
     segment_cuda.LAUNCHES = 0
     segment_cuda.FTV_LAUNCHES = 0
+    segment_cuda.INDEX_LAUNCHES = 0
     summary = run_stack(stack, cfg, device="cuda")
     tail_launches = segment_cuda.LAUNCHES
     ftv_launches = segment_cuda.FTV_LAUNCHES
+    ftv_index_launches = segment_cuda.INDEX_LAUNCHES
     t0 = time.perf_counter()
     paths = assemble_outputs(stack, cfg)
     assemble_s = time.perf_counter() - t0
@@ -2105,7 +2195,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     log(f"[ftv+change] ftv {','.join(FTV)}, change max_dur 4: px_per_s "
         f"{summary['px_per_s']} wall_s {summary['wall_s']} fit_rate "
         f"{summary['fit_rate']:.4f} launches {tail_launches} FTV launches {ftv_launches} "
-        f"assemble_s {assemble_s:.2f} outputs {len(paths)}")
+        f"index launches {ftv_index_launches} assemble_s {assemble_s:.2f} outputs {len(paths)}")
     log(f"[ftv+change] stage_s {json.dumps(summary['stage_s'])}")
     log(f"[ftv+change] fetch {json.dumps(summary['fetch'])}")
     log(f"[ftv+change] HBM peak (the telemetry gauge's value) "
@@ -2116,6 +2206,9 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     assert tail_launches == n_tiles, f"{tail_launches} kernel launches for {n_tiles} tiles"
     assert ftv_launches == len(FTV) * n_tiles, (
         f"{ftv_launches} FTV launches for {n_tiles} tiles of {len(FTV)} indices")
+    # one index pass a tile writes the primary and both FTV indices
+    assert ftv_index_launches == n_tiles, (
+        f"{ftv_index_launches} index launches for {n_tiles} tiles")
     assert header.get("context", {}).get("impl") == "cuda", header
     assert 0.0 < summary["fit_rate"] <= 1.0, summary["fit_rate"]
     want = {f"ftv_{i}" for i in FTV} | {f"change_{k}" for k in CHANGE_PRODUCTS}
@@ -2511,6 +2604,7 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         t0 = time.perf_counter()
         forward, batch = entry()
         segment_cuda.LAUNCHES = 0
+        segment_cuda.INDEX_LAUNCHES = 0
         got = forward(*batch)
         entry_launches = segment_cuda.LAUNCHES
         every = torch.ones(batch[1].shape[0], dtype=torch.bool, device=dev)
@@ -2524,14 +2618,20 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         dry = dryrun_multichip(2, devices=[dev, dev])
         dry_launches = segment_cuda.LAUNCHES
         entry_ftv_launches = segment_cuda.FTV_LAUNCHES  # one a shard
+        # entry() segments a batch of series and no DNs: the dry run's
+        # tiles alone make index passes
+        entry_index_launches = segment_cuda.INDEX_LAUNCHES
         want = 2 + 2 + 1 + 2 + 2 * dry["summary"]["tiles"]
         entry_s = time.perf_counter() - t0
         log(f"[entry] dryrun_multichip(2) over {dry['mesh']}: {dry_launches} launches "
-            f"(want {want}), {entry_ftv_launches} FTV launches (want 2), metrics "
+            f"(want {want}), {entry_ftv_launches} FTV launches (want 2), "
+            f"{entry_index_launches} index launches, metrics "
             f"{json.dumps(dry['metrics'])}, {len(dry['rasters'])} rasters; the entry leg took "
             f"{entry_s:.2f} s")
         assert dry_launches == want, (dry_launches, want)
         assert entry_ftv_launches == 2, entry_ftv_launches
+        # one a shard and tile, as the fused kernel's
+        assert entry_index_launches == 2 * dry["summary"]["tiles"], entry_index_launches
         entry_launches += dry_launches
 
         # the three scene runs' rasters against phase 4's, assembled together
@@ -2669,7 +2769,10 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
     assert "serve_seconds" in scene, "writing phase 10's stack failed (its traceback is above)"
     log(f"[serve] {SERVE}^2 x {NY} stack made and written in {scene['serve_seconds']:.1f} s "
         f"beside the earlier phases (waited {time.perf_counter() - t0:.1f} s for it)")
+    segment_cuda.INDEX_LAUNCHES = 0
     served = serve_phase(dev, smi, env, serve_root, serve_stack)
+    # every serve job of phase 10, the profiled and the cancelled ones too
+    serve_index_launches = segment_cuda.INDEX_LAUNCHES
     routed = route_phase(smi, env, serve_root, served["stack_dir"])
     # ---- phase 12: the port's tools on the card -------------------------
     tools_tmp = os.path.join(serve_root, "tools")
@@ -2839,9 +2942,36 @@ def run_phases(cleanup: contextlib.ExitStack) -> int:
         "library_ms": None,
         "shape": f"{POP_PX:,} px x {NY} years f32",
     }
+    ic = index_cases["nbr_1024"]
+    index_kernel = {
+        "name": "tile_index",
+        "route": "cuda",
+        "source": src,
+        # no Pallas kernel: the JAX package leaves this math to XLA
+        "replaces": "land_trendr_tpu/ops/indices.py (XLA)",
+        # phase 4's scene and 4b's FTV scene (one a tile), phase 9's dry
+        # run, phase 10's serve jobs and phase 11's routed jobs (counted in
+        # the replicas); the tools' processes under "tools"; phase 3d's
+        # checks and times stand apart
+        "launches": (index_launches + ftv_index_launches + entry_index_launches
+                     + serve_index_launches + routed["route_index_launches"]),
+        "launches_by_path": {"segment": index_launches + ftv_index_launches,
+                             "entry": entry_index_launches, "serve": serve_index_launches,
+                             "route": routed["route_index_launches"],
+                             "tools": tool_launches.get("INDEX_LAUNCHES", 0)},
+        "max_abs_err": 0.0,
+        "ms": ic["ms"],
+        "plain_ms": ic["plain_ms"],
+        "bound_ms": ic["bound_ms"],
+        "bound_by": ic["bound_by"],
+        "library_ms": None,
+        "shape": ic["shape"],
+        **{f"{k}_{case}": c[k] for case, c in index_cases.items() if case != "nbr_1024"
+           for k in ("ms", "plain_ms", "bound_ms")},
+    }
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [kernel, kernel_wide, kernel_global, family, family_wide,
-                                  family_global, ftv_kernel]}))
+                                  family_global, ftv_kernel, index_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -117,6 +117,14 @@
 // values, NY mask bytes and NV + 1 ints and writes NY values — at NY = 40,
 // NV = 7, 392 B (f32), ~0.49 ms for 2048² px at 3.35 TB/s.
 //
+// A fourth kernel, `tile_index_kernel`, goes from a tile's DN bands and QA
+// words to the validity mask and every spectral index the tile program
+// needs, in one pass.  It replaces no Pallas kernel: the JAX package leaves
+// DN scaling, the QA and range masks and the indices to XLA
+// (land_trendr_tpu/ops/indices.py).  Its plain version is
+// ops/indices.py:torch_tile_indices, and its results are the same bits:
+// see the kernel's own note below.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
 // --fmad=false keeps every multiply and add rounded on its own, step for
@@ -1874,6 +1882,197 @@ int launch_ftv(const void* years, const void* values, const void* mask, const vo
                (unsigned char*)scratch);
 }
 
+// ---------------------------------------------------------------------------
+// The tile program's index kernel: DNs and QA to the mask and the indices.
+//
+// What bounds it: bytes.  An element (a pixel-year) reads 2 B of each
+// shipped band and of QA and writes 1 B of mask and 4 B an index, with no
+// reuse and a handful of operations: NBR alone on a 1024² x 40 tile moves
+// 462 MB, 0.14 ms at 3.35 TB/s.  The design streams each band once.  A
+// thread takes IDX_VEC = 8 consecutive elements of the flat (PX * NY)
+// layout: one 16-byte load of each band and of QA, the scaled values kept in
+// registers, each index written as two 16-byte stores straight into its
+// destination (a row block of the caller's series or FTV buffer), the mask
+// as one 8-byte store.  A grid-stride loop at the blocks an SM holds walks
+// the tile; the ragged end, or a launch whose pointers are off that
+// alignment (`vec` = 0, the wrapper's check), goes element by element.  The
+// outputs are a runtime table passed by value, each described as data: a
+// normalized difference by its two band slots, a weighted band sum (the
+// tasseled caps) by its coefficients, then its sign and its destination.
+// So the kernel knows no index by name, and one instantiation per DN and QA
+// type serves every combination of primary, ensemble and FTV indices.
+//
+// The same bits as the plain version, rounded at the same places: the DN
+// widened to float, times the scale, plus the offset, each step rounded on
+// its own; the mask is the QA test (the word widened to int32 as its type
+// reads it) AND, for every shipped band, isfinite & >= 0 & <= 1 of its
+// scaled value; a normalized difference is (a - b) / (a + b), IEEE
+// division, 0 where a + b is 0; a tasseled cap is summed left to right in
+// band order, each c * b rounded before the add; the sign multiply comes
+// last.  The card's round-to-nearest intrinsics keep every step apart
+// whatever the compiler would contract.
+
+// Band slots, in ops/indices.py:BANDS order.
+constexpr int IDX_BANDS = 6;
+// Outputs one launch writes at most; elements a thread takes at once;
+// threads a block.
+constexpr int IDX_MAX_OUT = 16;
+constexpr int IDX_VEC = 8;
+constexpr int IDX_BLOCK = 256;
+
+// (slot a - slot b) / (slot a + slot b) where a >= 0; else the sum of
+// coef[s] * slot s in band order.
+struct IndexOut {
+  int a, b;
+  float sign;
+  float coef[IDX_BANDS];
+  float* dst;
+};
+
+struct IndexTable {
+  const void* band[IDX_BANDS];  // null: the band is not shipped
+  const void* qa;
+  uint8_t* mask;
+  long long n;  // elements of each plane
+  float scale, offset;
+  int reject;
+  int n_out;
+  IndexOut out[IDX_MAX_OUT];
+};
+
+// N values of T in one aligned access.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+// Float arithmetic rounded step by step (the card's intrinsics; the plain
+// operators where the source is compiled for the host).
+__device__ __forceinline__ float f_mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__device__ __forceinline__ float f_add(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+__device__ __forceinline__ float f_sub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+__device__ __forceinline__ float f_div(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
+}
+
+// ops/indices.py:_safe_ratio of (a - b, a + b).
+__device__ __forceinline__ float normalized_difference(float a, float b) {
+  const float den = f_add(a, b);
+  return den != 0.0f ? f_div(f_sub(a, b), den) : 0.0f;
+}
+
+// Band slot `s` of element e, picked by selects so that `v` stays in
+// registers (a runtime index into it would put it in local memory).
+template <int N>
+__device__ __forceinline__ float band_slot(const float (&v)[IDX_BANDS][N], int s, int e) {
+  float x = 0.0f;
+#pragma unroll
+  for (int k = 0; k < IDX_BANDS; ++k) x = k == s ? v[k][e] : x;
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ float index_value(const IndexOut& o, const float (&v)[IDX_BANDS][N],
+                                             int e) {
+  if (o.a >= 0) return normalized_difference(band_slot<N>(v, o.a, e), band_slot<N>(v, o.b, e));
+  float acc = f_mul(o.coef[0], v[0][e]);
+#pragma unroll
+  for (int s = 1; s < IDX_BANDS; ++s) acc = f_add(acc, f_mul(o.coef[s], v[s][e]));
+  return acc;
+}
+
+// Elements i .. i + N - 1: N = IDX_VEC on aligned pointers, 1 otherwise.
+template <int N, typename D, typename Q>
+__device__ __forceinline__ void index_elements(const IndexTable& t, long long i) {
+  float v[IDX_BANDS][N] = {};
+  bool ok[N];
+  const Vec<Q, N> q = *reinterpret_cast<const Vec<Q, N>*>((const Q*)t.qa + i);
+#pragma unroll
+  for (int e = 0; e < N; ++e) ok[e] = ((int)q.v[e] & t.reject) == 0;
+#pragma unroll
+  for (int s = 0; s < IDX_BANDS; ++s) {
+    if (t.band[s] == nullptr) continue;
+    const Vec<D, N> d = *reinterpret_cast<const Vec<D, N>*>((const D*)t.band[s] + i);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float x = f_add(f_mul((float)d.v[e], t.scale), t.offset);
+      v[s][e] = x;
+      ok[e] = ok[e] & (isfinite(x) && x >= 0.0f && x <= 1.0f);
+    }
+  }
+  Vec<uint8_t, N> m;
+#pragma unroll
+  for (int e = 0; e < N; ++e) m.v[e] = ok[e];
+  *reinterpret_cast<Vec<uint8_t, N>*>(t.mask + i) = m;
+#pragma unroll
+  for (int j = 0; j < IDX_MAX_OUT; ++j) {
+    if (j < t.n_out) {
+      const IndexOut& o = t.out[j];
+      constexpr int W = N < 4 ? N : 4;  // floats a store
+#pragma unroll
+      for (int h = 0; h < N; h += W) {
+        Vec<float, W> r;
+#pragma unroll
+        for (int e = 0; e < W; ++e) r.v[e] = f_mul(o.sign, index_value<N>(o, v, h + e));
+        *reinterpret_cast<Vec<float, W>*>(o.dst + i + h) = r;
+      }
+    }
+  }
+}
+
+// `stride`: the launch's threads (grid x IDX_BLOCK).
+template <typename D, typename Q>
+__global__ void __launch_bounds__(IDX_BLOCK)
+tile_index_kernel(const IndexTable t, int vec, long long stride) {
+  const long long tid = (long long)blockIdx.x * IDX_BLOCK + threadIdx.x;
+  const long long groups = vec ? t.n / IDX_VEC : 0;
+  for (long long g = tid; g < groups; g += stride) {
+    index_elements<IDX_VEC, D, Q>(t, g * IDX_VEC);
+  }
+  for (long long i = groups * IDX_VEC + tid; i < t.n; i += stride) {
+    index_elements<1, D, Q>(t, i);
+  }
+}
+
+// One launch at the grid the card holds at once (its `sms` SMs times the
+// kernel's resident blocks an SM), or fewer where the tile needs fewer.
+template <typename D, typename Q>
+int launch_index(const IndexTable& t, int vec, int sms, void* stream) {
+  const auto kernel = tile_index_kernel<D, Q>;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                       IDX_BLOCK, 0);
+  if (e != cudaSuccess) return (int)e;
+  const long long work = vec ? t.n / IDX_VEC + t.n % IDX_VEC : t.n;
+  long long grid = (work + IDX_BLOCK - 1) / IDX_BLOCK;
+  const long long held = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > held) grid = held;
+  return start(kernel, grid * IDX_BLOCK, IDX_BLOCK, 0, (cudaStream_t)stream, t, vec,
+               grid * IDX_BLOCK);
+}
+
 // Resident blocks per SM of `kernel` as the production launch sets it up
 // (its dynamic shared memory).
 template <class K>
@@ -2198,6 +2397,53 @@ int lt_family_stats_global_f32_opcount(LT_FAMILY_ARGS, void *scratch, int block,
 
 int lt_ftv_fit_f32(LT_FTV_ARGS) { return LT_FTV(float); }
 int lt_ftv_fit_f64(LT_FTV_ARGS) { return LT_FTV(double); }
+
+// The index kernel: the outputs one launch writes at most.
+int lt_tile_index_max_out() { return IDX_MAX_OUT; }
+
+// One launch of the index kernel over `n` elements of each plane.  `bands`
+// holds the six band pointers in band order (null: not shipped), all of one
+// DN type; `dn_type` and `qa_type` are 0 for int16 and 1 for uint16.
+// Output j is the normalized difference of band slots slots[2j] and
+// slots[2j + 1], or where slots[2j] is -1 the sum of coefs[6j .. 6j + 5]
+// times the bands, times signs[j], written to dsts[j]; the mask goes to
+// `mask`.  `vec` = 1 takes 8
+// elements a thread (every pointer 16-byte aligned, the mask 8-byte), 0 one.
+// `sms`: the card's SMs, which size the grid.
+int lt_tile_indices(const void *const *bands, const void *qa, void *mask, long long n,
+                    int dn_type, int qa_type, double scale, double offset, int reject, int n_out,
+                    const int *slots, const double *signs, const double *coefs,
+                    void *const *dsts, int vec, int sms, void *stream) {
+  if (n < 0 || n_out < 0 || n_out > IDX_MAX_OUT || sms < 1 || (dn_type | qa_type) & ~1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  IndexTable t = {};
+  for (int s = 0; s < IDX_BANDS; ++s) t.band[s] = bands[s];
+  t.qa = qa;
+  t.mask = (uint8_t *)mask;
+  t.n = n;
+  t.scale = (float)scale;
+  t.offset = (float)offset;
+  t.reject = reject;
+  t.n_out = n_out;
+  for (int j = 0; j < n_out; ++j) {
+    const int a = slots[2 * j], b = slots[2 * j + 1];
+    if (a < -1 || a >= IDX_BANDS || (a >= 0 && (b < 0 || b >= IDX_BANDS))) {
+      return (int)cudaErrorInvalidValue;
+    }
+    t.out[j].a = a;
+    t.out[j].b = b;
+    t.out[j].sign = (float)signs[j];
+    for (int s = 0; s < IDX_BANDS; ++s) t.out[j].coef[s] = (float)coefs[j * IDX_BANDS + s];
+    t.out[j].dst = (float *)dsts[j];
+  }
+  switch (dn_type * 2 + qa_type) {
+    case 0: return launch_index<int16_t, int16_t>(t, vec, sms, stream);
+    case 1: return launch_index<int16_t, uint16_t>(t, vec, sms, stream);
+    case 2: return launch_index<uint16_t, int16_t>(t, vec, sms, stream);
+    default: return launch_index<uint16_t, uint16_t>(t, vec, sms, stream);
+  }
+}
 
 #endif  // LT_PART 1
 

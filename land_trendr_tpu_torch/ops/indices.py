@@ -26,6 +26,7 @@ __all__ = [
     "INDEX_NAMES",
     "DISTURBANCE_SIGN",
     "INDEX_BANDS",
+    "TC_COEFFS",
     "DEFAULT_QA_REJECT",
     "required_bands",
     "nbr",
@@ -36,6 +37,7 @@ __all__ = [
     "scale_sr",
     "qa_valid_mask",
     "sr_valid_mask",
+    "torch_tile_indices",
 ]
 
 #: Canonical Landsat surface-reflectance band names (TM/ETM+/OLI
@@ -49,7 +51,9 @@ _TCW_COEFFS = (0.0315, 0.2021, 0.3102, 0.1594, -0.6806, -0.6109)
 #: (the ensemble's TCB and TCG, computed through :func:`compute_index`).
 _TCB_COEFFS = (0.2043, 0.4158, 0.5524, 0.5741, 0.3124, 0.2303)
 _TCG_COEFFS = (-0.1603, -0.2819, -0.4934, 0.7940, -0.0002, -0.1446)
-_TC_COEFFS = {"tcb": _TCB_COEFFS, "tcg": _TCG_COEFFS, "tcw": _TCW_COEFFS}
+#: The tasseled-cap indices: each a sum of its coefficients times the
+#: :data:`BANDS`, left to right.
+TC_COEFFS = {"tcb": _TCB_COEFFS, "tcg": _TCG_COEFFS, "tcw": _TCW_COEFFS}
 
 #: Sign multiplier that makes each index disturbance-positive.
 DISTURBANCE_SIGN = {
@@ -59,7 +63,10 @@ DISTURBANCE_SIGN = {
 INDEX_NAMES = tuple(DISTURBANCE_SIGN)
 
 #: Bands each index actually reads; the driver ships only the union its
-#: index selection needs.
+#: index selection needs.  An index outside :data:`TC_COEFFS` is the
+#: normalized difference of its two bands, (first − second) /
+#: (first + second): this table and :data:`TC_COEFFS` define every index,
+#: for :func:`compute_index` and the index kernel alike.
 INDEX_BANDS = {
     "nbr": ("nir", "swir2"),
     "ndvi": ("nir", "red"),
@@ -137,14 +144,11 @@ def compute_index(
     disturbance is an increase.
     """
     key = name.lower()
-    if key == "nbr":
-        out = nbr(bands["nir"], bands["swir2"])
-    elif key == "ndvi":
-        out = ndvi(bands["nir"], bands["red"])
-    elif key == "ndmi":
-        out = ndmi(bands["nir"], bands["swir1"])
-    elif key in _TC_COEFFS:
-        out = _tasseled_cap(_TC_COEFFS[key], tuple(bands[b] for b in BANDS))
+    if key in TC_COEFFS:
+        out = _tasseled_cap(TC_COEFFS[key], tuple(bands[b] for b in BANDS))
+    elif key in INDEX_BANDS:
+        a, b = (bands[band] for band in INDEX_BANDS[key])
+        out = _safe_ratio(a - b, a + b)
     else:
         raise ValueError(f"unknown index {name!r}; expected one of {INDEX_NAMES}")
     if disturbance_positive:
@@ -219,3 +223,35 @@ def sr_valid_mask(
     if mask is None:
         raise ValueError("sr_valid_mask needs at least one known band")
     return mask
+
+
+def torch_tile_indices(
+    dn_bands: Mapping[str, torch.Tensor],
+    qa: torch.Tensor,
+    indices: tuple[str, ...],
+    ftv_indices: tuple[str, ...] = (),
+    scale: float = 2.75e-5,
+    offset: float = -0.2,
+    reject_bits: int = DEFAULT_QA_REJECT,
+) -> tuple[torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]:
+    """A tile's DNs and QA to its mask and every index it needs (plain).
+
+    ``dn_bands`` maps band name → ``(PX, NY)`` DNs, ``qa`` is the
+    ``(PX, NY)`` QA_PIXEL word.  Returns ``(series, mask, ftv)``:
+    ``series`` the ``(K·PX, NY)`` float32 rows of the K ``indices``, one
+    PX-row block each in their order (the first index alone when K = 1);
+    ``mask`` the ``(PX, NY)`` QA test AND every known band's range check;
+    ``ftv`` one ``(PX, NY)`` float32 tensor per ``ftv_indices`` name.
+    Every index is disturbance-positive.
+
+    The composition of :func:`scale_sr`, :func:`qa_valid_mask`,
+    :func:`sr_valid_mask` and :func:`compute_index`, a float32 copy of
+    every band: the plain version of the index kernel
+    (:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_tile_indices`),
+    which the tile program takes for CPU tensors.
+    """
+    sr = {name: scale_sr(dn, scale, offset) for name, dn in dn_bands.items()}
+    mask = qa_valid_mask(qa, reject_bits) & sr_valid_mask(sr)
+    rows = [compute_index(name, sr) for name in indices]
+    series = rows[0] if len(rows) == 1 else torch.cat(rows)
+    return series, mask, tuple(compute_index(name, sr) for name in ftv_indices)

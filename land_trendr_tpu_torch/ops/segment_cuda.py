@@ -11,6 +11,10 @@ is the FTV kernel's (fitted-trajectory values of a secondary index at the
 segmentation's vertex years), which the JAX package runs as XLA
 (``jax_fit_to_vertices``); its plain version is
 :func:`~land_trendr_tpu_torch.ops.ftv.torch_fit_to_vertices`.
+:func:`cuda_tile_indices` is the index kernel's (a tile's DNs and QA to
+its mask and every index it needs, in one pass), which the JAX package
+leaves to XLA; its plain version is
+:func:`~land_trendr_tpu_torch.ops.indices.torch_tile_indices`.
 
 * **Build.**  The kernel is compiled at first use with ``nvcc`` for
   ``sm_90a`` (two processes at once, the fixed forms and the global form,
@@ -47,10 +51,10 @@ segmentation's vertex years), which the JAX package runs as XLA
   and :data:`GLOBAL_LAUNCHES`, of the family kernel's three forms to
   :data:`FAMILY_LAUNCHES`, :data:`WIDE_FAMILY_LAUNCHES` and
   :data:`GLOBAL_FAMILY_LAUNCHES`, of the FTV kernel to :data:`FTV_LAUNCHES`,
-  and nothing else does; :data:`SERIES` adds the rows each fused-kernel
+  of the index kernel to :data:`INDEX_LAUNCHES`, and nothing else does; :data:`SERIES` adds the rows each fused-kernel
   launch segmented, of every form.
   Each launch is a traced span (``lt_segment_fused``, ``lt_family_stats``,
-  ``lt_ftv_fit``; :func:`~land_trendr_tpu_torch.utils.profiling.span`).
+  ``lt_ftv_fit``, ``lt_tile_index``; :func:`~land_trendr_tpu_torch.utils.profiling.span`).
   The FTV kernel is built in the global form only, planned by
   :func:`global_plan` at NV = ``max_segments + 1`` in place of the
   candidates.
@@ -59,8 +63,9 @@ segmentation's vertex years), which the JAX package runs as XLA
   (:func:`~land_trendr_tpu_torch.ops.segment.torch_segment_pixels`,
   :func:`~land_trendr_tpu_torch.ops.segment.torch_family_stats`).  A
   CUDA tensor is launched or rejected; there is no fallback.
-  :func:`cuda_fit_to_vertices` takes CUDA tensors only: the tile program
-  picks it or its plain version by the tensors' device.
+  :func:`cuda_fit_to_vertices` and :func:`cuda_tile_indices` take CUDA
+  tensors only: the tile program picks each or its plain version by the
+  tensors' device.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ from typing import NamedTuple
 import torch
 
 from land_trendr_tpu_torch.config import LTParams
+from land_trendr_tpu_torch.ops import indices as idx
 from land_trendr_tpu_torch.ops.segment import (
     SegOutputs,
     lentz_iters,
@@ -99,6 +105,8 @@ __all__ = [
     "GLOBAL_LOCAL_NC",
     "GLOBAL_SCRATCH_BUDGET",
     "GLOBAL_SWEEP",
+    "INDEX_LAUNCHES",
+    "INDEX_MAX_OUT",
     "LAUNCHES",
     "NARROW_NC",
     "NARROW_NY",
@@ -120,6 +128,7 @@ __all__ = [
     "cuda_segment_pixels",
     "cuda_segment_pixels_chunked",
     "cuda_segment_stage_cycles",
+    "cuda_tile_indices",
     "global_chunk",
     "global_plan",
     "GlobalPlan",
@@ -168,6 +177,8 @@ WIDE_NY, WIDE_NC = CAPS["wide"]
 #: tier may allocate; the launch loop cuts the pixels of a call to stay
 #: within it (the shared tier allocates none)
 GLOBAL_SCRATCH_BUDGET = 1 << 30
+#: outputs (indices) one launch of the index kernel writes at most
+INDEX_MAX_OUT = 16
 
 #: the fused kernel's stages, in the order of the columns of
 #: :func:`cuda_segment_stage_cycles`
@@ -189,6 +200,8 @@ WIDE_FAMILY_LAUNCHES = 0
 GLOBAL_FAMILY_LAUNCHES = 0
 #: FTV-kernel launches (one per scratch-sized piece of a call)
 FTV_LAUNCHES = 0
+#: index-kernel launches (one per call)
+INDEX_LAUNCHES = 0
 #: rows (series) the fused kernel's launches segmented, padding rows
 #: included — of every form, counted beside :data:`LAUNCHES`
 SERIES = 0
@@ -202,6 +215,7 @@ def launch_counts() -> "dict[str, int]":
         "GLOBAL_LAUNCHES": GLOBAL_LAUNCHES, "FAMILY_LAUNCHES": FAMILY_LAUNCHES,
         "WIDE_FAMILY_LAUNCHES": WIDE_FAMILY_LAUNCHES,
         "GLOBAL_FAMILY_LAUNCHES": GLOBAL_FAMILY_LAUNCHES, "FTV_LAUNCHES": FTV_LAUNCHES,
+        "INDEX_LAUNCHES": INDEX_LAUNCHES,
     }
 
 
@@ -240,6 +254,12 @@ _FTV_ARGTYPES = [
     _P, _P, _P, _P, _P, _P, _LL, _I,          # years, values, mask, vidx, nvert, out, px, ny
     _I, _I, _D, _I,                           # max_segments, overshoot, rt, prevent
     _P, _P, _I, _I,                           # stream, scratch, block, tier
+]
+_INDEX_ARGTYPES = [
+    _P, _P, _P, _LL,                          # bands[6], qa, mask, n
+    _I, _I, _D, _D, _I,                       # dn_type, qa_type, scale, offset, reject
+    _I, _P, _P, _P, _P,                       # n_out, slots, signs, coefs, dsts
+    _I, _I, _P,                               # vec, sms, stream
 ]
 
 
@@ -356,6 +376,8 @@ def load_library() -> ctypes.CDLL:
     for name in ("lt_ftv_fit_f32", "lt_ftv_fit_f64"):
         getattr(lib, name).argtypes = _FTV_ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
+    lib.lt_tile_indices.argtypes = _INDEX_ARGTYPES
+    lib.lt_tile_indices.restype = ctypes.c_int
     lib.lt_segment_global_block.argtypes = [_I, _I, _I]
     lib.lt_segment_global_block.restype = ctypes.c_int
     lib.lt_segment_global_smem_bytes.argtypes = [_I, _I, _I, _I]
@@ -363,7 +385,8 @@ def load_library() -> ctypes.CDLL:
     lib.lt_segment_global_scratch_bytes.argtypes = [_I, _I, _I, _I, _LL]
     lib.lt_segment_global_scratch_bytes.restype = ctypes.c_longlong
     for name in ("lt_segment_max_ny", "lt_segment_max_nc", "lt_segment_wide_max_ny",
-                 "lt_segment_wide_max_nc", "lt_segment_nstage", "lt_segment_global_local_nc"):
+                 "lt_segment_wide_max_nc", "lt_segment_nstage", "lt_segment_global_local_nc",
+                 "lt_tile_index_max_out"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
     for name in ("lt_segment_block", "lt_segment_wide_block"):
@@ -383,11 +406,12 @@ def _check_plans(lib: ctypes.CDLL) -> None:
          lib.lt_segment_wide_block(4), lib.lt_segment_wide_block(8)),
         lib.lt_segment_global_local_nc(),
         lib.lt_segment_nstage(),
+        lib.lt_tile_index_max_out(),
     )
     want = tuple(
         (*CAPS[cap], block_of(torch.float32, cap), block_of(torch.float64, cap))
         for cap in ("narrow", "wide")
-    ) + (GLOBAL_LOCAL_NC, len(STAGES))
+    ) + (GLOBAL_LOCAL_NC, len(STAGES), INDEX_MAX_OUT)
     if caps != want:
         raise RuntimeError(f"kernel capacities {caps} != wrapper's {want}")
     for code, cap in enumerate(("narrow", "wide")):
@@ -1191,3 +1215,121 @@ def _ftv_launch(years, values, mask, vertex_indices, n_vertices, params: LTParam
             raise RuntimeError(f"ftv_fit ({plan.tier} tier) launch failed: CUDA error {rc}")
         FTV_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the index kernel: a tile's DNs and QA to its mask and indices
+# ---------------------------------------------------------------------------
+
+#: the kernel's code of each DN and QA dtype it is built for
+_INDEX_TYPES = {torch.int16: 0, torch.uint16: 1}
+
+
+def _index_outputs(names, bands) -> list:
+    """``(slots, sign, coefficients)`` of each index in ``names`` for the
+    kernel's table, from the plain version's own tables: a tasseled cap
+    (``TC_COEFFS``) as slots ``(-1, -1)`` and its coefficients, any other
+    index as the ``BANDS`` slots of its two ``INDEX_BANDS``, whose
+    normalized difference it is.  Raises on a name not in ``INDEX_NAMES``
+    or a band the index reads that ``bands`` lacks, as the plain version
+    does."""
+    table = []
+    for name in names:
+        key = name.lower()
+        if key not in idx.INDEX_BANDS:
+            raise ValueError(f"unknown index {name!r}; expected one of {idx.INDEX_NAMES}")
+        missing = [b for b in idx.INDEX_BANDS[key] if b not in bands]
+        if missing:
+            raise KeyError(f"index {name!r} needs the bands {missing}, which the tile lacks")
+        if key in idx.TC_COEFFS:
+            slots, coefs = (-1, -1), idx.TC_COEFFS[key]
+        else:
+            slots = tuple(idx.BANDS.index(b) for b in idx.INDEX_BANDS[key])
+            coefs = (0.0,) * len(idx.BANDS)
+        table.append((slots, idx.DISTURBANCE_SIGN[key], coefs))
+    return table
+
+
+def cuda_tile_indices(
+    dn_bands,
+    qa: torch.Tensor,
+    indices: "tuple[str, ...]",
+    ftv_indices: "tuple[str, ...]" = (),
+    scale: float = 2.75e-5,
+    offset: float = -0.2,
+    reject_bits: int = idx.DEFAULT_QA_REJECT,
+) -> "tuple[torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]":
+    """A tile's DNs and QA to its mask and every index it needs, in one
+    launch of the index kernel on the current stream.
+
+    The arguments and the result are those of
+    :func:`~land_trendr_tpu_torch.ops.indices.torch_tile_indices`, bit for
+    bit: ``series`` one ``(K·PX, NY)`` float32 buffer whose PX-row blocks
+    are the ``indices`` in order, ``mask`` ``(PX, NY)`` bool, ``ftv`` the
+    ``(PX, NY)`` planes of one ``(F, PX, NY)`` float32 buffer.  The DN
+    bands share one dtype, int16 or uint16, and QA is int16 or uint16;
+    every tensor is ``(PX, NY)`` on one CUDA device.  Bands outside
+    ``BANDS`` are not read (no index reads them, and the range check skips
+    them).  CPU tensors raise: the caller picks the plain version by the
+    device."""
+    known = {b: dn_bands[b] for b in idx.BANDS if b in dn_bands}
+    if not known:
+        raise ValueError("the index kernel needs at least one known band")
+    names = (*indices, *ftv_indices)
+    if not indices or len(names) > INDEX_MAX_OUT:
+        raise ValueError(f"{len(indices)} series and {len(ftv_indices)} FTV indices: the index "
+                         f"kernel writes 1 to {INDEX_MAX_OUT} outputs, at least one series")
+    table = _index_outputs(names, known)
+    dtypes = {a.dtype for a in known.values()}
+    if len(dtypes) > 1 or not dtypes <= set(_INDEX_TYPES) or qa.dtype not in _INDEX_TYPES:
+        raise TypeError(f"the index kernel takes int16 or uint16 DNs of one dtype and QA; got "
+                        f"bands {sorted(map(str, dtypes))}, QA {qa.dtype}")
+    shapes = {tuple(a.shape) for a in (qa, *known.values())}
+    if len(shapes) > 1 or qa.dim() != 2:
+        raise ValueError(f"DN bands and QA must be one (PX, NY) shape; got {sorted(shapes)}")
+    devices = {a.device for a in (qa, *known.values())}
+    if len(devices) > 1:
+        raise ValueError(f"DN bands and QA on {sorted(map(str, devices))}")
+    if qa.device.type != "cuda":
+        raise ValueError(
+            f"cuda_tile_indices runs on CUDA tensors; got {qa.device} (the plain version for "
+            "the CPU is ops/indices.py:torch_tile_indices)")
+    with torch.cuda.device(qa.device):
+        sms = torch.cuda.get_device_properties(qa.device).multi_processor_count
+        return _index_launch(known, qa, len(indices), table, scale, offset, reject_bits, sms)
+
+
+def _index_launch(bands, qa, k, table, scale, offset, reject_bits, sms):
+    """The index kernel's launch over checked inputs: ``bands`` the known
+    bands, ``table`` :func:`_index_outputs` of the K series indices then
+    the FTV ones.  The tests call it directly: on CPU tensors with the
+    library built for the host, at a chosen ``sms``."""
+    global INDEX_LAUNCHES
+    bands = {b: a.contiguous() for b, a in bands.items()}
+    qa = qa.contiguous()
+    px, ny = qa.shape
+    dev = qa.device
+    series = torch.empty((k * px, ny), dtype=torch.float32, device=dev)
+    ftv = torch.empty((len(table) - k, px, ny), dtype=torch.float32, device=dev)
+    mask = torch.empty((px, ny), dtype=torch.bool, device=dev)
+    n = px * ny
+    dsts = [series.data_ptr() + 4 * n * j for j in range(k)]
+    dsts += [ftv.data_ptr() + 4 * n * j for j in range(len(table) - k)]
+    ptrs = [bands[b].data_ptr() if b in bands else 0 for b in idx.BANDS]
+    vec = all(p % 16 == 0 for p in (*ptrs, qa.data_ptr(), *dsts)) and mask.data_ptr() % 8 == 0
+    m = len(table)
+    with span("lt_tile_index"):
+        rc = load_library().lt_tile_indices(
+            (_P * len(ptrs))(*(p or None for p in ptrs)), qa.data_ptr(), mask.data_ptr(), n,
+            _INDEX_TYPES[next(iter(bands.values())).dtype], _INDEX_TYPES[qa.dtype],
+            float(scale), float(offset), int(reject_bits), m,
+            (_I * (2 * m))(*(s for sl, _, _ in table for s in sl)),
+            (_D * m)(*(sg for _, sg, _ in table)),
+            (_D * (m * len(idx.BANDS)))(*(c for _, _, cs in table for c in cs)),
+            (_P * m)(*dsts), int(vec), sms,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tile_index launch failed: CUDA error {rc}")
+    INDEX_LAUNCHES += 1
+    return series, mask, tuple(ftv.unbind(0))

@@ -6,7 +6,12 @@ DNs plus the uint16 QA bitfield — and this program does DN→reflectance
 scaling, QA + range masking, the spectral index and the segmentation on
 the device the tensors live on.  On a CUDA device the segmentation is the
 hand-written kernel (:mod:`land_trendr_tpu_torch.ops.segment_cuda`); on
-the CPU it is the plain PyTorch version.  The optional tail: FTV fits of
+the CPU it is the plain PyTorch version.  The scaling, the masks and every
+index the tile needs are picked the same way: one pass of the index kernel
+(:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_tile_indices`) on a
+CUDA device, its plain version
+(:func:`~land_trendr_tpu_torch.ops.indices.torch_tile_indices`) on the
+CPU.  The optional tail: FTV fits of
 secondary indices, picked the same way (the FTV kernel,
 :func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_fit_to_vertices`, on a
 CUDA device, its plain version
@@ -38,11 +43,12 @@ from land_trendr_tpu_torch.ops.segment_cuda import (
     cuda_fit_to_vertices,
     cuda_segment_pixels,
     cuda_segment_pixels_chunked,
+    cuda_tile_indices,
 )
 from land_trendr_tpu_torch.parallel.mesh import pad_to_multiple
 from land_trendr_tpu_torch.utils.profiling import span
 
-__all__ = ["IMPLS", "TileOutputs", "ftv_fit", "process_tile_dn", "resolve_impl"]
+__all__ = ["IMPLS", "TileOutputs", "ftv_fit", "process_tile_dn", "resolve_impl", "tile_indices"]
 
 #: segmentation implementations: the hand-written kernel and its plain
 #: PyTorch version
@@ -94,6 +100,16 @@ def ftv_fit(impl: str):
     return cuda_fit_to_vertices if impl == "cuda" else torch_fit_to_vertices
 
 
+def tile_indices(impl: str):
+    """The index pass of a resolved ``impl`` (:func:`resolve_impl`): the
+    index kernel
+    (:func:`~land_trendr_tpu_torch.ops.segment_cuda.cuda_tile_indices`)
+    for "cuda", its plain version
+    (:func:`~land_trendr_tpu_torch.ops.indices.torch_tile_indices`) for
+    "torch"."""
+    return cuda_tile_indices if impl == "cuda" else idx.torch_tile_indices
+
+
 def process_tile_dn(
     years: torch.Tensor,
     dn_bands: Mapping[str, torch.Tensor],
@@ -112,10 +128,11 @@ def process_tile_dn(
     """Segment one tile straight from Collection-2 style DNs.
 
     ``years`` is the ``(NY,)`` year axis; ``dn_bands`` maps band name →
-    ``(PX, NY)`` int16/uint16 DNs and must hold the bands ``index``,
-    ``ftv_indices`` and ``ensemble_indices`` need (all six for a
-    tasseled-cap index); ``qa`` is the ``(PX, NY)``
-    uint16 QA_PIXEL bitfield, all on one device.  ``ftv_indices`` are
+    ``(PX, NY)`` int16/uint16 DNs (one of the two for every band on a
+    CUDA device, which the index kernel is built for) and must hold the
+    bands ``index``, ``ftv_indices`` and ``ensemble_indices`` need (all
+    six for a tasseled-cap index); ``qa`` is the ``(PX, NY)``
+    uint16 (or int16) QA_PIXEL bitfield, all on one device.  ``ftv_indices`` are
     secondary indices fitted to the chosen vertices; ``change_filt``
     selects each pixel's change segment (natural orientation).
     ``ensemble_indices`` are further indices each segmented on its own:
@@ -130,9 +147,11 @@ def process_tile_dn(
 
     While a profiler session records, each stage is a span on the tile's
     device (:func:`~land_trendr_tpu_torch.utils.profiling.span`):
-    ``lt_tile_prep`` (scaling, masks, the primary index),
-    ``lt_tile_ensemble`` (the further indices and the K series and masks
-    stacked; only with ``ensemble_indices``), ``lt_tile_segment``
+    ``lt_tile_prep`` (scaling, masks and every index: the primary, the
+    ensemble's and FTV's, :func:`tile_indices`; the index kernel's launch
+    span ``lt_tile_index`` nests inside), ``lt_tile_ensemble`` (the mask
+    repeated for the K series; only with ``ensemble_indices``),
+    ``lt_tile_segment``
     (padding, the kernel's launches, the crop and the split),
     ``lt_tile_ftv`` (the FTV kernel's launch spans ``lt_ftv_fit`` nest
     inside) and ``lt_tile_change`` (when asked for).
@@ -141,16 +160,15 @@ def process_tile_dn(
     impl = resolve_impl(impl, dev)
     with span("lt_tile_prep", dev):
         years = years.to(dev)
-        sr = {name: idx.scale_sr(dn, scale, offset) for name, dn in dn_bands.items()}
-        mask = idx.qa_valid_mask(qa, reject_bits) & idx.sr_valid_mask(sr)
-        primary = idx.compute_index(index, sr)
-    px = primary.shape[0]
-    series, series_mask = primary, mask
+        series, mask, ftv_values = tile_indices(impl)(
+            dn_bands, qa, (index, *ensemble_indices), ftv_indices, scale, offset, reject_bits)
+    px = mask.shape[0]
+    series_mask = mask
     if ensemble_indices:
         with span("lt_tile_ensemble", dev):
-            series = torch.cat(
-                [primary, *(idx.compute_index(name, sr) for name in ensemble_indices)])
-            series_mask = mask.repeat(1 + len(ensemble_indices), 1)
+            # the mask once per index: on the card cat copies in wide
+            # vectors, three times repeat's speed (a byte a thread)
+            series_mask = torch.cat([mask] * (1 + len(ensemble_indices)))
     rows = series.shape[0]
     if impl == "cuda":
         whole, chunked = cuda_segment_pixels, cuda_segment_pixels_chunked
@@ -174,11 +192,8 @@ def process_tile_dn(
     if ftv_indices:
         with span("lt_tile_ftv", dev):
             ftv = {
-                name: fit(
-                    years, idx.compute_index(name, sr), mask, seg.vertex_indices,
-                    seg.n_vertices, params,
-                )
-                for name in ftv_indices
+                name: fit(years, values, mask, seg.vertex_indices, seg.n_vertices, params)
+                for name, values in zip(ftv_indices, ftv_values)
             }
     change = None
     if change_filt is not None:

@@ -243,6 +243,125 @@ def test_tile_program_on_cpu_takes_the_plain_ftv(rng, monkeypatch):
     assert bool(out.ftv["ndvi"].isfinite().all())
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def test_tile_program_on_cpu_takes_the_plain_index_pass(rng, monkeypatch):
+    # on CPU tensors the tile program's index math is the plain version,
+    # with no index launch, and its outputs are the composition it replaced
+    # (scale_sr, both masks, compute_index, the cat of the K series, the
+    # mask repeated): a primary with two ensemble indices and two FTV
+    # indices.  The series handed to the segmentation holds the primary's
+    # rows, then each ensemble index's, in order
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops import tile
+    from land_trendr_tpu_torch.ops.change import ChangeFilter, select_change
+    from land_trendr_tpu_torch.ops.ftv import torch_fit_to_vertices
+    from land_trendr_tpu_torch.ops.segment import SegOutputs
+
+    def kernel(*_a, **_k):
+        raise AssertionError("the index kernel's wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(tile, "cuda_tile_indices", kernel)
+    plain_calls, seg_calls = [], []
+    real_plain, real_seg = idx.torch_tile_indices, tile.torch_segment_pixels
+    monkeypatch.setattr(idx, "torch_tile_indices",
+                        lambda *a: plain_calls.append(a) or real_plain(*a))
+    monkeypatch.setattr(tile, "torch_segment_pixels",
+                        lambda y, v, m, p: seg_calls.append((v, m)) or real_seg(y, v, m, p))
+    px, ny, params = 64, 20, LTParams(max_segments=3)
+    ens, ftv = ("tcb", "ndvi"), ("tcw", "ndmi")
+    years = torch.arange(2000, 2000 + ny, dtype=torch.int32)
+    dn = {b: torch.from_numpy(rng.integers(7300, 40000, size=(px, ny)).astype(np.uint16))
+          for b in idx.BANDS}
+    qa = torch.from_numpy(np.where(rng.uniform(size=(px, ny)) < 0.1, 8, 0).astype(np.uint16))
+    filt = ChangeFilter()
+    before = sc.INDEX_LAUNCHES
+    out = tile.process_tile_dn(years, dn, qa, params=params, ftv_indices=ftv,
+                               change_filt=filt, ensemble_indices=ens)
+    assert sc.INDEX_LAUNCHES == before and len(plain_calls) == 1 and len(seg_calls) == 1
+    assert plain_calls[0][2:4] == (("nbr", *ens), ftv)
+
+    sr = {b: idx.scale_sr(v) for b, v in dn.items()}
+    mask = idx.qa_valid_mask(qa) & idx.sr_valid_mask(sr)
+    rows = [idx.compute_index(name, sr) for name in ("nbr", *ens)]
+    series, series_mask = seg_calls[0]
+    assert series.shape == (3 * px, ny)
+    for k, row in enumerate(rows):  # the row order of the (K·PX, NY) series
+        assert _same_bits(series[k * px:(k + 1) * px], row), k
+    assert _same_bits(series_mask, mask.repeat(3, 1))
+    seg = real_seg(years, torch.cat(rows), mask.repeat(3, 1), params)
+    parts = [SegOutputs(*(o[k * px:(k + 1) * px] for o in seg)) for k in range(3)]
+    for got, want in zip((out.seg, *(out.ens[n] for n in ens)), parts):
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert list(out.ens) == list(ens) and list(out.ftv) == list(ftv)
+    for name in ftv:
+        want = torch_fit_to_vertices(years, idx.compute_index(name, sr), mask,
+                                     parts[0].vertex_indices, parts[0].n_vertices, params)
+        assert _same_bits(out.ftv[name], want), name
+    s = parts[0]
+    change = select_change(s.vertex_years, -s.vertex_fit_vals, -s.seg_magnitude, s.seg_duration,
+                           -s.seg_rate, s.model_valid, s.p_of_f, s.rmse, sign=-1.0, filt=filt)
+    assert change.keys() == out.change.keys()
+    assert all(_same_bits(out.change[k], change[k]) for k in change)
+    assert bool(out.seg.model_valid.any())
+
+
+@pytest.mark.parametrize(
+    "case,exc,match",
+    [
+        ("float_dn", TypeError, "int16 or uint16"),
+        ("mixed_dn", TypeError, "int16 or uint16"),
+        ("int32_qa", TypeError, "int16 or uint16"),
+        ("shape", ValueError, "one \\(PX, NY\\) shape"),
+        ("unknown", ValueError, "unknown index"),
+        ("missing_band", KeyError, "needs the bands"),
+        ("no_band", ValueError, "at least one known band"),
+        ("too_many", ValueError, "1 to 16 outputs"),
+        ("devices", ValueError, "DN bands and QA on"),
+        ("cpu", ValueError, "runs on CUDA tensors"),
+    ],
+)
+def test_index_wrapper_checks_before_loading_the_library(rng, monkeypatch, case, exc, match):
+    # what the index kernel does not take raises before the library is
+    # built or loaded; CPU tensors take the plain version, not this wrapper
+    monkeypatch.setattr(sc, "load_library", _no_library)
+    dn = {b: torch.from_numpy(rng.integers(0, 9000, size=(32, 40)).astype(np.int16))
+          for b in ("red", "nir", "swir2")}
+    qa = torch.zeros((32, 40), dtype=torch.int16).view(torch.uint16)
+    series, ftv = ("nbr",), ()
+    if case == "float_dn":
+        dn = {b: v.float() for b, v in dn.items()}
+    elif case == "mixed_dn":
+        dn["red"] = dn["red"].view(torch.uint16)
+    elif case == "int32_qa":
+        qa = qa.view(torch.int16).int()
+    elif case == "shape":
+        dn["nir"] = dn["nir"][:16]
+    elif case == "unknown":
+        series = ("evi",)
+    elif case == "missing_band":
+        ftv = ("ndmi",)
+    elif case == "no_band":
+        dn = {"thermal": dn["nir"]}
+    elif case == "too_many":
+        ftv = ("ndvi",) * 16
+    elif case == "devices":
+        qa = qa.to("meta")
+    with pytest.raises(exc, match=match):
+        sc.cuda_tile_indices(dn, qa, series, ftv)
+
+
+def test_index_pass_is_picked_by_the_resolved_impl():
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops import tile
+
+    assert tile.tile_indices(tile.resolve_impl("auto", "cuda:0")) is sc.cuda_tile_indices
+    assert tile.tile_indices(tile.resolve_impl("auto", "cpu")) is idx.torch_tile_indices
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -882,6 +1001,14 @@ def test_stage_spans_time_a_traced_tile_on_card(card):
     assert ms["lt_tile_ftv"] >= sum(e.duration_ns() for e in ftv) / 1e6 > 0
     assert sum(e.name() == "lt_ftv_fit" and str(e.device_type()).endswith("CPU")
                for e in prof.profiler.kineto_results.events()) == 2
+    # the index kernel: one launch a tile, inside prep, its launch span the
+    # host range lt_tile_index
+    index = [e for e in prof.profiler.kineto_results.events()
+             if "tile_index_kernel" in e.name() and str(e.device_type()).endswith("CUDA")]
+    assert len(index) == 1 and "segment_fused_kernel" not in index[0].name()
+    assert ms["lt_tile_prep"] >= index[0].duration_ns() / 1e6 > 0
+    assert sum(e.name() == "lt_tile_index" and str(e.device_type()).endswith("CPU")
+               for e in prof.profiler.kineto_results.events()) == 1
     profiling.SPAN_LOG.clear()
 
 
@@ -1046,3 +1173,145 @@ def test_ensemble_stacked_call_equals_per_index_calls_on_card(card, side):
             assert torch.equal(a.contiguous().view(torch.uint8),
                                b.contiguous().view(torch.uint8)), (name, field)
         assert bool(got.model_valid.any())
+
+
+# ---------------------------------------------------------------------------
+# the index kernel on the card
+# ---------------------------------------------------------------------------
+
+#: (series indices, FTV indices, shipped bands) of the cells: segall and the
+#: change cell (NBR), the ensemble cell, the FTV cell
+INDEX_SETS = {
+    "nbr": (("nbr",), (), ("nir", "swir2")),
+    "ensemble": (("nbr", "ndvi", "ndmi", "tcb", "tcg", "tcw"), (), None),
+    "ftv": (("nbr",), ("ndvi", "tcw"), None),
+}
+
+
+def _card_tile(card, px, ny, bands, dtype=torch.int16, seed=20261019):
+    """DNs of a forest scene with its extremes, and QA with the cloud bit
+    on a tenth of the observations and high bits set on another tenth."""
+    from land_trendr_tpu_torch.ops import indices as idx
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    hi = 32767 if dtype == torch.int16 else 43636
+    dn = {}
+    for b in bands or idx.BANDS:
+        d = torch.randint(7000, hi + 1, (px, ny), generator=gen, device=card, dtype=torch.int32)
+        edge = torch.rand((px, ny), generator=gen, device=card) < 0.02
+        d = torch.where(edge, torch.tensor(0, device=card), d)
+        dn[b] = (d.to(torch.int16) if dtype == torch.int16
+                 else d.to(torch.int32).to(torch.int16).view(torch.uint16))
+    r = torch.rand((px, ny), generator=gen, device=card)
+    qa = torch.where(r < 0.1, 8, torch.where(r > 0.9, 0xFF40, 0)).to(torch.int16)
+    return dn, qa.view(torch.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,px,ny,dtype",
+    [
+        ("nbr", 1024 * 1024, 40, torch.int16),         # segall / change cell
+        ("ensemble", 1024 * 1024, 40, torch.int16),    # the ensemble cell
+        ("ftv", 2048 * 2048, 40, torch.int16),         # the FTV cell
+        ("ftv", 1037, 37, torch.uint16),               # one element a thread, a ragged end
+        ("ensemble", 1037, 36, torch.uint16),          # eight a thread, a tail of four
+    ],
+)
+def test_index_kernel_matches_plain_on_card(card, case, px, ny, dtype):
+    # the mask and every output row bit for bit the plain version's on the
+    # same CUDA tensors, one launch
+    from land_trendr_tpu_torch.ops import indices as idx
+
+    series_idx, ftv_idx, bands = INDEX_SETS[case]
+    dn, qa = _card_tile(card, px, ny, bands, dtype)
+    before = sc.INDEX_LAUNCHES
+    series, mask, ftv = sc.cuda_tile_indices(dn, qa, series_idx, ftv_idx)
+    torch.cuda.synchronize()
+    assert sc.INDEX_LAUNCHES - before == 1
+    ref_series, ref_mask, ref_ftv = idx.torch_tile_indices(dn, qa, series_idx, ftv_idx)
+    assert torch.equal(mask, ref_mask)
+    assert 0.5 < float(mask.float().mean()) < 0.95
+    assert torch.equal(series.view(torch.int32), ref_series.view(torch.int32))
+    assert len(ftv) == len(ftv_idx)
+    for a, b in zip(ftv, ref_ftv):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ["ensemble", "ftv"])
+def test_tile_program_indices_with_the_kernel_on_card(card, monkeypatch, tail):
+    # process_tile_dn on the card: one index launch a call, and every
+    # output (segmentation, ensemble, FTV, change) the bits of the same
+    # program with the plain index pass in its place
+    from land_trendr_tpu_torch.ops import indices as idx
+    from land_trendr_tpu_torch.ops import tile
+    from land_trendr_tpu_torch.ops.change import ChangeFilter
+
+    px, ny, chunk = 262_144, 40, 65_536
+    dn, qa = _card_tile(card, px, ny, None)
+    years = torch.arange(1984, 1984 + ny, dtype=torch.int32, device=card)
+    kw = (dict(ensemble_indices=("ndvi", "tcb")) if tail == "ensemble"
+          else dict(ftv_indices=("ndvi", "tcw"), change_filt=ChangeFilter()))
+    before = sc.INDEX_LAUNCHES
+    out = tile.process_tile_dn(years, dn, qa, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    assert sc.INDEX_LAUNCHES - before == 1
+    monkeypatch.setattr(tile, "tile_indices", lambda impl: idx.torch_tile_indices)
+    ref = tile.process_tile_dn(years, dn, qa, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    assert sc.INDEX_LAUNCHES - before == 1
+    pairs = list(zip(out.seg, ref.seg))
+    pairs += [p for n in out.ens for p in zip(out.ens[n], ref.ens[n])]
+    pairs += [(out.ftv[n], ref.ftv[n]) for n in out.ftv]
+    pairs += [(out.change[k], ref.change[k]) for k in (out.change or {})]
+    assert list(out.ens) == list(ref.ens) and list(out.ftv) == list(ref.ftv)
+    for a, b in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+    assert bool(out.seg.model_valid.any())
+
+
+@pytest.mark.cuda
+def test_index_kernel_times_on_card(card):
+    # CUDA-event times of the index kernel (the wrapper's call, one launch)
+    # and of its plain version at the cells' tiles, beside the bytes bound
+    # (each input byte read and each output byte written once at 3.35
+    # TB/s); one JSON line on stdout
+    import json
+    import subprocess
+
+    from land_trendr_tpu_torch.ops import indices as idx
+
+    def ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(reps):
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    rec = {}
+    for case, side in (("nbr", 1024), ("ensemble", 1024), ("ftv", 2048)):
+        series_idx, ftv_idx, bands = INDEX_SETS[case]
+        n = side * side * 40
+        dn, qa = _card_tile(card, side * side, 40, bands)
+        args = (dn, qa, series_idx, ftv_idx)
+        moved = n * (2 * (len(dn) + 1) + 1 + 4 * (len(series_idx) + len(ftv_idx)))
+        rec[case] = {"kernel_ms": ms(lambda: sc.cuda_tile_indices(*args), 20),
+                     "plain_ms": ms(lambda: idx.torch_tile_indices(*args), 5),
+                     "bound_ms": moved / 3.35e9, "bytes": moved}
+        rec[case]["bound_share"] = rec[case]["bound_ms"] / rec[case]["kernel_ms"]
+        del dn, qa, args
+        torch.cuda.empty_cache()
+    rec["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    print("index_kernel_times " + json.dumps(rec))
+    for case in INDEX_SETS:
+        assert 0 < rec[case]["kernel_ms"] < rec[case]["plain_ms"]

@@ -650,4 +650,4 @@ def test_debug_kernels_reports_the_process_launch_counts(tmp_path):
     assert body == {"launches": segment_cuda.launch_counts()}
     assert sorted(body["launches"]) == sorted(
         [f"{form}{kind}LAUNCHES" for form in ("", "WIDE_", "GLOBAL_")
-         for kind in ("", "FAMILY_")] + ["FTV_LAUNCHES"])
+         for kind in ("", "FAMILY_")] + ["FTV_LAUNCHES", "INDEX_LAUNCHES"])
